@@ -1,0 +1,82 @@
+"""Carry rule packs and step state across from numpy.
+
+The JAX package's ``RulePack`` and ``SentinelState`` are pytrees of
+NamedTuples; flattened to nested dicts of numpy arrays (field name ->
+array or sub-dict) they load into this package's NamedTuples of the same
+field names. uint32 arrays (param value hashes, owner keys) become int64
+holding the same values; every other dtype is kept. Fields this package
+does not carry (the JAX state's ``shadow`` and ``flight``, ``None`` unless
+enabled) are ignored.
+
+This module sees only numpy: it imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from sentinel_tpu_torch.models import authority as A
+from sentinel_tpu_torch.models import degrade as D
+from sentinel_tpu_torch.models import flow as F
+from sentinel_tpu_torch.models import param_flow as P
+from sentinel_tpu_torch.models import system as Y
+from sentinel_tpu_torch.ops import step as S
+from sentinel_tpu_torch.ops import window as W
+
+# Nested NamedTuple types by (parent type, field).
+_NESTED = {
+    S.RulePack: {"flow": F.FlowRuleTensors, "degrade": D.DegradeRuleTensors,
+                 "authority": A.AuthorityRuleTensors,
+                 "system": Y.SystemRuleTensors, "param": P.ParamRuleTensors},
+    S.SentinelState: {"w1": W.Window, "w60": W.Window, "flow": F.FlowState,
+                      "degrade": D.DegradeState, "param": P.ParamFlowState,
+                      "sec": S.SecondAccum, "telemetry": S.TelemetryState},
+    D.DegradeState: {"win": W.RowWindow},
+}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def tree_from_numpy(cls, d: Dict[str, Any], device):
+    """Nested numpy dict -> the NamedTuple ``cls`` (nested types from
+    ``_NESTED``) with tensors on ``device``."""
+    device = torch.device(device)
+    nested = _NESTED.get(cls, {})
+    kw = {}
+    for name in cls._fields:
+        if name in nested:
+            kw[name] = tree_from_numpy(nested[name], d[name], device)
+        else:
+            kw[name] = _tensor(d[name], device)
+    return cls(**kw)
+
+
+def rules_from_numpy(d: Dict[str, Any], device) -> S.RulePack:
+    """Nested numpy dict of a JAX ``RulePack`` -> this package's pack."""
+    return tree_from_numpy(S.RulePack, d, device)
+
+
+def state_from_numpy(d: Dict[str, Any], device) -> S.SentinelState:
+    """Nested numpy dict of a JAX ``SentinelState`` -> this package's
+    state."""
+    return tree_from_numpy(S.SentinelState, d, device)
+
+
+def state_to_numpy(state) -> Dict[str, Any]:
+    """This package's state (or any NamedTuple of tensors) -> nested dict
+    of numpy arrays."""
+    out = {}
+    for name, v in state._asdict().items():
+        if isinstance(v, tuple) and hasattr(v, "_asdict"):
+            out[name] = state_to_numpy(v)
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out

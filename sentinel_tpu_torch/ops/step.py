@@ -1,0 +1,419 @@
+"""The fused admission/commit step (port of ``sentinel_tpu/ops/step.py``).
+
+``entry_step(state, rules, batch, now) -> (state', decisions)``:
+
+  1. rotates the 1s window to ``now`` and folds the staged second into the
+     minute window when the second rolled (``_roll_second``);
+  2. runs the rule slots authority → system → param → flow → degrade, the
+     reference chain's order;
+  3. commits statistics like ``StatisticSlot`` — pass / block / thread
+     gauge — AFTER the verdicts, to the DefaultNode, ClusterNode, origin
+     and (inbound) ENTRY_NODE rows, as one exact integer bincount.
+
+``exit_step`` commits RT / success / exception, the min-RT, the thread
+decrement, the RT histogram, and feeds the breakers and THREAD-grade
+param gauges.
+
+The JAX state is donated every step; here the step CONSUMES its input
+state: the minute window, the second staging, the telemetry staging and
+the param-flow tables are updated in place, the small tensors are
+replaced. Callers keep only the returned state. The staged-rollout shadow
+lanes and the flight recorder of the JAX step (``None`` unless asked for)
+are not part of this package yet, and the step takes no such arguments.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from sentinel_tpu_torch.core import constants as C
+from sentinel_tpu_torch.core.batch import Decisions, EntryBatch, ExitBatch
+from sentinel_tpu_torch.core.registry import ENTRY_ROW
+from sentinel_tpu_torch.models import authority as A
+from sentinel_tpu_torch.models import degrade as D
+from sentinel_tpu_torch.models import flow as F
+from sentinel_tpu_torch.models import param_flow as P
+from sentinel_tpu_torch.models import system as Y
+from sentinel_tpu_torch.ops import segment as seg
+from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.ops.window import add_at, in_range, min_at
+from sentinel_tpu_torch.telemetry.attribution import (
+    NUM_ATTR_REASONS,
+    NUM_RT_BUCKETS,
+    NUM_SLOT_BINS,
+    REASON_CHANNEL_TABLE,
+    rt_bucket_index,
+    slot_bin_index,
+)
+from sentinel_tpu_torch.utils.device import SYNCS, resolve_device
+
+SPEC_1S = W.WindowSpec(C.SECOND_WINDOW_MS, C.SECOND_BUCKETS)
+SPEC_60S = W.WindowSpec(C.MINUTE_WINDOW_MS, C.MINUTE_BUCKETS)
+
+
+class SecondAccum(NamedTuple):
+    """Staging buffer for the current second's statistics, folded into
+    ``w60`` once per second."""
+
+    counts: torch.Tensor  # int32[E, R] event deltas of the second at `stamp`
+    min_rt: torch.Tensor  # int32[R] min RT observed this second
+    stamp: torch.Tensor   # int64[] bucket-start ms of the second; -1 = unset
+
+
+class TelemetryState(NamedTuple):
+    """Cumulative telemetry plus the current second's int32 staging; the
+    int64 counters fold from the staging once per second."""
+
+    block_by_reason: torch.Tensor  # int64[NUM_ATTR_REASONS, R]
+    rt_hist: torch.Tensor          # int64[NUM_RT_BUCKETS, R]
+    totals: torch.Tensor           # int64[NUM_EVENTS, R]
+    block_by_slot: torch.Tensor    # int64[NUM_ATTR_REASONS, NUM_SLOT_BINS]
+    stage_attr: torch.Tensor       # int32[NUM_ATTR_REASONS, R]
+    stage_hist: torch.Tensor       # int32[NUM_RT_BUCKETS, R]
+    stage_slot: torch.Tensor       # int32[NUM_ATTR_REASONS, NUM_SLOT_BINS]
+
+
+def make_telemetry_state(num_rows: int, device) -> TelemetryState:
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    return TelemetryState(
+        block_by_reason=z((NUM_ATTR_REASONS, num_rows), torch.int64),
+        rt_hist=z((NUM_RT_BUCKETS, num_rows), torch.int64),
+        totals=z((C.NUM_EVENTS, num_rows), torch.int64),
+        block_by_slot=z((NUM_ATTR_REASONS, NUM_SLOT_BINS), torch.int64),
+        stage_attr=z((NUM_ATTR_REASONS, num_rows), torch.int32),
+        stage_hist=z((NUM_RT_BUCKETS, num_rows), torch.int32),
+        stage_slot=z((NUM_ATTR_REASONS, NUM_SLOT_BINS), torch.int32),
+    )
+
+
+class SentinelState(NamedTuple):
+    """All mutable device state, consumed and returned by every step."""
+
+    w1: W.Window             # 1s / 2-bucket window over all node rows
+    w60: W.Window            # 60s / 60-bucket window (metric log source)
+    cur_threads: torch.Tensor  # int32[R] live concurrency gauge per row
+    flow: F.FlowState
+    degrade: D.DegradeState
+    param: P.ParamFlowState
+    sys_signals: torch.Tensor  # f32[2] caller-sampled [load1, cpu_usage]
+    sec: SecondAccum         # current-second staging for the minute window
+    occupied_next: torch.Tensor   # int32[R] pending occupy borrows per row
+    occupied_stamp: torch.Tensor  # int64[] w1 bucket-start of the grants
+    telemetry: TelemetryState
+
+
+class RulePack(NamedTuple):
+    """All compiled rule tensors (host-rebuilt wholesale on config push)."""
+
+    flow: F.FlowRuleTensors
+    degrade: D.DegradeRuleTensors
+    authority: A.AuthorityRuleTensors
+    system: Y.SystemRuleTensors
+    param: P.ParamRuleTensors
+
+
+def make_state(num_rows: int, flow_rules: int, now_ms: int,
+               degrade: D.DegradeState = None,
+               param: P.ParamFlowState = None,
+               spec1: W.WindowSpec = SPEC_1S,
+               device=None) -> SentinelState:
+    device = resolve_device(device)
+    if degrade is None:
+        dt, di = D.compile_degrade_rules([], None, num_rows, device=device)
+        degrade = D.make_degrade_state(dt, di)
+    if param is None:
+        param = P.make_param_state(0, device=device)
+    return SentinelState(
+        w1=W.make_window(num_rows, spec1, device),
+        w60=W.make_window(num_rows, SPEC_60S, device),
+        cur_threads=torch.zeros((num_rows,), dtype=torch.int32, device=device),
+        flow=F.make_flow_state(flow_rules, now_ms, device=device),
+        degrade=degrade,
+        param=param,
+        sys_signals=torch.full((Y.NUM_SIGNALS,), -1.0, dtype=torch.float32,
+                               device=device),
+        sec=SecondAccum(
+            counts=torch.zeros((C.NUM_EVENTS, num_rows), dtype=torch.int32,
+                               device=device),
+            min_rt=torch.full((num_rows,), W.MIN_RT_EMPTY, dtype=torch.int32,
+                              device=device),
+            stamp=torch.tensor(-1, dtype=torch.int64, device=device),
+        ),
+        occupied_next=torch.zeros((num_rows,), dtype=torch.int32,
+                                  device=device),
+        occupied_stamp=torch.tensor(-1, dtype=torch.int64, device=device),
+        telemetry=make_telemetry_state(num_rows, device),
+    )
+
+
+def _roll_second(w60: W.Window, sec: SecondAccum, telemetry: TelemetryState,
+                 now_ms: int
+                 ) -> Tuple[W.Window, SecondAccum, TelemetryState]:
+    """Fold the staged second into the minute window if the second rolled
+    (IN PLACE on all three). The fold freshens only the stamped bucket and
+    lands the whole [E, R] delta with one dense add; the cumulative
+    telemetry counters fold from the same pre-reset staging. One counted
+    sync reads the stamp."""
+    now = int(now_ms)
+    sec_start = now - now % SPEC_60S.bucket_ms
+    SYNCS.count += 1
+    stamp = int(sec.stamp)
+    if stamp >= 0 and stamp != sec_start:
+        W.rotate_current(w60, stamp, SPEC_60S)
+        idx = W.current_index(stamp, SPEC_60S)
+        w60.counts[idx] += sec.counts
+        w60.min_rt[idx] = torch.minimum(w60.min_rt[idx], sec.min_rt)
+        t = telemetry
+        t.block_by_reason.add_(t.stage_attr)
+        t.rt_hist.add_(t.stage_hist)
+        t.totals.add_(sec.counts)
+        t.block_by_slot.add_(t.stage_slot)
+        t.stage_attr.zero_()
+        t.stage_hist.zero_()
+        t.stage_slot.zero_()
+        sec.counts.zero_()
+        sec.min_rt.fill_(W.MIN_RT_EMPTY)
+    sec.stamp.fill_(sec_start)
+    return w60, sec, telemetry
+
+
+def flush_seconds(state: SentinelState, now_ms: int) -> SentinelState:
+    """Host-boundary flush: fold any completed staged second into ``w60``
+    and the cumulative telemetry counters (in place)."""
+    w60, sec, telemetry = _roll_second(state.w60, state.sec, state.telemetry,
+                                       now_ms)
+    return state._replace(w60=w60, sec=sec, telemetry=telemetry)
+
+
+def _target_rows(cluster_row, dn_row, origin_row, entry_in):
+    """[N, 4] node rows each request commits to (−1 entries are dropped)."""
+    entry_row = torch.where(entry_in, ENTRY_ROW, -1).to(cluster_row.dtype)
+    return torch.stack([dn_row, cluster_row, origin_row, entry_row], dim=1)
+
+
+def _event_delta(rows4: torch.Tensor, pairs, num_rows: int,
+                 extra_cols=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All (event, values4) commits as one dense int32[E, R] delta.
+
+    ``pairs``: list of (MetricEvent, values4, wide) with values4 shaped
+    like ``rows4``; ``wide`` values (RT sums) are clipped to [0, 65535] as
+    in the JAX step. The bincount is an exact integer ``index_add_``, so
+    the JAX byte-limb split (for bf16 operands) is not needed.
+    ``extra_cols``: further [N, 4] value sets folded into the same call.
+    Returns ``(delta, extras)`` with ``extras`` int32[len(extra_cols), R].
+    """
+    rows_flat = rows4.reshape(-1)
+    cols = []
+    for _, v, wide in pairs:
+        vf = v.reshape(-1)
+        if wide:
+            vf = torch.clamp(vf, 0, 65535)
+        cols.append(vf.to(torch.int32))
+    cols += [v.reshape(-1).to(torch.int32) for v in extra_cols]
+    out = seg.bincount_matmul(rows_flat, torch.stack(cols, dim=1), num_rows)
+    delta = torch.zeros((C.NUM_EVENTS, num_rows), dtype=torch.int32,
+                        device=rows4.device)
+    for i, (ev, _, _) in enumerate(pairs):
+        delta[ev] = out[i]
+    return delta, out[len(pairs):]
+
+
+def _apply_delta(w1: W.Window, sec: SecondAccum, delta: torch.Tensor,
+                 now_ms: int, spec1: W.WindowSpec) -> Tuple[W.Window, SecondAccum]:
+    """Fold a dense [E, R] delta into w1's current bucket + the second
+    accumulator (in place)."""
+    idx1 = W.current_index(now_ms, spec1)
+    w1.counts[idx1] += delta
+    sec.counts.add_(delta)
+    return w1, sec
+
+
+def entry_step(
+    state: SentinelState,
+    rules: RulePack,
+    batch: EntryBatch,
+    now_ms: int,
+    spec1: W.WindowSpec = SPEC_1S,
+    occupy_timeout_ms: int = C.DEFAULT_OCCUPY_TIMEOUT_MS,
+) -> Tuple[SentinelState, Decisions]:
+    """One admission step; consumes ``state``."""
+    now_ms = int(now_ms)
+    w1 = W.rotate(state.w1, now_ms, spec1)
+    w60, sec, tele = _roll_second(state.w60, state.sec, state.telemetry,
+                                  now_ms)
+
+    # Land pending occupy borrows once the bucket after the granting one
+    # is current; a jump of 2+ buckets drops them.
+    idx1 = W.current_index(now_ms, spec1)
+    cur_start = now_ms - now_ms % spec1.bucket_ms
+    moved = (state.occupied_stamp >= 0) & (state.occupied_stamp != cur_start)
+    land = moved & (state.occupied_stamp + spec1.bucket_ms == cur_start)
+    w1.counts[idx1, C.MetricEvent.PASS] += torch.where(
+        land, state.occupied_next, 0)
+    occupied_next = torch.where(moved, 0, state.occupied_next)
+
+    valid = batch.cluster_row >= 0
+    reason = torch.where(valid, int(C.BlockReason.PASS), -1).to(torch.int32)
+    rule_slot = torch.full_like(reason, -1)
+    # Pre-decided lanes (remote rejections / host admissions) skip every
+    # slot and only commit their statistics.
+    blocked = valid & batch.pre_blocked
+    reason = torch.where(blocked, batch.pre_reason, reason)
+    pre_ok = valid & batch.pre_passed & (~blocked)
+    decided = blocked | pre_ok
+
+    # --- rule slots: authority → system → param-flow → flow → degrade ----
+    av = A.check_authority(rules.authority, batch, valid & (~decided))
+    hit = valid & (~decided) & av.blocked
+    reason = torch.where(hit, int(C.BlockReason.AUTHORITY), reason)
+    rule_slot = torch.where(hit, av.slot, rule_slot)
+    blocked = blocked | av.blocked
+    decided = decided | blocked
+
+    cand = valid & (~decided)
+    sys_blocked = Y.check_system(rules.system, state.sys_signals, w1, w60,
+                                 sec.counts, state.cur_threads, batch, cand,
+                                 now_ms, spec1=spec1)
+    reason = torch.where(cand & sys_blocked, int(C.BlockReason.SYSTEM), reason)
+    # System rules are one global set, not per-resource slots: slot 0.
+    rule_slot = torch.where(cand & sys_blocked, 0, rule_slot)
+    blocked = blocked | sys_blocked
+    decided = decided | blocked
+
+    cand = valid & (~decided)
+    pv = P.check_param_flow(rules.param, state.param, batch, now_ms, cand)
+    reason = torch.where(cand & pv.blocked, int(C.BlockReason.PARAM_FLOW),
+                         reason)
+    rule_slot = torch.where(cand & pv.blocked, pv.slot, rule_slot)
+    blocked = blocked | pv.blocked
+    decided = decided | blocked
+
+    fv = F.check_flow(rules.flow, state.flow, w1, state.cur_threads, batch,
+                      now_ms, decided, occupied_next=occupied_next,
+                      spec=spec1, occupy_timeout_ms=occupy_timeout_ms)
+    hit = valid & (~decided) & fv.blocked
+    reason = torch.where(hit, int(C.BlockReason.FLOW), reason)
+    rule_slot = torch.where(hit, fv.slot, rule_slot)
+    blocked = blocked | fv.blocked
+    decided = decided | blocked
+
+    # Occupy grants leave the chain before the degrade slot.
+    granted = valid & (~decided) & fv.occupied
+    dv = D.check_degrade(rules.degrade, state.degrade, batch, now_ms,
+                         valid & (~decided) & (~granted))
+    hit = valid & (~decided) & dv.blocked
+    reason = torch.where(hit, int(C.BlockReason.DEGRADE), reason)
+    rule_slot = torch.where(hit, dv.slot, rule_slot)
+    blocked = blocked | dv.blocked
+
+    wait_pick = torch.maximum(fv.wait_us, pv.wait_us)
+
+    # --- StatisticSlot commit --------------------------------------------
+    rows4 = _target_rows(batch.cluster_row, batch.dn_row, batch.origin_row,
+                         batch.entry_in)
+    admit = valid & (~blocked)
+    # Granted occupies commit their PASS in the bucket they borrowed (the
+    # fold above, a later step); the minute staging gets PASS +
+    # OCCUPIED_PASS at grant time.
+    pass_counts = torch.where(admit & (~granted), batch.count, 0)
+    block_counts = torch.where(valid & blocked, batch.count, 0)
+    pass4 = pass_counts[:, None].expand(rows4.shape)
+    block4 = block_counts[:, None].expand(rows4.shape)
+    thread_inc = torch.where(admit, 1, 0)[:, None].expand(rows4.shape)
+    delta, extras = _event_delta(
+        rows4, [(C.MetricEvent.PASS, pass4, False),
+                (C.MetricEvent.BLOCK, block4, False)], w1.num_rows,
+        extra_cols=[thread_inc])
+    w1, sec = _apply_delta(w1, sec, delta, now_ms, spec1)
+    occupied_next = occupied_next + fv.occ_add
+    occupied_stamp = torch.full((), cur_start, dtype=torch.int64,
+                                device=valid.device)
+    sec.counts[C.MetricEvent.PASS] += fv.occ_add
+    sec.counts[C.MetricEvent.OCCUPIED_PASS] += fv.occ_add
+
+    cur_threads = state.cur_threads + extras[0]
+
+    # Telemetry: blocked lanes into the staged per-(reason, ClusterNode)
+    # and per-(reason, slot bin) counters (in place).
+    table = torch.as_tensor(REASON_CHANNEL_TABLE, device=valid.device)
+    attr_ch = table[torch.clamp(reason, 0, REASON_CHANNEL_TABLE.shape[0] - 1)]
+    attr_on = valid & blocked & (attr_ch >= 0)
+    ch0 = torch.clamp(attr_ch, min=0)
+    add_at(tele.stage_attr, (ch0, batch.cluster_row), batch.count,
+           attr_on & in_range(batch.cluster_row, w1.num_rows))
+    add_at(tele.stage_slot, (ch0, slot_bin_index(rule_slot)), batch.count,
+           attr_on)
+
+    wait_us = torch.where(admit, wait_pick, 0)
+
+    new_state = SentinelState(w1=w1, w60=w60, cur_threads=cur_threads,
+                              flow=fv.state, degrade=dv.state, param=pv.state,
+                              sys_signals=state.sys_signals, sec=sec,
+                              occupied_next=occupied_next,
+                              occupied_stamp=occupied_stamp,
+                              telemetry=tele)
+    return new_state, Decisions(reason=reason, wait_us=wait_us,
+                                rule_slot=rule_slot)
+
+
+def exit_step(
+    state: SentinelState,
+    rules: RulePack,
+    batch: ExitBatch,
+    now_ms: int,
+    spec1: W.WindowSpec = SPEC_1S,
+) -> SentinelState:
+    """Completion commit: RT + success/exception, thread decrement, min-RT,
+    RT histogram, breaker feed and THREAD-grade param gauges. Consumes
+    ``state``."""
+    now_ms = int(now_ms)
+    w1 = W.rotate(state.w1, now_ms, spec1)
+    w60, sec, tele = _roll_second(state.w60, state.sec, state.telemetry,
+                                  now_ms)
+
+    valid = batch.cluster_row >= 0
+    rows4 = _target_rows(batch.cluster_row, batch.dn_row, batch.origin_row,
+                         batch.entry_in)
+    succ_mask = valid & batch.success
+    succ = torch.where(succ_mask, batch.count, 0)
+    exc = torch.where(valid & batch.error, batch.count, 0)
+    rt = torch.where(succ_mask, batch.rt_ms, 0)
+    succ4 = succ[:, None].expand(rows4.shape)
+    exc4 = exc[:, None].expand(rows4.shape)
+    rt4 = rt[:, None].expand(rows4.shape)
+
+    thread_dec = torch.where(valid, -1, 0)[:, None].expand(rows4.shape)
+    delta, extras = _event_delta(
+        rows4, [(C.MetricEvent.SUCCESS, succ4, False),
+                (C.MetricEvent.EXCEPTION, exc4, False),
+                (C.MetricEvent.RT, rt4, True)], w1.num_rows,
+        extra_cols=[thread_dec])
+    w1, sec = _apply_delta(w1, sec, delta, now_ms, spec1)
+
+    # RT histogram: one count per success completion (in place).
+    num_rows = w1.num_rows
+    add_at(tele.stage_hist, (rt_bucket_index(batch.rt_ms), batch.cluster_row),
+           1, succ_mask & in_range(batch.cluster_row, num_rows))
+
+    # min-RT: stage one dense [R] min, then fold into the current buckets.
+    rt_obs = torch.where(succ_mask[:, None], rt4, W.MIN_RT_EMPTY)
+    mstage = torch.full((num_rows,), W.MIN_RT_EMPTY, dtype=torch.int32,
+                        device=valid.device)
+    rows_flat = rows4.reshape(-1)
+    min_at(mstage, (rows_flat,), rt_obs.reshape(-1).to(torch.int32),
+           in_range(rows_flat, num_rows))
+    idx1 = W.current_index(now_ms, spec1)
+    w1.min_rt[idx1] = torch.minimum(w1.min_rt[idx1], mstage)
+    sec.min_rt.copy_(torch.minimum(sec.min_rt, mstage))
+
+    # Clamp at zero: exits never outnumber entries in a correct stream.
+    cur_threads = torch.clamp(state.cur_threads + extras[0], min=0)
+
+    degrade = D.feed_degrade(rules.degrade, state.degrade, batch, now_ms)
+    param = P.feed_param_exit(rules.param, state.param, batch)
+
+    return state._replace(w1=w1, w60=w60, cur_threads=cur_threads,
+                          degrade=degrade, param=param, sec=sec,
+                          telemetry=tele)
