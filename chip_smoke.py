@@ -14,7 +14,9 @@ Phases (any failure raises and exits non-zero; none is caught):
 3. Kernel vs plain: the segmented-prefix kernel against the plain sort +
    cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000,
    2048, 8192}, K in {1, 3}, M in {1, 2}, with the 256 and near-2^24 value
-   edges; CUDA-event times for both and the card's bound for the work.
+   edges; device times for both (CUDA-graph replay), the kernel's
+   per-call time with host dispatch, and the card's bound for the
+   function's least work (bytes, or an N log N sort-and-scan).
 4. Main path: ``SentinelEngine(capacity=32768)`` with the bench headline
    rules (10,000 resources; flow on every 10th, degrade on every 20th,
    param on every 40th, one system rule), 32 check_batch + complete_batch
@@ -33,6 +35,7 @@ It imports the port only — never JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +85,8 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
+    """Wall time of one call as a caller pays it: CUDA events around a
+    Python loop of ``reps`` calls, host dispatch included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -95,15 +100,49 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    CUDA events around its replays, so no host dispatch is timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    replays = 5
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def prefix_bound(n: int, k: int, m: int):
-    """Least time for the work on this card: bytes (ids + values read
-    once, prefix + is_first written once) over HBM rate, or the
-    N(N-1)/2 * K * (M+1) compare-adds over the fp32 rate."""
+    """Least time the card could take for the function, the larger of:
+    its bytes (ids + values read once, prefix + is_first written once)
+    over the HBM rate, and its least operations — a sort and a scan,
+    K * N * ceil(log2 N) * (M+1) — over the fp32 rate. Returns
+    ``(bound_ms, bound_by, algorithm_ops)``; ``algorithm_ops`` is what
+    this kernel spends instead: N(N-1)/2 * K * (M+1) compare-adds."""
     nbytes = k * n * (4 + 4 * m + 4 * m + 1)
-    ops = n * (n - 1) / 2 * k * (m + 1)
+    ops = k * n * max(1, math.ceil(math.log2(max(n, 2)))) * (m + 1)
+    algorithm_ops = n * (n - 1) // 2 * k * (m + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if t_ops >= t_bytes:
+        return t_ops, "operations", algorithm_ops
+    return t_bytes, "bytes", algorithm_ops
 
 
 def prefix_case(rng, n: int, k: int, m: int, edge: str, dev):
@@ -113,10 +152,11 @@ def prefix_case(rng, n: int, k: int, m: int, edge: str, dev):
     if edge == "256":
         vals[:] = rng.integers(250, 257, size=(k, n, m))
     elif edge == "2^24":
-        # One segment whose running sum reaches 2^24 - 1 exactly.
+        # One segment whose running sum reaches 2^24 - 1 exactly at the
+        # last row: a head value, then n - 2 ones, then a trailing 0.
         ids[:, :] = 7
         vals[:] = 0
-        vals[:, 0, :] = 2**24 - 2 - (n - 2)
+        vals[:, 0, :] = 2**24 - 1 - (n - 2)
         vals[:, 1:n - 1, :] = 1
     return (torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev))
 
@@ -141,16 +181,26 @@ def kernel_phase(dev):
                                      f"edge={edge} pair {kk}")
             max_err = max(max_err, float((prefix[kk] - want_p).abs().max())
                           if n else 0.0)
+        if edge == "2^24" and not bool((prefix[:, -1, :] == 2**24 - 1).all()):
+            raise AssertionError(f"2^24 edge at N={n} did not reach 2^24 - 1")
         reps = 200 if n <= 2048 else 50
-        kernel_ms = time_ms(lambda: prefix_cuda.segmented_prefix_cuda(
-            ids, vals), reps)
-        plain_ms = time_ms(lambda: [segmented_prefix_plain(ids[kk], vals[kk])
-                                    for kk in range(k)], max(10, reps // 5))
-        bound_ms, bound_by = prefix_bound(n, k, m)
+
+        def kernel():
+            prefix_cuda.segmented_prefix_cuda(ids, vals)
+
+        def plain():
+            for kk in range(k):
+                segmented_prefix_plain(ids[kk], vals[kk])
+
+        kernel_ms = device_ms(kernel, reps)
+        call_ms = time_ms(kernel, reps)
+        plain_ms = device_ms(plain, max(10, reps // 5))
+        bound_ms, bound_by, algorithm_ops = prefix_bound(n, k, m)
         row = {"shape": {"N": n, "K": k, "M": m, "values": edge},
                "bit_equal": True, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "call_ms": call_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "algorithm_ops": algorithm_ops}
         print(json.dumps(row), flush=True)
         if (n, k, m, edge) == (8192, 3, 2, "random"):
             main_shape = row
@@ -442,6 +492,8 @@ def main() -> int:
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        "algorithm_ops": main_shape["algorithm_ops"],
+        "call_ms": main_shape["call_ms"],
         "library_ms": None,
         "shape": main_shape["shape"],
     }]}), flush=True)

@@ -8,13 +8,15 @@
 // Ids are compared by equality only: negative ids form their own shared
 // segment, exactly as in the JAX forms.
 //
-// What bounds it on this card: operations. The work is the N(N-1)/2 * K
-// compare-and-add pairs of the lower triangle, (M+1) adds each, against
-// only K*N*(4 + 8M + 1) bytes of input and output — at N = 2048..8192 the
-// arithmetic is thousands of times the traffic, so it is bound by the
-// fp32/int32 issue rate of the SMs, not by HBM.
+// What bounds it on this card. The function's least work is an
+// O(N log N) sort and scan over K*N*(4 + 8M + 1) bytes of input and
+// output, so the function is bound by bytes: about 0.15 us at N = 8192,
+// K = 3, M = 2. This kernel does not reach that bound, by design: it
+// spends N(N-1)/2 * K compare-and-add pairs, (M+1) adds each, on the
+// lower triangle, so it is bound by its own fp32/int32 issue rate, which
+// is hundreds of times the function's bound at N = 2048..8192.
 //
-// What the design does about it:
+// What the design does about it (a simple kernel that is exact first):
 //   * grid (ceil(N/128), K), 128 threads, one row per thread; one launch
 //     covers all K pairs that share N and M (the flow sweep's three row
 //     spaces) instead of the Pallas version's K launches;
@@ -22,10 +24,11 @@
 //     Pallas kernel visits every tile — which halves the work;
 //   * each tile's ids and values are staged once in shared memory and read
 //     by all 128 threads as broadcasts (every thread reads the same j);
-//   * the M sums live in registers (M is a template parameter) and the
-//     earlier-count is an int, so there is no padding column, no padding
-//     sentinel and no mask matrix: a thread checks j < i and j < N.
-// A wgmma / TMA or an O(N log N) design is later work.
+//   * the M sums live in registers (M is a template parameter, 1 or 2:
+//     the column counts of the models' sweeps) and the earlier-count is
+//     an int, so there is no padding column, no padding sentinel and no
+//     mask matrix: a thread checks j < i and j < N.
+// An O(N log N) design that reaches the bytes bound is later work.
 //
 // Exactness: values are integers and each thread adds only equal-id rows,
 // so every partial sum is at most the final prefix. Below 2^24 float32
@@ -112,7 +115,7 @@ void launch(const void* ids, const void* vals, void* prefix, void* is_first,
 }  // namespace
 
 // ids int32[K, N], vals float32[K, N, M], prefix float32[K, N, M],
-// is_first bool[K, N]; all contiguous on the current device.
+// is_first bool[K, N] with M in {1, 2}; all contiguous on the current device.
 extern "C" int sp_segmented_prefix(const void* ids, const void* vals,
                                    void* prefix, void* is_first, int n,
                                    int k, int m, void* stream) {
@@ -121,12 +124,7 @@ extern "C" int sp_segmented_prefix(const void* ids, const void* vals,
   switch (m) {
     case 1: launch<1>(ids, vals, prefix, is_first, n, k, s); break;
     case 2: launch<2>(ids, vals, prefix, is_first, n, k, s); break;
-    case 3: launch<3>(ids, vals, prefix, is_first, n, k, s); break;
-    case 4: launch<4>(ids, vals, prefix, is_first, n, k, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-// Largest column count the launcher instantiates.
-extern "C" int sp_max_columns(void) { return 4; }

@@ -37,9 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
 
+# Column counts M the launcher instantiates: the models' sweeps use 1 and 2.
+COLUMNS = (1, 2)
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_max_columns = 0
 
 
 def _find_nvcc() -> str:
@@ -86,7 +88,7 @@ def build() -> Tuple[Path, str]:
 
 
 def _load() -> ctypes.CDLL:
-    global _lib, _max_columns
+    global _lib
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
@@ -95,9 +97,6 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.sp_segmented_prefix.restype = ctypes.c_int
-        lib.sp_max_columns.argtypes = []
-        lib.sp_max_columns.restype = ctypes.c_int
-        _max_columns = int(lib.sp_max_columns())
         _lib = lib
     return _lib
 
@@ -106,8 +105,9 @@ def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K segmented exclusive prefixes in one launch.
 
-    ``ids`` int32[K, N] and ``values`` float32[K, N, M], contiguous, on one
-    CUDA device. Returns ``(prefix float32[K, N, M], is_first bool[K, N])``.
+    ``ids`` int32[K, N] and ``values`` float32[K, N, M] with M in
+    :data:`COLUMNS`, contiguous, on one CUDA device. Returns
+    ``(prefix float32[K, N, M], is_first bool[K, N])``.
     ``N == 0`` launches nothing.
     """
     if not (ids.is_cuda and values.is_cuda):
@@ -125,14 +125,14 @@ def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
     if not (ids.is_contiguous() and values.is_contiguous()):
         raise ValueError("segmented_prefix_cuda: inputs must be contiguous")
     k, n, m = values.shape
+    if m not in COLUMNS:
+        raise ValueError(f"segmented_prefix_cuda: M={m}, want one of "
+                         f"{COLUMNS}")
     prefix = torch.empty((k, n, m), dtype=torch.float32, device=ids.device)
     is_first = torch.empty((k, n), dtype=torch.bool, device=ids.device)
     if n == 0 or k == 0:
         return prefix, is_first
     lib = _load()
-    if not 1 <= m <= _max_columns:
-        raise ValueError(f"segmented_prefix_cuda: M={m} outside "
-                         f"1..{_max_columns}")
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
         err = lib.sp_segmented_prefix(
