@@ -8,22 +8,29 @@ Phases (any failure raises and exits non-zero; none is caught):
 
 1. Device: CUDA must be available; prints the card, the count and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. Build: compiles ``sentinel_tpu_torch/csrc/segmented_prefix.cu`` with
-   nvcc for sm_90a and prints the ``-Xptxas -v`` register / shared-memory
-   lines.
+2. Build: compiles ``sentinel_tpu_torch/csrc/segmented_prefix.cu`` (and
+   the headers it includes) with nvcc for sm_90a and prints the
+   ``-Xptxas -v`` register / shared-memory lines.
 3. Kernel vs plain: the segmented-prefix kernel against the plain sort +
    cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000,
    2048, 8192}, K in {1, 3}, M in {1, 2}, with the 256 and near-2^24 value
-   edges; device times for both (CUDA-graph replay), the kernel's
-   per-call time with host dispatch, and the card's bound for the
-   function's least work (bytes, or an N log N sort-and-scan).
+   edges, the id patterns a radix sort gets wrong (``full_int32``,
+   ``all_distinct``, ``all_equal``), and N in {16384, 65536}, above the
+   block sort's capacity, where the launcher takes the tile walk; device
+   times for both (CUDA-graph replay), the kernel's per-call time with
+   host dispatch, the card's bound for the function's least work (bytes,
+   or an N log N sort-and-scan), and at N=8192, K=3, M=2 the tile walk's
+   device time on the same inputs (``previous_ms``).
 4. Main path: ``SentinelEngine(capacity=32768)`` with the bench headline
    rules (10,000 resources; flow on every 10th, degrade on every 20th,
    param on every 40th, one system rule), 32 check_batch + complete_batch
    rounds at widths 2048 and 8192 on an advancing clock (bucket and
    second boundaries) plus one mixed-count batch; prints rule-checks/s,
    per-step ms, host syncs per step and kernel launches per entry step;
-   requires the kernel to have run.
+   requires the kernel to have run, and through the block sort only.
+   A profile of a few rounds at width 8192 gives the device busy share,
+   the kernels that take the most device time, and the prefix kernel's
+   own time and share.
 5. Parity: the same 8-round sequence at width 2048 on ``cuda`` and on
    ``cpu`` with a blocking rule mix; decisions and integer state must be
    equal, float state within FLOAT_RTOL.
@@ -128,16 +135,35 @@ def device_ms(fn, reps: int) -> float:
     return ms
 
 
-def prefix_bound(n: int, k: int, m: int):
+def radix_passes(ids: np.ndarray) -> int:
+    """8-bit passes the block sort runs on these ids, summed over the K
+    pairs: the digits of (id + 1 mod 2^32) that differ between keys."""
+    total = 0
+    for row in ids.reshape(ids.shape[0], -1):
+        if row.size == 0:
+            continue
+        keys = row.astype(np.int64).astype(np.uint32) + np.uint32(1)
+        diff = int(np.bitwise_or.reduce(keys ^ keys[0]))
+        total += sum(1 for s in range(0, 32, 8) if (diff >> s) & 0xFF)
+    return total
+
+
+def prefix_bound(ids: np.ndarray, m: int):
     """Least time the card could take for the function, the larger of:
     its bytes (ids + values read once, prefix + is_first written once)
     over the HBM rate, and its least operations — a sort and a scan,
     K * N * ceil(log2 N) * (M+1) — over the fp32 rate. Returns
-    ``(bound_ms, bound_by, algorithm_ops)``; ``algorithm_ops`` is what
-    this kernel spends instead: N(N-1)/2 * K * (M+1) compare-adds."""
+    ``(bound_ms, bound_by, algorithm_ops)``; ``algorithm_ops`` is what the
+    kernel the launcher picks spends on these ids: the block sort's radix
+    passes x N plus the M-column scan (K * N * M adds), or the tile walk's
+    N(N-1)/2 * K * (M+1) compare-adds above the block capacity."""
+    k, n = ids.shape
     nbytes = k * n * (4 + 4 * m + 4 * m + 1)
     ops = k * n * max(1, math.ceil(math.log2(max(n, 2)))) * (m + 1)
-    algorithm_ops = n * (n - 1) // 2 * k * (m + 1)
+    if n <= prefix_cuda.block_capacity():
+        algorithm_ops = radix_passes(ids) * n + k * n * m
+    else:
+        algorithm_ops = n * (n - 1) // 2 * k * (m + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     if t_ops >= t_bytes:
@@ -145,11 +171,31 @@ def prefix_bound(n: int, k: int, m: int):
     return t_bytes, "bytes", algorithm_ops
 
 
+I32 = np.iinfo(np.int32)
+
+
 def prefix_case(rng, n: int, k: int, m: int, edge: str, dev):
+    """Inputs of one case: row-like ids (0..N/4, 10% -1) and small counts,
+    or a value edge (``256``, ``2^24``), or an id pattern a radix sort
+    gets wrong: repeats from a pool of INT32_MIN, INT32_MAX, -1, -7, 0 and
+    large keys of both signs (``full_int32``), a permutation spread over
+    the int32 range (``all_distinct``), or INT32_MIN everywhere
+    (``all_equal``)."""
     ids = rng.integers(0, max(1, n // 4), size=(k, n)).astype(np.int32)
     ids[rng.random((k, n)) < 0.1] = -1
     vals = rng.integers(0, 4, size=(k, n, m)).astype(np.float32)
-    if edge == "256":
+    if edge == "full_int32":
+        pool = np.concatenate([[I32.min, I32.max, -1, -7, 0],
+                               rng.integers(2**30, I32.max, size=8),
+                               rng.integers(I32.min + 1, -2**30, size=8)])
+        ids = rng.choice(pool, size=(k, n)).astype(np.int32)
+    elif edge == "all_distinct":
+        step = (2**32 - 1) // n
+        ids = np.stack([rng.permutation(n).astype(np.int64) * step + I32.min
+                        for _ in range(k)]).astype(np.int32)
+    elif edge == "all_equal":
+        ids[:] = I32.min
+    elif edge == "256":
         vals[:] = rng.integers(250, 257, size=(k, n, m))
     elif edge == "2^24":
         # One segment whose running sum reaches 2^24 - 1 exactly at the
@@ -161,6 +207,9 @@ def prefix_case(rng, n: int, k: int, m: int, edge: str, dev):
     return (torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev))
 
 
+MAIN_SHAPE = (8192, 3, 2, "random")
+
+
 def kernel_phase(dev):
     rng = np.random.default_rng(20261017)
     max_err = 0.0
@@ -169,9 +218,16 @@ def kernel_phase(dev):
              for k in (1, 3) for m in (1, 2)]
     cases += [(2048, 3, 2, "256"), (8192, 1, 2, "256"), (64, 1, 1, "2^24"),
               (1000, 3, 2, "2^24")]
+    cases += [(n, k, 2, pattern)
+              for pattern in ("full_int32", "all_distinct", "all_equal")
+              for n, k in ((2048, 3), (8192, 3), (16384, 1))]
+    cases += [(16384, 1, 2, "random"), (65536, 1, 2, "random")]
     for n, k, m, edge in cases:
         ids, vals = prefix_case(rng, n, k, m, edge, dev)
+        tiles_before = prefix_cuda.tile_launches
         prefix, first = prefix_cuda.segmented_prefix_cuda(ids, vals)
+        design = ("tile_walk" if prefix_cuda.tile_launches > tiles_before
+                  else "block_radix_sort")
         torch.cuda.synchronize()
         for kk in range(k):
             want_p, want_f = segmented_prefix_plain(ids[kk], vals[kk])
@@ -183,10 +239,13 @@ def kernel_phase(dev):
                           if n else 0.0)
         if edge == "2^24" and not bool((prefix[:, -1, :] == 2**24 - 1).all()):
             raise AssertionError(f"2^24 edge at N={n} did not reach 2^24 - 1")
-        reps = 200 if n <= 2048 else 50
+        reps = 200 if n <= 2048 else 50 if n <= 16384 else 10
 
         def kernel():
             prefix_cuda.segmented_prefix_cuda(ids, vals)
+
+        def tiles():
+            prefix_cuda.segmented_prefix_tiles_cuda(ids, vals)
 
         def plain():
             for kk in range(k):
@@ -195,15 +254,23 @@ def kernel_phase(dev):
         kernel_ms = device_ms(kernel, reps)
         call_ms = time_ms(kernel, reps)
         plain_ms = device_ms(plain, max(10, reps // 5))
-        bound_ms, bound_by, algorithm_ops = prefix_bound(n, k, m)
+        bound_ms, bound_by, algorithm_ops = prefix_bound(
+            ids.cpu().numpy(), m)
         row = {"shape": {"N": n, "K": k, "M": m, "values": edge},
-               "bit_equal": True, "kernel_ms": kernel_ms,
+               "design": design, "bit_equal": True, "kernel_ms": kernel_ms,
                "call_ms": call_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "algorithm_ops": algorithm_ops}
-        print(json.dumps(row), flush=True)
-        if (n, k, m, edge) == (8192, 3, 2, "random"):
+        if (n, k, m, edge) == MAIN_SHAPE:
+            # The tile walk on the same inputs, in this call: the kernel
+            # the block sort replaced on the main path.
+            tile_p, tile_f = prefix_cuda.segmented_prefix_tiles_cuda(ids, vals)
+            if not (torch.equal(tile_p, prefix) and torch.equal(tile_f, first)):
+                raise AssertionError("tile walk != block sort at the main "
+                                     "shape")
+            row["previous_ms"] = device_ms(tiles, reps)
             main_shape = row
+        print(json.dumps(row), flush=True)
     return main_shape, max_err
 
 
@@ -320,6 +387,7 @@ def main_path_phase(dev):
         eng.complete_batch(to_device(exit_buf(rng, ebuf, reason), dev))
         torch.cuda.synchronize()
         prefix_cuda.launches = 0
+        prefix_cuda.tile_launches = 0
         SYNCS.count = 0
         entry_s = exit_s = 0.0
         for r in range(ROUNDS):
@@ -337,6 +405,9 @@ def main_path_phase(dev):
         syncs = SYNCS.count
         if launches <= 0:
             raise AssertionError("main path never launched the prefix kernel")
+        if prefix_cuda.tile_launches:
+            raise AssertionError(f"main path at width {width} took the tile "
+                                 "walk, not the block sort")
         total_launches += launches
         results[width] = {
             "width": width, "rounds": ROUNDS,
@@ -345,6 +416,7 @@ def main_path_phase(dev):
             "exit_step_ms": exit_s / ROUNDS * 1e3,
             "prefix_launches": launches,
             "prefix_launches_per_entry_step": launches / ROUNDS,
+            "prefix_design": "block_radix_sort",
             "host_syncs_per_round": syncs / ROUNDS,
         }
         print(json.dumps({"main_path": results[width]}), flush=True)
@@ -395,12 +467,19 @@ def profile_phase(dev, rounds: int = 8, width: int = 8192):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    prefix = [e for e in kernels if "segmented_prefix" in e.key]
+    prefix_us = sum(e.self_device_time_total for e in prefix)
     print(json.dumps({"profile": {
         "width": width, "rounds": rounds,
         "wall_ms_per_round": wall_ms / rounds,
         "device_ms_per_round": dev_us / 1e3 / rounds,
         "device_busy_share": dev_us / 1e3 / wall_ms,
         "device_ops_per_round": sum(e.count for e in kernels) / rounds,
+        "prefix_kernel": {
+            "names": [e.key[:80] for e in prefix],
+            "count_per_round": sum(e.count for e in prefix) / rounds,
+            "ms_per_round": prefix_us / 1e3 / rounds,
+            "share_of_device_time": prefix_us / dev_us if dev_us else 0.0},
         "top": [{"name": e.key[:80], "count_per_round": e.count / rounds,
                  "ms_per_round": e.self_device_time_total / 1e3 / rounds}
                 for e in top]}}), flush=True)
@@ -485,10 +564,13 @@ def main() -> int:
         "source": "sentinel_tpu_torch/csrc/segmented_prefix.cu",
         "replaces": "sentinel_tpu/ops/pallas_prefix.py:40",
         "replaces_function": "prefix_pallas",
+        "design": main_shape["design"],
         "launches": main_launches,
         "bit_equal": True,
         "max_abs_err": max_err,
         "ms": main_shape["kernel_ms"],
+        "previous_ms": main_shape["previous_ms"],
+        "previous_design": "tile_walk",
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],

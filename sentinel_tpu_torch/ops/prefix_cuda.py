@@ -1,17 +1,23 @@
-"""The segmented-prefix kernel on CUDA (counterpart of
+"""The segmented-prefix kernels on CUDA (counterpart of
 ``sentinel_tpu/ops/pallas_prefix.py``).
 
-``csrc/segmented_prefix.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
-the first CUDA call into a shared library with a plain C launcher, cached
-under ``sentinel_tpu_torch/_build/`` by a hash of the source and flags,
-and loaded with ``ctypes``. Importing this module needs neither ``nvcc``
-nor a card.
+``csrc/segmented_prefix.cu`` (which includes ``csrc/*.cuh``) is compiled
+with ``nvcc`` for ``sm_90a`` at the first CUDA call into a shared library
+with plain C launchers, cached under ``sentinel_tpu_torch/_build/`` by a
+hash of every source file in ``csrc/`` and the flags, and loaded with
+``ctypes``. Importing this module needs neither ``nvcc`` nor a card.
 
-:func:`segmented_prefix_cuda` is the wrapper: it checks device, dtype,
-shape and contiguity, allocates its outputs with ``torch.empty``, launches
-on ``torch.cuda.current_stream()``, raises on a non-zero launch error, and
-adds one to ``launches`` for each launch. There is no fallback: the plain
-version (``ops/segment.py:segmented_prefix_plain``) is the CPU path and the
+:func:`segmented_prefix_cuda` is the wrapper the models reach: one launch
+for all K pairs. The launcher picks the path by N alone: the
+in-shared-memory block radix sort and segmented scan for N up to
+:func:`block_capacity` (8192), the tile-walk kernel above it.
+:func:`segmented_prefix_tiles_cuda` runs the tile walk at any N, to
+compare the two. Each wrapper checks device, dtype, shape and contiguity,
+allocates its outputs with ``torch.empty``, launches on
+``torch.cuda.current_stream()``, raises on a non-zero launch error, and
+adds one to ``launches`` for each launch (and to ``tile_launches`` when the
+tile walk ran). There is no fallback: the plain version
+(``ops/segment.py:segmented_prefix_plain``) is the CPU path and the
 oracle, never a rescue for a failed build or launch.
 """
 
@@ -29,19 +35,23 @@ from typing import Optional, Tuple
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "segmented_prefix.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "segmented_prefix.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0), and
+# how many of them went to the tile walk.
 launches = 0
+tile_launches = 0
 
 # Column counts M the launcher instantiates: the models' sweeps use 1 and 2.
 COLUMNS = (1, 2)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_capacity = 0
 
 
 def _find_nvcc() -> str:
@@ -56,9 +66,16 @@ def _find_nvcc() -> str:
                        "kernel is built from source at first use")
 
 
+def sources():
+    """Every file the build reads: the compiled source and its headers."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"segmented_prefix_{key}.so"
 
 
@@ -88,17 +105,27 @@ def build() -> Tuple[Path, str]:
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
+    global _lib, _capacity
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        lib.sp_segmented_prefix.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.sp_segmented_prefix.restype = ctypes.c_int
+        for fn in (lib.sp_segmented_prefix, lib.sp_segmented_prefix_tiles):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.sp_block_capacity.argtypes = []
+        lib.sp_block_capacity.restype = ctypes.c_int
+        _capacity = lib.sp_block_capacity()
         _lib = lib
     return _lib
+
+
+def block_capacity() -> int:
+    """The largest N the single-block sort takes (M = 1 and M = 2); the
+    launcher sends larger N to the tile walk."""
+    _load()
+    return _capacity
 
 
 def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
@@ -110,6 +137,17 @@ def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
     ``(prefix float32[K, N, M], is_first bool[K, N])``.
     ``N == 0`` launches nothing.
     """
+    return _launch(ids, values, tiles=False)
+
+
+def segmented_prefix_tiles_cuda(ids: torch.Tensor, values: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`segmented_prefix_cuda` through the tile walk at any N."""
+    return _launch(ids, values, tiles=True)
+
+
+def _launch(ids: torch.Tensor, values: torch.Tensor, tiles: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     if not (ids.is_cuda and values.is_cuda):
         raise ValueError("segmented_prefix_cuda: tensors must be on CUDA")
     if ids.device != values.device:
@@ -133,14 +171,16 @@ def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
     if n == 0 or k == 0:
         return prefix, is_first
     lib = _load()
+    fn = lib.sp_segmented_prefix_tiles if tiles else lib.sp_segmented_prefix
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.sp_segmented_prefix(
-            ids.data_ptr(), values.data_ptr(), prefix.data_ptr(),
-            is_first.data_ptr(), n, k, m, stream)
+        err = fn(ids.data_ptr(), values.data_ptr(), prefix.data_ptr(),
+                 is_first.data_ptr(), n, k, m, stream)
     if err != 0:
         raise RuntimeError(f"segmented_prefix kernel launch failed: "
                            f"cudaError {err}")
-    global launches
+    global launches, tile_launches
     launches += 1
+    if tiles or n > _capacity:
+        tile_launches += 1
     return prefix, is_first

@@ -99,7 +99,8 @@ def segmented_prefix_dense_multi(
 
     ``pairs``: list of ``(ids, values)`` with one leading length N.
     Returns a list of ``(prefix, is_first)``. On CUDA, pairs with the same
-    column count go to ONE kernel launch (grid ``(ceil(N/128), K)``).
+    column count go to ONE kernel launch (one thread block per pair up to
+    N = 8192).
     """
     n = pairs[0][0].shape[0]
     for ids_k, values_k in pairs:

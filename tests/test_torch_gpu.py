@@ -1,6 +1,6 @@
 """Card-only tests of the port (marker ``gpu``): the segmented-prefix CUDA
-kernel against its plain version, and the fused step on ``cuda`` against
-the same step on ``cpu``.
+kernels (block sort and tile walk) against the plain version and each
+other, and the fused step on ``cuda`` against the same step on ``cpu``.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -25,23 +25,103 @@ def cuda():
     return torch.device("cuda")
 
 
+# Id patterns a radix sort gets wrong, beside the engine-like random ids:
+# repeats of INT32_MIN, INT32_MAX, -1, -7, 0 and large keys of both signs;
+# distinct keys spread over the whole int32 range; one key (INT32_MIN).
+PATTERNS = ("random", "full_int32", "all_distinct", "all_equal")
+_I32 = np.iinfo(np.int32)
+
+
+def _ids(pattern, k, n, rng):
+    if pattern == "random":
+        return rng.integers(-1, max(2, n // 8), size=(k, n)).astype(np.int32)
+    if pattern == "full_int32":
+        pool = np.concatenate([
+            [_I32.min, _I32.max, -1, -7, 0],
+            rng.integers(2**30, _I32.max, size=8),
+            rng.integers(_I32.min + 1, -2**30, size=8)])
+        return rng.choice(pool, size=(k, n)).astype(np.int32)
+    if pattern == "all_distinct":
+        step = (2**32 - 1) // n
+        return np.stack([rng.permutation(n).astype(np.int64) * step + _I32.min
+                         for _ in range(k)]).astype(np.int32)
+    return np.full((k, n), _I32.min, np.int32)
+
+
+def _inputs(cuda, pattern, n, k, m, seed):
+    rng = np.random.default_rng(seed)
+    ids = _ids(pattern, k, n, rng)
+    vals = rng.integers(0, 257, size=(k, n, m)).astype(np.float32)
+    return torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda)
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
 @pytest.mark.parametrize("n,k,m", [(1, 1, 1), (8, 3, 2), (127, 1, 2),
                                    (129, 3, 1), (1000, 3, 2), (2048, 3, 2),
-                                   (8192, 1, 2), (300, 2, 2)])
-def test_kernel_bit_equal_to_plain(cuda, n, k, m):
+                                   (8192, 1, 2), (300, 2, 2), (513, 1, 1),
+                                   (1025, 2, 2), (2049, 1, 2), (4097, 3, 1),
+                                   (8191, 1, 2), (8192, 3, 1), (8193, 1, 2),
+                                   (16384, 1, 2)])
+def test_kernel_bit_equal_to_plain(cuda, n, k, m, pattern):
+    """Both sides of the single-block capacity (8192): the block sort up to
+    it, the tile walk above it, chosen by N alone; and both sides of each
+    keys-per-thread step of the block sort (512, 1024, 2048, 4096)."""
     from sentinel_tpu_torch.ops import prefix_cuda
     from sentinel_tpu_torch.ops.segment import segmented_prefix_plain
 
-    rng = np.random.default_rng(n * 10 + k)
-    ids = rng.integers(-1, max(2, n // 8), size=(k, n)).astype(np.int32)
-    vals = rng.integers(0, 257, size=(k, n, m)).astype(np.float32)
-    ids_t = torch.from_numpy(ids).to(cuda)
-    vals_t = torch.from_numpy(vals).to(cuda)
+    ids_t, vals_t = _inputs(cuda, pattern, n, k, m, n * 10 + k)
     before = prefix_cuda.launches
+    tiles_before = prefix_cuda.tile_launches
     prefix, first = prefix_cuda.segmented_prefix_cuda(ids_t, vals_t)
     torch.cuda.synchronize()
     assert prefix_cuda.launches == before + 1
+    tiles = n > prefix_cuda.block_capacity()
+    assert prefix_cuda.tile_launches == tiles_before + tiles
     for kk in range(k):
+        want_p, want_f = segmented_prefix_plain(ids_t[kk], vals_t[kk])
+        assert torch.equal(prefix[kk], want_p)
+        assert torch.equal(first[kk], want_f)
+
+
+def test_block_capacity_is_8192(cuda):
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    assert prefix_cuda.block_capacity() == 8192
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("n,k,m", [(64, 2, 1), (2048, 3, 2), (5000, 1, 2),
+                                   (8192, 2, 1)])
+def test_block_sort_matches_tiles(cuda, n, k, m, pattern):
+    """The two paths agree bit for bit where both can run."""
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    ids_t, vals_t = _inputs(cuda, pattern, n, k, m, n + 7 * k)
+    tiles_before = prefix_cuda.tile_launches
+    block_p, block_f = prefix_cuda.segmented_prefix_cuda(ids_t, vals_t)
+    assert prefix_cuda.tile_launches == tiles_before
+    tile_p, tile_f = prefix_cuda.segmented_prefix_tiles_cuda(ids_t, vals_t)
+    assert prefix_cuda.tile_launches == tiles_before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(block_p, tile_p)
+    assert torch.equal(block_f, tile_f)
+
+
+def test_kernel_replays_in_a_cuda_graph(cuda):
+    """The launcher neither syncs nor allocates: it captures and replays."""
+    from sentinel_tpu_torch.ops import prefix_cuda
+    from sentinel_tpu_torch.ops.segment import segmented_prefix_plain
+
+    ids_t, vals_t = _inputs(cuda, "full_int32", 8192, 3, 2, 5)
+    prefix_cuda.segmented_prefix_cuda(ids_t, vals_t)  # build, load, allow
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        prefix, first = prefix_cuda.segmented_prefix_cuda(ids_t, vals_t)
+    vals_t.add_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for kk in range(3):
         want_p, want_f = segmented_prefix_plain(ids_t[kk], vals_t[kk])
         assert torch.equal(prefix[kk], want_p)
         assert torch.equal(first[kk], want_f)

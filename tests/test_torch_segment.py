@@ -12,7 +12,11 @@ surviving spelling ``jax.enable_x64`` under the old name with
 afterwards, so nothing outside these tests sees the alias.
 
 Cases: ids with negatives, ``n = 0``, ``n`` off the 512-row Pallas block,
-values at the 256 edge and segment sums reaching 2^24 - 1.
+values at the 256 edge and segment sums reaching 2^24 - 1, and the id
+patterns a radix sort gets wrong: repeats of INT32_MIN, INT32_MAX, -1, -7,
+0 and large keys of both signs (``full_int32``), distinct keys spread over
+the whole int32 range (``all_distinct``) and one key for every row
+(``all_equal``, INT32_MIN).
 """
 
 from __future__ import annotations
@@ -72,13 +76,34 @@ def _edge_2p24(n, m=2):
 CASES = [
     ("random", 512, 8, 0), ("wide_bins", 1024, 32768, 1),
     ("off_block", 1000, 64, 2), ("small", 7, 3, 3),
-    ("all_negative", 64, 0, 4),
+    ("all_negative", 64, 0, 4), ("full_int32", 4096, 0, 5),
+    ("all_distinct", 4096, 0, 6), ("all_equal", 4096, 0, 7),
 ]
+
+_I32 = np.iinfo(np.int32)
+
+
+def _radix_ids(name, n, rng):
+    """Id patterns across the whole int32 range (see the module note)."""
+    if name == "full_int32":
+        pool = np.concatenate([
+            [_I32.min, _I32.max, -1, -7, 0],
+            rng.integers(2**30, _I32.max, size=8),
+            rng.integers(_I32.min + 1, -2**30, size=8)])
+        return rng.choice(pool, size=n).astype(np.int32)
+    if name == "all_distinct":
+        step = (2**32 - 1) // max(n, 1)
+        return (rng.permutation(n).astype(np.int64) * step
+                + _I32.min).astype(np.int32)
+    return np.full(n, _I32.min, np.int32)  # all_equal
 
 
 def _make(name, n, bins, seed, m=2):
     if name == "all_negative":
         ids, vals = _case(n, 1, seed, m=m, neg=1.0)
+    elif name in ("full_int32", "all_distinct", "all_equal"):
+        ids, vals = _case(n, 1, seed, m=m)
+        ids = _radix_ids(name, n, np.random.default_rng(seed))
     else:
         ids, vals = _case(n, bins, seed, m=m)
     return ids, vals
@@ -220,6 +245,25 @@ def test_cpu_tensors_never_touch_the_kernel(monkeypatch):
     monkeypatch.setattr(prefix_cuda, "segmented_prefix_cuda", boom)
     ids, vals = _case(64, 4, 30)
     PSEG.segmented_prefix_dense(torch.from_numpy(ids), torch.from_numpy(vals))
+
+
+def test_build_key_covers_every_source(tmp_path, monkeypatch):
+    """The library's cache key hashes every file the build reads, so an
+    edit to a header alone rebuilds."""
+    import shutil
+
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(prefix_cuda.CSRC, csrc)
+    monkeypatch.setattr(prefix_cuda, "CSRC", csrc)
+    names = [p.name for p in prefix_cuda.sources()]
+    assert "segmented_prefix.cu" in names
+    assert "segmented_prefix_tiles.cuh" in names
+    before = prefix_cuda.library_path()
+    header = csrc / "segmented_prefix_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert prefix_cuda.library_path() != before
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
