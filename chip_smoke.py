@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero; none is caught):
    requires the kernel to have run, and through the block sort only.
    A profile of a few rounds at width 8192 gives the device busy share,
    the kernels that take the most device time, and the prefix kernel's
-   own time and share.
+   own time and share; the trace's kernel names must show the block sort
+   alone, as many times as the wrapper counted.
 5. Parity: the same 8-round sequence at width 2048 on ``cuda`` and on
    ``cpu`` with a blocking rule mix; decisions and integer state must be
    equal, float state within FLOAT_RTOL.
@@ -153,22 +154,28 @@ def prefix_bound(ids: np.ndarray, m: int):
     its bytes (ids + values read once, prefix + is_first written once)
     over the HBM rate, and its least operations — a sort and a scan,
     K * N * ceil(log2 N) * (M+1) — over the fp32 rate. Returns
-    ``(bound_ms, bound_by, algorithm_ops)``; ``algorithm_ops`` is what the
-    kernel the launcher picks spends on these ids: the block sort's radix
-    passes x N plus the M-column scan (K * N * M adds), or the tile walk's
-    N(N-1)/2 * K * (M+1) compare-adds above the block capacity."""
+    ``(bound_ms, bound_by)``."""
     k, n = ids.shape
     nbytes = k * n * (4 + 4 * m + 4 * m + 1)
     ops = k * n * max(1, math.ceil(math.log2(max(n, 2)))) * (m + 1)
-    if n <= prefix_cuda.block_capacity():
-        algorithm_ops = radix_passes(ids) * n + k * n * m
-    else:
-        algorithm_ops = n * (n - 1) // 2 * k * (m + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     if t_ops >= t_bytes:
-        return t_ops, "operations", algorithm_ops
-    return t_bytes, "bytes", algorithm_ops
+        return t_ops, "operations"
+    return t_bytes, "bytes"
+
+
+def algorithm_ops_estimate(ids: np.ndarray, m: int, design: str) -> int:
+    """An estimate, computed and not measured, of the element operations
+    the kernel that ran spends on these ids: for the block sort one key
+    placement per key per radix pass plus the scan's K * N * M adds; for
+    the tile walk its N(N-1)/2 * K * (M+1) compare-adds. It counts
+    elements, not instructions: ranking one key takes several integer
+    instructions and each pass also scans 256 counters a warp."""
+    k, n = ids.shape
+    if design == "tile_walk":
+        return n * (n - 1) // 2 * k * (m + 1)
+    return radix_passes(ids) * n + k * n * m
 
 
 I32 = np.iinfo(np.int32)
@@ -254,13 +261,14 @@ def kernel_phase(dev):
         kernel_ms = device_ms(kernel, reps)
         call_ms = time_ms(kernel, reps)
         plain_ms = device_ms(plain, max(10, reps // 5))
-        bound_ms, bound_by, algorithm_ops = prefix_bound(
-            ids.cpu().numpy(), m)
+        ids_np = ids.cpu().numpy()
+        bound_ms, bound_by = prefix_bound(ids_np, m)
         row = {"shape": {"N": n, "K": k, "M": m, "values": edge},
                "design": design, "bit_equal": True, "kernel_ms": kernel_ms,
                "call_ms": call_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "algorithm_ops": algorithm_ops}
+               "algorithm_ops_estimate": algorithm_ops_estimate(
+                   ids_np, m, design)}
         if (n, k, m, edge) == MAIN_SHAPE:
             # The tile walk on the same inputs, in this call: the kernel
             # the block sort replaced on the main path.
@@ -456,6 +464,7 @@ def profile_phase(dev, rounds: int = 8, width: int = 8192):
     for i in range(rounds, rounds + 2):
         one_round(i)
     torch.cuda.synchronize()
+    prefix_cuda.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -463,12 +472,22 @@ def profile_phase(dev, rounds: int = 8, width: int = 8192):
             one_round(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = prefix_cuda.launches
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     prefix = [e for e in kernels if "segmented_prefix" in e.key]
     prefix_us = sum(e.self_device_time_total for e in prefix)
+    # The trace's own kernel names: the main path ran the block sort and
+    # nothing else, as many times as the wrapper counted.
+    if not prefix or any("segmented_prefix_block_kernel" not in e.key
+                         for e in prefix):
+        raise AssertionError("profiled main path did not run the block sort "
+                             f"alone: {[e.key for e in prefix]}")
+    if sum(e.count for e in prefix) != counted:
+        raise AssertionError(f"trace shows {sum(e.count for e in prefix)} "
+                             f"prefix kernels, the wrapper counted {counted}")
     print(json.dumps({"profile": {
         "width": width, "rounds": rounds,
         "wall_ms_per_round": wall_ms / rounds,
@@ -574,7 +593,6 @@ def main() -> int:
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
-        "algorithm_ops": main_shape["algorithm_ops"],
         "call_ms": main_shape["call_ms"],
         "library_ms": None,
         "shape": main_shape["shape"],

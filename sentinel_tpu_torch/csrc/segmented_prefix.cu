@@ -98,6 +98,11 @@ constexpr int kCounterStride = kDigits + 1;
 constexpr int kCountersPerThread = kDigits / kLanes;
 constexpr unsigned kFull = 0xffffffffu;
 
+// What sp_segmented_prefix reports it launched.
+constexpr int kPathNone = -1;
+constexpr int kPathBlockSort = 0;
+constexpr int kPathTileWalk = 1;
+
 // Padded shared-memory indices: one spare word after every 32 keys, two
 // spare halfwords after every 32 positions. A digit bucket holds about 32
 // keys, so without them the scatter's targets 32 d + w, and the blocked
@@ -158,10 +163,12 @@ __device__ __forceinline__ uint32_t block_exclusive_sum(
 
 // The live lanes whose digit equals this lane's. __match_any_sync takes
 // the longer the more distinct digits the warp holds, while the eight
-// ballots below (one per digit bit) cost the same for any digits; they
-// break even at about 16 distinct digits on an H100. So a warp takes the
-// hardware match while the first round of its latest pass held at most
-// kFewDigits distinct digits, and the ballots otherwise.
+// ballots below (one per digit bit) cost the same for any digits. So a
+// warp takes the hardware match while the first round of its latest pass
+// held at most kFewDigits distinct digits, and the ballots otherwise.
+// Such warps are common on the engine's path, where a request with no
+// origin or no parameter rule brings the id -1: with the ballots alone
+// the prefix launches of a main-path round took 21% longer on an H100.
 constexpr int kFewDigits = 16;
 
 __device__ __forceinline__ uint32_t match_digit(uint32_t digit, bool live,
@@ -551,19 +558,24 @@ cudaError_t launch_block(const void* ids, const void* vals, void* prefix,
 // capacity, else the block sort with the keys per thread that fill at most
 // 16 warps (32 above N = 4096). More warps would buy parallelism but cost
 // more in the block-wide counter scan (256 counters a warp per pass).
+// *path is set to the path taken.
 template <int M>
 cudaError_t launch(const void* ids, const void* vals, void* prefix,
-                   void* is_first, int n, int k, cudaStream_t stream) {
+                   void* is_first, int n, int k, cudaStream_t stream,
+                   int* path) {
+  if (n > kBlockCapacity) {
+    *path = kPathTileWalk;
+    return launch_tiles<M>(ids, vals, prefix, is_first, n, k, stream);
+  }
+  *path = kPathBlockSort;
   if (n <= kBlockCapacity / 16)
     return launch_block<M, 1>(ids, vals, prefix, is_first, n, k, stream);
   if (n <= kBlockCapacity / 8)
     return launch_block<M, 2>(ids, vals, prefix, is_first, n, k, stream);
   if (n <= kBlockCapacity / 4)
     return launch_block<M, 4>(ids, vals, prefix, is_first, n, k, stream);
-  if (n <= kBlockCapacity)
-    return launch_block<M, kMaxItems>(ids, vals, prefix, is_first, n, k,
-                                      stream);
-  return launch_tiles<M>(ids, vals, prefix, is_first, n, k, stream);
+  return launch_block<M, kMaxItems>(ids, vals, prefix, is_first, n, k,
+                                    stream);
 }
 
 }  // namespace
@@ -573,16 +585,21 @@ extern "C" int sp_block_capacity() { return kBlockCapacity; }
 
 // ids int32[K, N], vals float32[K, N, M], prefix float32[K, N, M],
 // is_first bool[K, N] with M in {1, 2}; all contiguous on the current device.
+// *path (host memory) receives the kernel launched: 0 for the block sort,
+// 1 for the tile walk, -1 if nothing was launched.
 extern "C" int sp_segmented_prefix(const void* ids, const void* vals,
                                    void* prefix, void* is_first, int n,
-                                   int k, int m, void* stream) {
+                                   int k, int m, void* stream, int* path) {
+  *path = kPathNone;
   if (n <= 0 || k <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
     case 1:
-      return static_cast<int>(launch<1>(ids, vals, prefix, is_first, n, k, s));
+      return static_cast<int>(
+          launch<1>(ids, vals, prefix, is_first, n, k, s, path));
     case 2:
-      return static_cast<int>(launch<2>(ids, vals, prefix, is_first, n, k, s));
+      return static_cast<int>(
+          launch<2>(ids, vals, prefix, is_first, n, k, s, path));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,9 +16,9 @@ compare the two. Each wrapper checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()``, raises on a non-zero launch error, and
 adds one to ``launches`` for each launch (and to ``tile_launches`` when the
-tile walk ran). There is no fallback: the plain version
-(``ops/segment.py:segmented_prefix_plain``) is the CPU path and the
-oracle, never a rescue for a failed build or launch.
+launcher reports that it ran the tile walk). There is no fallback: the
+plain version (``ops/segment.py:segmented_prefix_plain``) is the CPU path
+and the oracle, never a rescue for a failed build or launch.
 """
 
 from __future__ import annotations
@@ -51,7 +51,10 @@ COLUMNS = (1, 2)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_capacity = 0
+
+# What sp_segmented_prefix reports through its last argument when it ran
+# the tile walk (0 for the block sort).
+PATH_TILE_WALK = 1
 
 
 def _find_nvcc() -> str:
@@ -105,18 +108,20 @@ def build() -> Tuple[Path, str]:
 
 
 def _load() -> ctypes.CDLL:
-    global _lib, _capacity
+    global _lib
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for fn in (lib.sp_segmented_prefix, lib.sp_segmented_prefix_tiles):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+        lib.sp_segmented_prefix.argtypes = args + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.sp_segmented_prefix_tiles.argtypes = args
+        lib.sp_segmented_prefix.restype = ctypes.c_int
+        lib.sp_segmented_prefix_tiles.restype = ctypes.c_int
         lib.sp_block_capacity.argtypes = []
         lib.sp_block_capacity.restype = ctypes.c_int
-        _capacity = lib.sp_block_capacity()
         _lib = lib
     return _lib
 
@@ -124,8 +129,7 @@ def _load() -> ctypes.CDLL:
 def block_capacity() -> int:
     """The largest N the single-block sort takes (M = 1 and M = 2); the
     launcher sends larger N to the tile walk."""
-    _load()
-    return _capacity
+    return _load().sp_block_capacity()
 
 
 def segmented_prefix_cuda(ids: torch.Tensor, values: torch.Tensor
@@ -171,16 +175,20 @@ def _launch(ids: torch.Tensor, values: torch.Tensor, tiles: bool
     if n == 0 or k == 0:
         return prefix, is_first
     lib = _load()
-    fn = lib.sp_segmented_prefix_tiles if tiles else lib.sp_segmented_prefix
+    args = (ids.data_ptr(), values.data_ptr(), prefix.data_ptr(),
+            is_first.data_ptr(), n, k, m)
+    path = ctypes.c_int(PATH_TILE_WALK)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = fn(ids.data_ptr(), values.data_ptr(), prefix.data_ptr(),
-                 is_first.data_ptr(), n, k, m, stream)
+        if tiles:
+            err = lib.sp_segmented_prefix_tiles(*args, stream)
+        else:
+            err = lib.sp_segmented_prefix(*args, stream, ctypes.byref(path))
     if err != 0:
         raise RuntimeError(f"segmented_prefix kernel launch failed: "
                            f"cudaError {err}")
     global launches, tile_launches
     launches += 1
-    if tiles or n > _capacity:
+    if path.value == PATH_TILE_WALK:
         tile_launches += 1
     return prefix, is_first
