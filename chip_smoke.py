@@ -35,7 +35,25 @@ Phases (any failure raises and exits non-zero; none is caught):
 5. Parity: the same 8-round sequence at width 2048 on ``cuda`` and on
    ``cpu`` with a blocking rule mix; decisions and integer state must be
    equal, float state within FLOAT_RTOL.
-6. The kernels line, the card line, and the final ``{"ok": true, ...}``.
+6. API: ``sentinel_tpu_torch.reset(capacity=32768)`` on the card, the
+   bench's 10,000 resources with flow (every 10th; DEFAULT, WARM_UP,
+   RATE_LIMITER, WARM_UP_RATE_LIMITER by ``(i // 10) % 4``), param (every
+   40th), degrade (``i % 20 == 5``) and authority (``i % 50 == 5``)
+   rules, so every path of ``entry()`` carries traffic: 8 threads x 5,000
+   ``with st.entry(...)`` pairs on the real clock (60% unruled, 38%
+   leased, 2% device path; 20% inside ``context_enter``), timed per pair
+   and class; the engine lock's waits and holds by taker (callers'
+   device steps, the committer's flushes) and its busy share of the
+   window; 16 device-path pairs alone after the window, for scale; the
+   committer's flushes and their widths, the prefix launches by shape
+   (block sort only), ``fail_open_count`` (must be 0), the lease ring
+   (must be ``"native"``); then a system rule must stand every fast path
+   down, and ``close()`` must leave the committer's queues empty with no
+   failed flush. A seeded single-threaded script of 2,000 entry/exit pairs, 8 to
+   each 5 ms step of the port's frozen clock, then runs on ``cuda`` and on
+   ``cpu``: verdicts and ``node_snapshot()`` must be equal. Prints one
+   ``{"api": ...}`` line.
+7. The kernels line, the card line, and the final ``{"ok": true, ...}``.
 
 It imports the port only — never JAX or the JAX package.
 """
@@ -46,25 +64,31 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 # The port itself: a copy of this script outside the repository fails here,
 # before it prints anything.
+import sentinel_tpu_torch as st
 from sentinel_tpu_torch import convert
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
     make_entry_batch_np, make_exit_batch_np, to_device)
+from sentinel_tpu_torch.core.config import LOG_DIR, config
 from sentinel_tpu_torch.core.engine import SentinelEngine
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
 from sentinel_tpu_torch.models import flow as F
 from sentinel_tpu_torch.models import param_flow as P
 from sentinel_tpu_torch.models import system as Y
+from sentinel_tpu_torch.native import build_error
 from sentinel_tpu_torch.ops import prefix_cuda
 from sentinel_tpu_torch.ops.segment import segmented_prefix_plain
+from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import SYNCS
 
 NOW0 = 1_700_000_000_000
@@ -552,6 +576,362 @@ def parity_phase():
                                  "float_rtol": FLOAT_RTOL}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the st.entry path through the module API
+# ---------------------------------------------------------------------------
+
+API_THREADS = 8
+API_PAIRS = 5_000
+API_MIX = (0.60, 0.38, 0.02)  # unruled, leased, device path
+API_PARITY_OPS = 2_000
+API_PARITY_MIX = (0.55, 0.42, 0.03)
+API_PARITY_CAPACITY = 8_192
+# Pairs per 5 ms step of the frozen clock: every advance flushes the
+# committer (one entry and one exit batch), ~4,000 steps a run at one
+# pair a step.
+API_PARITY_OPS_PER_STEP = 8
+API_PARAM_KEYS = 16
+API_ALONE_PAIRS = 16
+API_BEHAVIORS = ("DEFAULT", "WARM_UP", "RATE_LIMITER", "WARM_UP_RATE_LIMITER")
+
+
+def api_pools():
+    """Resource names by the path ``entry()`` takes for them."""
+    n = N_RESOURCES
+    pools = {
+        "leased_default_param": range(0, n, 40),
+        "leased_warm_up": range(10, n, 40),
+        "device_rate_limiter": range(20, n, 40),
+        "device_warm_up_rate_limiter": range(30, n, 40),
+        "device_degrade_or_authority": sorted(set(range(5, n, 20))
+                                              | set(range(5, n, 50))),
+        "unruled": [i for i in range(n) if i % 10 in (1, 2, 3, 4)],
+    }
+    return {k: [f"res{i}" for i in v] for k, v in pools.items()}
+
+
+def api_engine(dev, capacity=CAPACITY, register=True):
+    """A fresh default engine with the API phase's rules, so every path of
+    ``entry()`` has resources; ``register`` interns the bench's 10,000
+    resources up front, as the bench does."""
+    eng = st.reset(capacity=capacity, device=dev)
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    for i in range(N_RESOURCES if register else 0):
+        reg.cluster_row(f"res{i}")
+        reg.default_row(CTX, f"res{i}", ent)
+    behaviors = [getattr(C, f"CONTROL_BEHAVIOR_{b}") for b in API_BEHAVIORS]
+    st.load_flow_rules([
+        st.FlowRule(resource=f"res{i}", count=2 + (i // 40) % 4,
+                    control_behavior=behaviors[(i // 10) % 4],
+                    warm_up_period_sec=2, max_queueing_time_ms=20)
+        for i in range(0, N_RESOURCES, 10)])
+    st.load_param_flow_rules([st.ParamFlowRule(f"res{i}", param_idx=0,
+                                               count=2)
+                              for i in range(0, N_RESOURCES, 40)])
+    st.load_degrade_rules([
+        st.DegradeRule(resource=f"res{i}", count=0.5,
+                       grade=C.DEGRADE_GRADE_EXCEPTION_RATIO, time_window=1,
+                       min_request_amount=5)
+        for i in range(5, N_RESOURCES, 20)])
+    st.load_authority_rules([
+        st.AuthorityRule(resource=f"res{i}", limit_app="appA",
+                         strategy=C.AUTHORITY_BLACK)
+        for i in range(5, N_RESOURCES, 50)])
+    pools = api_pools()
+    for res in pools["leased_default_param"] + pools["leased_warm_up"]:
+        if res not in eng._leases:
+            raise AssertionError(f"{res} should be leased")
+    for name in pools:
+        if name.startswith("device") and any(r in eng._leases
+                                             for r in pools[name]):
+            raise AssertionError(f"a {name} resource is leased")
+    return eng
+
+
+def api_pick(rng, pools, mix):
+    """One request: (class, resource, context origin or None, args,
+    traced error)."""
+    r = rng.random()
+    if r < mix[0]:
+        cls = "unruled"
+    elif r < mix[0] + mix[1]:
+        cls = ("leased_default_param", "leased_warm_up")[int(rng.integers(2))]
+    else:
+        cls = ("device_rate_limiter", "device_warm_up_rate_limiter",
+               "device_degrade_or_authority")[int(rng.integers(3))]
+    pool = pools[cls]
+    res = pool[int(rng.integers(len(pool)))]
+    origin = ("appA", "appB")[int(rng.integers(2))] \
+        if rng.random() < 0.2 else None
+    args = (int(rng.integers(API_PARAM_KEYS)),)
+    return cls, res, origin, args, rng.random() < 0.1
+
+
+def api_pair(res, origin, args, error, prioritized=False):
+    """One ``with st.entry(...)`` pair; the verdict (``"pass"`` or the
+    exception's type)."""
+    if origin is not None:
+        st.context_enter("ctx", origin)
+    try:
+        with st.entry(res, args=args, prioritized=prioritized):
+            if error:
+                st.trace(RuntimeError("business error"))
+        return "pass"
+    except st.BlockException as ex:
+        return type(ex).__name__
+    finally:
+        if origin is not None:
+            st.exit_context()
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+class TimedLock:
+    """The engine lock, with each outermost hold's wait to acquire and its
+    hold timed and keyed by the taking thread's role (the committer's
+    thread or a caller) and the function that took it. The engine only
+    takes its lock with ``with``; reentrant holds are not timed again."""
+
+    COMMITTER = "sentinel-torch-stats-committer"
+
+    def __init__(self, inner):
+        self._inner = inner
+        self._local = threading.local()
+        self.samples = []  # (key, wait_s, hold_s); list.append is atomic
+
+    def __enter__(self):
+        local = self._local
+        depth = getattr(local, "depth", 0)
+        t0 = time.perf_counter()
+        self._inner.acquire()
+        if depth == 0:
+            role = ("committer" if threading.current_thread().name
+                    == self.COMMITTER else "caller")
+            local.key = f"{role}:{sys._getframe(1).f_code.co_name}"
+            local.t_req, local.t_acq = t0, time.perf_counter()
+        local.depth = depth + 1
+        return self
+
+    def __exit__(self, *exc):
+        local = self._local
+        local.depth -= 1
+        if local.depth == 0:
+            self.samples.append((local.key, local.t_acq - local.t_req,
+                                 time.perf_counter() - local.t_acq))
+        self._inner.release()
+        return False
+
+    def report(self, wall_s):
+        by_key = {}
+        for key, wait, hold in self.samples:
+            by_key.setdefault(key, []).append((wait, hold))
+        out = {}
+        for key, xs in sorted(by_key.items()):
+            waits = [w * 1e3 for w, _ in xs]
+            holds = [h * 1e3 for _, h in xs]
+            out[key] = {"n": len(xs),
+                        "wait_ms": {"p50": pct(waits, 50),
+                                    "p99": pct(waits, 99),
+                                    "sum_s": sum(waits) / 1e3},
+                        "hold_ms": {"p50": pct(holds, 50),
+                                    "p99": pct(holds, 99),
+                                    "sum_s": sum(holds) / 1e3}}
+        held = sum(h for _, _, h in self.samples)
+        return {"busy_share": held / wall_s, "held_s": held, "by": out}
+
+
+def api_timed(eng):
+    """8 threads x 5,000 pairs on the real clock; per-class latency and
+    blocked share, and what the committer did meanwhile."""
+    pools = api_pools()
+    eng.warmup()
+    committer_widths = lambda c: (dict(c.entry_widths), dict(c.exit_widths))
+    # Start the committer before the window so its flushes are counted.
+    api_pair("res1", None, (), False)
+    committer = eng.committer
+    flushes0 = committer.flushes
+    widths0 = committer_widths(committer)
+    results = [None] * API_THREADS
+    barrier = threading.Barrier(API_THREADS + 1)
+
+    def worker(t):
+        rng = np.random.default_rng(1000 + t)
+        out = []
+        barrier.wait()
+        for _ in range(API_PAIRS):
+            cls, res, origin, args, error = api_pick(rng, pools, API_MIX)
+            t0 = time.perf_counter()
+            verdict = api_pair(res, origin, args, error)
+            out.append((cls, time.perf_counter() - t0, verdict))
+        results[t] = out
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(API_THREADS)]
+    for th in threads:
+        th.start()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    eng._lock.samples.clear()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    wall_s = time.perf_counter() - t0
+    lock = eng._lock.report(wall_s)
+    eng._flush_committer()  # the window's last commits land on the card
+    launches = prefix_cuda.launches
+    tile = prefix_cuda.tile_launches
+    by_shape = dict(prefix_cuda.launches_by_shape)
+    flushes = committer.flushes - flushes0
+    widths = committer_widths(committer)
+    rows = [r for out in results for r in out]
+    if len(rows) != API_THREADS * API_PAIRS:
+        raise AssertionError("a caller thread did not finish")
+    by_cls = {}
+    for cls, dt, verdict in rows:
+        by_cls.setdefault(cls, []).append((dt, verdict))
+
+    def lat(prefixes, scale):
+        xs = [dt * scale for c, v in by_cls.items()
+              if c.startswith(prefixes) for dt, _ in v]
+        return {"n": len(xs), "p50": pct(xs, 50), "p99": pct(xs, 99)}
+
+    if launches <= 0:
+        raise AssertionError("the API phase never launched the prefix kernel")
+    if tile:
+        raise AssertionError("the API phase took the tile walk")
+    # The same device-path pairs with no other caller, for scale.
+    alone = []
+    for res in pools["device_degrade_or_authority"][:API_ALONE_PAIRS]:
+        t1 = time.perf_counter()
+        api_pair(res, None, (0,), False)
+        alone.append((time.perf_counter() - t1) * 1e3)
+    return {
+        "threads": API_THREADS, "pairs_per_thread": API_PAIRS,
+        "wall_s": wall_s,
+        "pairs_per_s": len(rows) / wall_s,
+        "leased_pair_us": lat("leased", 1e6),
+        "unruled_pair_us": lat("unruled", 1e6),
+        "device_path_pair_ms": lat("device", 1e3),
+        "device_path_pair_ms_alone": {"n": len(alone), "p50": pct(alone, 50),
+                                      "max": max(alone)},
+        "engine_lock": lock,
+        "blocked_share": {c: sum(v != "pass" for _, v in xs) / len(xs)
+                          for c, xs in sorted(by_cls.items())},
+        "committer_flushes": flushes,
+        "flush_entry_widths": {
+            w: n - widths0[0].get(w, 0) for w, n in sorted(widths[0].items())},
+        "flush_exit_widths": {
+            w: n - widths0[1].get(w, 0) for w, n in sorted(widths[1].items())},
+        "prefix_launches": launches,
+        "prefix_launches_block_sort": launches - tile,
+        "prefix_launches_by_shape": {
+            f"K={k},N={n},M={m}": c for (k, n, m), c in sorted(by_shape.items())},
+    }
+
+
+def api_script(dev):
+    """The seeded single-threaded script on ``dev`` under the frozen
+    clock: (verdicts, node_snapshot, seconds)."""
+    t0 = time.perf_counter()
+    time_util.freeze_time(NOW0)
+    try:
+        # Rows only for the ruled resources and the script's traffic: the
+        # CPU run pays for every row in each of its ~4,000 steps.
+        eng = api_engine(dev, capacity=API_PARITY_CAPACITY, register=False)
+        waits = []
+        submit = eng._submit_entry
+
+        def recorded(*a, **k):
+            out = submit(*a, **k)
+            waits.append(out[1])
+            return out
+
+        eng._submit_entry = recorded
+        pools = api_pools()
+        rng = np.random.default_rng(23)
+        verdicts = []
+        for op in range(API_PARITY_OPS):
+            if op % API_PARITY_OPS_PER_STEP == 0:
+                time_util.advance_time(5)  # flushes the committer first
+            cls, res, origin, args, error = api_pick(rng, pools,
+                                                     API_PARITY_MIX)
+            prioritized = cls.startswith("device") and rng.random() < 0.2
+            n_waits = len(waits)
+            verdict = api_pair(res, origin, args, error, prioritized)
+            if verdict == "pass" and len(waits) > n_waits and waits[-1] > 0:
+                verdict = "wait"
+            verdicts.append(verdict)
+        snapshot = eng.node_snapshot()
+        committer = eng.committer
+        eng.close()
+        failures = committer.failures if committer is not None else 0
+        if eng.fail_open_count or failures:
+            raise AssertionError(f"{dev}: fail_open_count "
+                                 f"{eng.fail_open_count}, committer "
+                                 f"failures {failures}")
+    finally:
+        time_util.unfreeze_time()
+    return verdicts, snapshot, time.perf_counter() - t0
+
+
+def api_phase(dev):
+    # Block logs stay inside the checkout (``smoke_logs/``, gitignored).
+    config.set(LOG_DIR, str(Path(__file__).resolve().parent / "smoke_logs"))
+    t0 = time.perf_counter()
+    eng = api_engine(dev)
+    eng._lock = TimedLock(eng._lock)
+    out = {"lease_ring": eng.lease_ring}
+    if out["lease_ring"] != "native":
+        raise AssertionError("the lease ring did not build natively: "
+                             f"{build_error()}")
+    out.update(api_timed(eng))
+    out["fail_open_count"] = eng.fail_open_count
+    if eng.fail_open_count:
+        raise AssertionError(f"fail_open_count {eng.fail_open_count}")
+    st.load_system_rules([st.SystemRule(qps=1e12)])
+    out["leases_after_system_rule"] = len(eng._leases)
+    out["unruled_fastpath_after_system_rule"] = eng._unruled_fastpath
+    if eng._leases or eng._unruled_fastpath:
+        raise AssertionError("a fast path survived the system rule")
+    committer = eng.committer
+    eng.close()
+    out["committer_pending_after_close"] = list(committer.pending())
+    if committer.pending() != (0, 0) or eng.committer is not None:
+        raise AssertionError("close() left queued commits")
+    out["committer_failures"] = committer.failures
+    if committer.failures:
+        raise AssertionError(f"{committer.failures} committer flushes failed")
+    timed_s = time.perf_counter() - t0
+
+    runs = {d: api_script(d) for d in ("cuda", "cpu")}
+    (vc, sc, tc), (vp, sp, tp) = runs["cuda"], runs["cpu"]
+    if vc != vp:
+        first = next(i for i, (a, b) in enumerate(zip(vc, vp)) if a != b)
+        raise AssertionError(f"API parity: op {first} is {vc[first]} on "
+                             f"cuda and {vp[first]} on cpu")
+    if set(sc) != set(sp):
+        raise AssertionError("API parity: node_snapshot resources differ")
+    for res in sc:
+        for k, v in sc[res].items():
+            if not math.isclose(v, sp[res][k], rel_tol=FLOAT_RTOL, abs_tol=0):
+                raise AssertionError(f"API parity: {res}.{k} {v} on cuda, "
+                                     f"{sp[res][k]} on cpu")
+    out["parity"] = {
+        "ops": API_PARITY_OPS, "verdicts_equal": True,
+        "node_snapshot_equal": True,
+        "verdict_counts": {v: vc.count(v) for v in sorted(set(vc))},
+        "cuda_s": tc, "cpu_s": tp}
+    out["timed_part_s"] = timed_s
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"api": out}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -576,6 +956,7 @@ def main() -> int:
     _, main_launches = main_path_phase(dev)
     profile_phase(dev)
     parity_phase()
+    api_phase(dev)
 
     print(json.dumps({"kernels": [{
         "name": "segmented_prefix",

@@ -1,45 +1,66 @@
-"""A slim engine around the fused step (the main-path part of
-``sentinel_tpu/core/engine.py``).
+"""The host engine: the entry/exit API over the fused device step (port of
+``sentinel_tpu/core/engine.py``, its width-1 main path).
 
-What it has: rule loading for the five families with per-family
-recompilation on push (mirroring the JAX engine's ``_ensure_compiled``
-and its slot-floor ratchet), the batch API (``check_batch`` /
-``complete_batch`` / ``harvest_decisions``) and a width-1 ``entry`` that
-raises the typed ``BlockException`` subclasses and whose handle's
-``exit()`` commits the completion.
+It owns the node registry, the compiled rule tensors and the device state.
+Each ``entry()`` resolves the call context, runs the SPI host slots, and
+then takes one of three paths, in the reference's order:
 
-What it does not have yet (later slices): the host token lease, the slot
-table, the context tree, the pipeline, the cluster path, SPI slots, the
-system-status sampler (the caller sets load / CPU with
-``set_system_signals``; -1 means not sampled), metric sealing and the
-telemetry readers.
+  1. a lease-eligible resource is admitted on the host
+     (``core/lease.py``) and its statistics stream to the device through
+     the background ``StatsCommitter``;
+  2. a resource with no rules at all passes, its statistics streamed the
+     same way (the unruled fast path);
+  3. everything else runs one width-1 ``entry_step`` on the device and
+     raises a typed ``BlockException``, sleeps a paced wait, or passes.
+
+The fast-path state (leases, guarded set, unruled flag) is rebuilt on
+every rule push under a config lock separate from the engine lock, so a
+push never waits on a device dispatch. The readers (``seal_metrics``,
+``row_stats``, ``tree_dict``, ``node_snapshot``) flush the committer first.
+The batch API (``check_batch`` / ``complete_batch`` /
+``harvest_decisions``) runs the step on caller-built batches.
+
+What it does not have yet (later slices): the pipeline, the slot table,
+the cluster token check, shadow lanes and the flight recorder, SPI device
+checkers, window retuning, checkpoints.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
-and no explicit device the constructor raises.
+and no explicit device the constructor raises. On ``cuda`` the
+segmented-prefix kernel is built at construction, so a build failure
+raises here and not in the first ``entry()``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sentinel_tpu_torch.core import constants as C
+from sentinel_tpu_torch.core import context as ctx_mod
+from sentinel_tpu_torch.core import spi as spi_mod
 from sentinel_tpu_torch.core.batch import (
-    MAX_PARAMS, Decisions, EntryBatch, ExitBatch, make_entry_batch_np,
-    make_exit_batch_np, to_device)
+    BATCH_WIDTHS, MAX_PARAMS, Decisions, EntryBatch, ExitBatch,
+    make_entry_batch_np, make_exit_batch_np, to_device)
+from sentinel_tpu_torch.core.config import config
 from sentinel_tpu_torch.core.exceptions import (
     BlockException, exception_for_reason)
-from sentinel_tpu_torch.core.registry import NodeRegistry
+from sentinel_tpu_torch.core.registry import (
+    KIND_CLUSTER, ROOT_ROW, NodeRegistry)
+from sentinel_tpu_torch.log.record_log import log_block, record_log
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
 from sentinel_tpu_torch.models import flow as F
 from sentinel_tpu_torch.models import param_flow as P
 from sentinel_tpu_torch.models import system as Y
+from sentinel_tpu_torch.native import load_lease_ext
 from sentinel_tpu_torch.ops import step as S
+from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import resolve_device
 from sentinel_tpu_torch.utils.param_hash import hash_param
 
@@ -47,26 +68,53 @@ from sentinel_tpu_torch.utils.param_hash import hash_param
 INITIAL_SLOT_FLOOR = {"flow": 1, "degrade": 0, "authority": 0, "param": 0}
 
 
+class DeviceDispatchError(RuntimeError):
+    """A device step failed after it may have consumed the state. The
+    raising site has already dropped the engine to a cold state (rules
+    durable, stats ephemeral); the width-1 entry path fails open and
+    counts it (``fail_open_count``), batch-API callers see this error."""
+
+
+class _FastPathState:
+    """One atomically-swapped snapshot of the host fast-path config:
+    entry() reads a single attribute, so a rule push can never expose a
+    torn (leases, guarded, unruled) combination to a lock-free reader."""
+
+    __slots__ = ("leases", "guarded", "unruled")
+
+    def __init__(self, leases, guarded, unruled):
+        self.leases = leases
+        self.guarded = guarded
+        self.unruled = unruled
+
+
 class EntryHandle:
     """A live entry (reference: ``CtEntry``). Use as a context manager."""
 
-    __slots__ = ("engine", "resource", "cluster_row", "dn_row", "origin_row",
-                 "entry_in", "count", "created_ms", "error", "exited",
-                 "params")
+    __slots__ = (
+        "engine", "resource", "context", "cluster_row", "dn_row",
+        "origin_row", "entry_in", "count", "created_ms", "error", "exited",
+        "params", "leased",
+    )
 
-    def __init__(self, engine, resource, cluster_row, dn_row, origin_row,
-                 entry_in, count, params, now_ms):
+    def __init__(self, engine, resource, context, cluster_row, dn_row,
+                 origin_row, entry_in, count, params, leased=False,
+                 now_ms=None):
         self.engine = engine
         self.resource = resource
+        self.context = context
         self.cluster_row = cluster_row
         self.dn_row = dn_row
         self.origin_row = origin_row
         self.entry_in = entry_in
         self.count = count
-        self.created_ms = now_ms
+        # Callers on the µs-scale fast path pass the clock they already
+        # read; everyone else pays the read here.
+        self.created_ms = engine.now_ms() if now_ms is None else now_ms
         self.error = False
         self.exited = False
         self.params = params
+        self.leased = leased
 
     def trace(self, ex: Optional[BaseException] = None) -> None:
         """Record a business exception (reference: ``Tracer.trace``)."""
@@ -90,23 +138,53 @@ class EntryHandle:
 
 
 class SentinelEngine:
-    """Owns the device state and compiled rules; thread-safe via one lock."""
+    """Owns the device state and compiled rules.
+
+    Lock order is config -> engine: ``_config_lock`` serializes rule
+    pushes and ``close()``; ``_lock`` serializes device steps and reads of
+    the state. Never take ``_config_lock`` while holding ``_lock``.
+    """
 
     def __init__(self, capacity: int = 4096, device=None, clock=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            from sentinel_tpu_torch.ops import prefix_cuda
+
+            prefix_cuda.build()
         self.capacity = capacity
         self.registry = NodeRegistry(capacity)
+        # None = the process clock (time_util, which tests may freeze); a
+        # callable = this engine's private timebase.
         self._clock = clock
         self._spec1 = S.SPEC_1S
         self._occupy_timeout_ms = C.DEFAULT_OCCUPY_TIMEOUT_MS
+        # Global kill switch (reference: Constants.ON). Off => every entry
+        # passes unguarded.
+        self.enabled = True
+        self.system_status = Y.SystemStatusListener()
+        self._signals_refreshed_ms = 0
+        self._sealed_sec = self.now_ms() // 1000 - 1
+        # Entries that passed UNGUARDED because a device step failed.
+        self.fail_open_count = 0
+        self._fail_open_logged_ms = 0
+        # Token-lease fast path (core/lease.py): host-admitted resources +
+        # the async stats committer, rebuilt on every rule push. The C
+        # ring builds here, never under the config lock of a push.
+        self.lease_enabled = config.lease_enabled()
+        if self.lease_enabled:
+            load_lease_ext()
+        self._fastpath = _FastPathState({}, frozenset(), self.lease_enabled)
+        self._committer = None
+        self._closed = False
         self._lock = threading.RLock()
+        self._config_lock = threading.RLock()
         self._state: Optional[S.SentinelState] = None
         self._rules: Optional[S.RulePack] = None
         self._named_origins: Dict[str, set] = {}
-        self._sys_signals = (-1.0, -1.0)
         self._slot_floor = dict(INITIAL_SLOT_FLOOR)
         self._dirty = {k: False for k in
                        ("flow", "degrade", "authority", "system", "param")}
+        self._spi = spi_mod
         self.flow_rules = F.FlowRuleManager()
         self.degrade_rules = D.DegradeRuleManager()
         self.authority_rules = A.AuthorityRuleManager()
@@ -122,23 +200,26 @@ class SentinelEngine:
     # -- clock / signals -----------------------------------------------------
 
     def now_ms(self) -> int:
-        if self._clock is not None:
-            return int(self._clock())
-        return int(time.time() * 1000)
+        clock = self._clock
+        return int(clock()) if clock is not None else \
+            time_util.current_time_millis()
 
-    def set_system_signals(self, load1: float = -1.0,
-                           cpu_usage: float = -1.0) -> None:
-        """Host OS signals for the system rules' load / CPU checks (-1 =
-        not sampled, which never blocks)."""
-        with self._lock:
-            self._sys_signals = (float(load1), float(cpu_usage))
-            if self._state is not None:
-                self._state = self._state._replace(
-                    sys_signals=self._signals_tensor())
+    def _maybe_start_system_listener(self) -> None:
+        def is_set(v):
+            return v is not None and v >= 0
 
-    def _signals_tensor(self) -> torch.Tensor:
-        return torch.tensor(self._sys_signals, dtype=torch.float32,
-                            device=self.device)
+        if any(is_set(r.highest_system_load) or is_set(r.highest_cpu_usage)
+               for r in self.system_rules.get_rules()):
+            self.system_status.start()
+
+    def _refresh_signals(self, now_ms: int) -> None:
+        """Fold the latest host OS sample into device state (≤ 1 Hz). A
+        clock that stepped backward refreshes at once."""
+        if 0 <= now_ms - self._signals_refreshed_ms < 1000:
+            return
+        self._signals_refreshed_ms = now_ms
+        self._state = self._state._replace(sys_signals=torch.from_numpy(
+            self.system_status.snapshot()).to(self.device))
 
     @property
     def state(self) -> Optional[S.SentinelState]:
@@ -148,14 +229,128 @@ class SentinelEngine:
     def rules(self) -> Optional[S.RulePack]:
         return self._rules
 
+    # -- fast path -----------------------------------------------------------
+
+    @property
+    def _leases(self):
+        return self._fastpath.leases
+
+    @property
+    def _guarded_resources(self):
+        return self._fastpath.guarded
+
+    @property
+    def _unruled_fastpath(self):
+        return self._fastpath.unruled
+
+    @property
+    def lease_ring(self) -> str:
+        """Which ring plain leases run: ``"native"`` (the C extension) or
+        ``"python"`` (``LocalLease``'s own ring)."""
+        return "native" if load_lease_ext() is not None else "python"
+
+    @property
+    def committer(self):
+        """The live stats committer, or None before the first fast-path
+        entry and after ``close()``."""
+        return self._committer
+
+    def _rebuild_leases(self) -> None:
+        """Recompute the token-lease table from the current rules.
+
+        Mirrors must NOT reset to zero on a rule push: re-granting quota
+        already spent this window would double-admit. Surviving resources
+        carry their mirror over; newly eligible ones seed from the device
+        window plus the queued commits."""
+        from sentinel_tpu_torch.core.lease import build_lease_table
+
+        if self._closed:
+            return  # a straggler push must not resurrect the fast path
+        old = self._leases
+        if self.lease_enabled:
+            new, guarded, unruled_ok = build_lease_table(self)
+        else:
+            new, guarded, unruled_ok = {}, set(), False
+        fresh = []
+        for res, lease in new.items():
+            prev = old.get(res)
+            if prev is not None and prev.buckets == lease.buckets \
+                    and prev.bucket_ms == lease.bucket_ms:
+                lease.seed(*prev.snapshot())
+            else:
+                fresh.append(res)
+        if fresh:
+            self._seed_leases_into(new, fresh)
+        self._fastpath = _FastPathState(new, guarded, unruled_ok)
+
+    def _ensure_committer(self):
+        committer = self._committer
+        if committer is None:
+            from sentinel_tpu_torch.core.lease import (StatsCommitter,
+                                                       SyncCommitter)
+
+            with self._lock:
+                if self._closed:
+                    # An entry racing close() read the fast path before the
+                    # swap: commit inline rather than restart the thread.
+                    return SyncCommitter(self)
+                if self._committer is None:
+                    self._committer = StatsCommitter(self).start()
+                committer = self._committer
+        return committer
+
+    def _flush_committer(self) -> None:
+        """Drain pending leased commits so reads are deterministic."""
+        committer = self._committer
+        if committer is not None:
+            committer.flush()
+
+    def _seed_leases_into(self, table, targets) -> None:
+        """Seed ``targets``' mirrors in ``table`` from the device window
+        PLUS the un-flushed committer commits. Flushing here would
+        deadlock against the background flush, which takes the engine
+        lock a caller may hold: so count, don't flush. A resource with no
+        registry row never served traffic and stays empty."""
+        targets = [res for res in targets if res in table]
+        if not targets:
+            return
+        with self._lock:
+            state = self._state
+            if state is not None:
+                pass_counts = state.w1.counts[:, C.MetricEvent.PASS, :] \
+                    .cpu().numpy()
+                starts = state.w1.starts.cpu().numpy()
+            rows = {}
+            for res in targets:
+                row = self.registry.get_cluster_row(res)
+                if row is not None:
+                    rows[res] = row
+        committer = self._committer
+        pending = committer.pending_pass_counts() if committer else {}
+        now = self.now_ms()
+        for res in targets:
+            if res not in rows:
+                continue
+            lease = table[res]
+            if state is not None:
+                lease.seed(starts, pass_counts[:, rows[res]])
+            queued = pending.get(rows[res], 0)
+            if queued:
+                lease.add(queued, now)
+
     # -- rule compilation --------------------------------------------------
 
     def _mark_dirty(self, family: str) -> None:
-        self._dirty[family] = True
-        if family == "flow":
-            # entry() reads the named-origin map before any compile.
-            self._named_origins = F.named_origin_map(
-                self.flow_rules.get_rules(), self.registry)
+        # Config lock, NOT the engine lock: the dirty flag hand-off is a
+        # GIL-atomic dict write read under the engine lock on the next
+        # dispatch, and the lease rebuild must not queue behind a step.
+        with self._config_lock:
+            self._dirty[family] = True
+            if family == "flow":
+                # entry() reads the named-origin map before any compile.
+                self._named_origins = F.named_origin_map(
+                    self.flow_rules.get_rules(), self.registry)
+            self._rebuild_leases()
 
     def _ratchet_slots(self, **tensors) -> None:
         for family, rt in tensors.items():
@@ -194,7 +389,8 @@ class SentinelEngine:
         """(Re)build rule tensors + state after a config push. Each family
         rebuilds independently: a flow push re-creates flow controller
         state but keeps breaker state, and vice versa; node stats always
-        survive. Dirty flags clear before their rules are read."""
+        survive. Dirty flags clear before their rules are read, so a push
+        landing mid-compile is never lost."""
         if self._state is None:
             for k in self._dirty:
                 self._dirty[k] = False
@@ -208,12 +404,12 @@ class SentinelEngine:
                 system=Y.compile_system_rules(self.system_rules.get_rules(),
                                               device=self.device),
                 param=pt)
-            state = S.make_state(
+            self._state = S.make_state(
                 self.capacity, ft.num_rules, now,
                 degrade=D.make_degrade_state(dt, di),
                 param=P.make_param_state(pt.num_rules, device=self.device),
                 spec1=self._spec1, device=self.device)
-            self._state = state._replace(sys_signals=self._signals_tensor())
+            self._maybe_start_system_listener()
             return
         if not any(self._dirty.values()):
             return
@@ -238,6 +434,7 @@ class SentinelEngine:
             self._dirty["system"] = False
             self._rules = self._rules._replace(system=Y.compile_system_rules(
                 self.system_rules.get_rules(), device=self.device))
+            self._maybe_start_system_listener()
         if self._dirty["param"]:
             self._dirty["param"] = False
             pt = self._compile_param()
@@ -245,7 +442,7 @@ class SentinelEngine:
             self._state = self._state._replace(
                 param=P.make_param_state(pt.num_rules, device=self.device))
 
-    # -- batch API -----------------------------------------------------------
+    # -- device steps --------------------------------------------------------
 
     def _as_batch(self, batch, cls):
         if isinstance(batch, dict):
@@ -254,53 +451,208 @@ class SentinelEngine:
             raise TypeError(f"expected {cls.__name__} or a numpy staging dict")
         return batch
 
-    def check_batch(self, batch, now_ms: Optional[int] = None) -> Decisions:
-        """One admission step over a batch (``EntryBatch`` of tensors on
-        this engine's device, or a ``make_entry_batch_np`` dict)."""
+    def _run_entry_batch_locked(self, batch, now_ms: Optional[int] = None
+                                ) -> Decisions:
         batch = self._as_batch(batch, EntryBatch)
-        with self._lock:
-            self._ensure_compiled()
-            now = now_ms if now_ms is not None else self.now_ms()
+        self._ensure_compiled()
+        now = now_ms if now_ms is not None else self.now_ms()
+        self._refresh_signals(now)
+        try:
             self._state, dec = S.entry_step(
                 self._state, self._rules, batch, now, spec1=self._spec1,
                 occupy_timeout_ms=self._occupy_timeout_ms)
-            return dec
+        except Exception as ex:  # noqa: BLE001 — the state may be consumed
+            self._state = None  # restart cold: rules durable, stats not
+            raise DeviceDispatchError(
+                f"entry dispatch failed: {ex!r:.200}") from ex
+        return dec
 
-    def complete_batch(self, batch, now_ms: Optional[int] = None) -> None:
-        """One completion step (``ExitBatch`` or a numpy staging dict)."""
+    def _run_entry_batch(self, batch) -> Decisions:
+        with self._lock:
+            return self._run_entry_batch_locked(batch)
+
+    def _run_exit_batch(self, batch, now_ms: Optional[int] = None) -> None:
         batch = self._as_batch(batch, ExitBatch)
         with self._lock:
             self._ensure_compiled()
             now = now_ms if now_ms is not None else self.now_ms()
-            self._state = S.exit_step(self._state, self._rules, batch, now,
-                                      spec1=self._spec1)
+            try:
+                self._state = S.exit_step(self._state, self._rules, batch,
+                                          now, spec1=self._spec1)
+            except Exception as ex:  # noqa: BLE001
+                self._state = None
+                raise DeviceDispatchError(
+                    f"exit dispatch failed: {ex!r:.200}") from ex
+
+    # -- batch API -----------------------------------------------------------
+
+    def check_batch(self, batch, now_ms: Optional[int] = None) -> Decisions:
+        """One admission step over a batch (``EntryBatch`` of tensors on
+        this engine's device, or a ``make_entry_batch_np`` dict)."""
+        with self._lock:
+            return self._run_entry_batch_locked(batch, now_ms)
+
+    def complete_batch(self, batch, now_ms: Optional[int] = None) -> None:
+        """One completion step (``ExitBatch`` or a numpy staging dict)."""
+        self._run_exit_batch(batch, now_ms)
 
     def harvest_decisions(self, dec: Decisions
                           ) -> Tuple[np.ndarray, np.ndarray]:
         """Materialize a step's verdicts on the host: (reason, wait_us)."""
         return dec.reason.cpu().numpy(), dec.wait_us.cpu().numpy()
 
+    def warmup(self, widths: Optional[Sequence[int]] = None) -> None:
+        """Run one no-op entry and exit step (all rows -1, nothing
+        committed) at every ladder width under the current rules, so the
+        first real traffic finds the kernel loaded and the allocator
+        warm."""
+        for width in (widths if widths is not None else BATCH_WIDTHS):
+            self._run_entry_batch(make_entry_batch_np(int(width)))
+            self._run_exit_batch(make_exit_batch_np(int(width)))
+
+    def close(self) -> None:
+        """Stop the background workers (stats committer, OS sampler).
+
+        The fast path goes off FIRST (one swap under both locks, which
+        ``_ensure_committer`` checks), so no new entry takes it; then the
+        committer stops and drains OUTSIDE the locks, since its flush
+        takes the engine lock. A leased handle exiting after close
+        commits synchronously on the device."""
+        with self._config_lock, self._lock:
+            self._closed = True
+            self._fastpath = _FastPathState({}, frozenset(), False)
+            committer, self._committer = self._committer, None
+        if committer is not None:
+            committer.stop()
+        self.system_status.stop()
+
     # -- width-1 API ---------------------------------------------------------
 
-    def entry(self, resource: str, count: int = 1, origin: str = "",
-              args: Sequence = (), entry_type: int = C.EntryType.OUT,
+    def entry(self, resource: str, entry_type: int = C.EntryType.OUT,
+              count: int = 1, args: Sequence = (),
               prioritized: bool = False) -> EntryHandle:
-        """``SphU.entry``: admit or raise a ``BlockException`` subclass."""
+        """``SphU.entry``: admit or raise a ``BlockException`` subclass.
+        The origin comes from the call context (``context_enter``)."""
         if count > C.MAX_ACQUIRE_COUNT:
             raise ValueError(
                 f"count={count} exceeds MAX_ACQUIRE_COUNT={C.MAX_ACQUIRE_COUNT}")
-        reg = self.registry
-        ctx = C.CONTEXT_DEFAULT_NAME
-        entrance = reg.entrance_row(ctx)
+        ctx = ctx_mod.get_context()
+        if ctx is None:
+            ctx = ctx_mod.enter_auto()  # pooled per-thread default context
         entry_in = entry_type == C.EntryType.IN
+        if ctx.is_null or not self.enabled:
+            return EntryHandle(self, resource, ctx, -1, -1, -1, entry_in,
+                               count, ())
+
+        reg = self.registry
+        if ctx.entrance_row < 0:
+            ctx.entrance_row = reg.entrance_row(ctx.name)
+        parent = ctx.cur_entry.dn_row if ctx.cur_entry else ctx.entrance_row
         cluster_row, dn_row, origin_row, origin_id = reg.resolve_entry(
-            resource, ctx, origin, entrance, int(entry_type))
-        now = self.now_ms()
+            resource, ctx.name, ctx.origin, parent, int(entry_type))
         if cluster_row < 0:
             # Registry full: pass-through, like the reference's chain cap.
-            return EntryHandle(self, resource, -1, -1, -1, entry_in, count,
-                               (), now)
-        params = tuple(hash_param(a) for a in args[:MAX_PARAMS])
+            return EntryHandle(self, resource, ctx, -1, -1, -1, entry_in,
+                               count, ())
+        params = tuple(hash_param(a) for a in args[:MAX_PARAMS]) \
+            if args else ()
+
+        # SPI host slots: a slot raising a BlockException rejects the
+        # entry; the block is committed to statistics first.
+        custom_ex = None
+        slots = self._spi.host_slots()
+        if slots:
+            info = self._spi.EntryInfo(
+                resource=resource, origin=ctx.origin, count=count,
+                entry_type=int(entry_type), prioritized=prioritized,
+                args=tuple(args), context_name=ctx.name)
+            for slot in slots:
+                try:
+                    slot.on_entry(info)
+                except BlockException as ex:
+                    custom_ex = ex
+                    break
+                except Exception:
+                    # A buggy slot must not leak the auto-created context.
+                    ctx_mod.auto_exit_context()
+                    raise
+        if custom_ex is not None:
+            self._submit_entry(
+                resource, cluster_row, dn_row, origin_row, origin_id,
+                reg.context_id(ctx.name), count, prioritized, entry_in,
+                params, pre_blocked=True)
+            ctx_mod.auto_exit_context()
+            log_block(resource, type(custom_ex).__name__, ctx.origin, count,
+                      self.now_ms())
+            raise custom_ex
+
+        # Token-lease fast path: eligible resources admit host-side and
+        # stream their stats to the device. Prioritized requests keep the
+        # device path: a rejected one may still borrow the next window.
+        fp = self._fastpath  # ONE read: never a torn (leases, guarded, unruled)
+        lease = fp.leases.get(resource)
+        fast_ok = not slots and not self._spi.device_checkers()
+        if lease is not None and not prioritized and fast_ok:
+            now = self.now_ms()
+            block_reason = lease.admit(count, now, params)
+            self._ensure_committer().add_entry(
+                cluster_row, dn_row, origin_row, entry_in, count,
+                block_reason == 0, block_reason)
+            if block_reason:
+                ctx_mod.auto_exit_context()
+                ex = exception_for_reason(block_reason, resource)
+                log_block(resource, type(ex).__name__, ctx.origin, count, now)
+                raise ex
+            handle = EntryHandle(self, resource, ctx, cluster_row, dn_row,
+                                 origin_row, entry_in, count, params,
+                                 leased=True, now_ms=now)
+            ctx.entry_stack.append(handle)
+            return handle
+        if lease is None and fast_ok and fp.unruled \
+                and resource not in fp.guarded:
+            # NO rules of any family on this resource and nothing RELATEs
+            # to it: always pass, stats stream via the committer.
+            self._ensure_committer().add_entry(
+                cluster_row, dn_row, origin_row, entry_in, count, True)
+            handle = EntryHandle(self, resource, ctx, cluster_row, dn_row,
+                                 origin_row, entry_in, count, params,
+                                 leased=True)
+            ctx.entry_stack.append(handle)
+            return handle
+
+        if lease is not None:
+            # Device path on a LEASED resource (a prioritized request):
+            # land pending leased commits first so the device check sees
+            # them, and mirror the verdict below so the lease never drifts
+            # from the device window.
+            self._flush_committer()
+        reason, wait_us = self._submit_entry(
+            resource, cluster_row, dn_row, origin_row, origin_id,
+            reg.context_id(ctx.name), count, prioritized, entry_in, params)
+        if reason > 0 and reason != C.BlockReason.WAIT:
+            # Drop an auto-entered context with no live entries so a fresh
+            # context_enter on this thread isn't shadowed by it.
+            ctx_mod.auto_exit_context()
+            ex = exception_for_reason(reason, resource)
+            log_block(resource, type(ex).__name__, ctx.origin, count,
+                      self.now_ms())
+            raise ex
+        if wait_us > 0:
+            time.sleep(wait_us / 1e6)
+        if lease is not None:
+            # Occupy grants land in the bucket after the wait: recording
+            # post-sleep stamps them there.
+            lease.add(count, self.now_ms(), params)
+        handle = EntryHandle(self, resource, ctx, cluster_row, dn_row,
+                             origin_row, entry_in, count, params)
+        ctx.entry_stack.append(handle)
+        return handle
+
+    def _submit_entry(self, resource, cluster_row, dn_row, origin_row,
+                      origin_id, context_id, count, prioritized, entry_in,
+                      params, pre_blocked=False) -> Tuple[int, int]:
+        """One width-1 device step; (reason, wait_us). A failed step
+        fails open, counted."""
         buf = make_entry_batch_np(1)
         buf["cluster_row"][0] = cluster_row
         buf["dn_row"][0] = dn_row
@@ -308,27 +660,67 @@ class SentinelEngine:
         buf["origin_id"][0] = origin_id
         buf["origin_named"][0] = origin_id in self._named_origins.get(
             resource, ())
-        buf["context_id"][0] = reg.context_id(ctx)
+        buf["context_id"][0] = context_id
         buf["count"][0] = count
         buf["prioritized"][0] = prioritized
         buf["entry_in"][0] = entry_in
+        buf["pre_blocked"][0] = pre_blocked
         for i, h in enumerate(params):
             buf["param_hash"][0, i] = h
             buf["param_present"][0, i] = True
-        reason, wait_us = self.harvest_decisions(self.check_batch(buf, now))
-        reason, wait_us = int(reason[0]), int(wait_us[0])
-        if reason > 0 and reason != C.BlockReason.WAIT:
-            raise exception_for_reason(reason, resource)
-        if wait_us > 0:
-            time.sleep(wait_us / 1e6)
-        return EntryHandle(self, resource, cluster_row, dn_row, origin_row,
-                           entry_in, count, params, now)
+        with self._lock:
+            try:
+                dec = self._run_entry_batch_locked(buf)
+            except DeviceDispatchError as ex:
+                self._note_fail_open(str(ex))
+                return 0, 0
+            reason, wait_us = self.harvest_decisions(dec)
+        return int(reason[0]), int(wait_us[0])
+
+    def _note_fail_open(self, why: str) -> None:
+        """Count + rate-limited log of an unguarded pass-through."""
+        self.fail_open_count += 1
+        now = self.now_ms()
+        if now - self._fail_open_logged_ms >= 1000:
+            self._fail_open_logged_ms = now
+            logging.getLogger("sentinel_tpu_torch").warning(
+                "entry passed UNGUARDED (%s); fail_open_count=%d",
+                why, self.fail_open_count)
 
     def _do_exit(self, handle: EntryHandle, count: int) -> None:
+        ctx = handle.context
+        if ctx.entry_stack and ctx.entry_stack[-1] is handle:
+            ctx.entry_stack.pop()
+        elif handle in ctx.entry_stack:
+            ctx.entry_stack.remove(handle)
         if handle.cluster_row < 0:
+            ctx_mod.auto_exit_context()
             return
         now = self.now_ms()
         rt = max(0, now - handle.created_ms)
+        slots = self._spi.host_slots()
+        if slots:
+            info = self._spi.EntryInfo(
+                resource=handle.resource, origin=ctx.origin, count=count,
+                entry_type=(C.EntryType.IN if handle.entry_in
+                            else C.EntryType.OUT),
+                prioritized=False, args=(), context_name=ctx.name)
+            for slot in slots:
+                try:
+                    slot.on_exit(info, rt, handle.error)
+                except Exception as ex:  # noqa: BLE001 — exit must finish
+                    record_log.warn("SPI slot %r on_exit failed: %r",
+                                    type(slot).__name__, ex)
+        committer = self._committer  # one read: close() nulls it concurrently
+        if handle.leased and committer is not None:
+            # Leased entries complete through the committer too; after
+            # close() they fall through to the synchronous commit below.
+            committer.add_exit(
+                handle.cluster_row, handle.dn_row, handle.origin_row,
+                handle.entry_in, count, min(rt, C.DEFAULT_MAX_RT_MS),
+                True, handle.error)
+            ctx_mod.auto_exit_context()
+            return
         buf = make_exit_batch_np(1)
         buf["cluster_row"][0] = handle.cluster_row
         buf["dn_row"][0] = handle.dn_row
@@ -341,4 +733,119 @@ class SentinelEngine:
         for i, h in enumerate(handle.params):
             buf["param_hash"][0, i] = h
             buf["param_present"][0, i] = True
-        self.complete_batch(buf, now)
+        try:
+            self._run_exit_batch(buf)
+        except DeviceDispatchError as ex:
+            # An exit commit is pure statistics: an infrastructure failure
+            # must never break the caller's happy path.
+            self._note_fail_open(str(ex))
+        ctx_mod.auto_exit_context()
+
+    # -- readers ---------------------------------------------------------------
+
+    def seal_metrics(self, now_ms: Optional[int] = None) -> List:
+        """Aggregate sealed (fully elapsed) seconds from the minute window
+        (reference: ``MetricTimerListener``). Returns ``MetricNode``s for
+        seconds not sealed by a previous call; all-idle resource-seconds
+        are skipped."""
+        from sentinel_tpu_torch.metrics.metric_node import MetricNode
+
+        now = now_ms if now_ms is not None else self.now_ms()
+        now_sec = now // 1000
+        self._flush_committer()  # leased commits land before sealing
+        with self._lock:
+            self._ensure_compiled()
+            first = max(self._sealed_sec + 1, now_sec - C.MINUTE_BUCKETS + 1)
+            seconds = list(range(first, now_sec))
+            if not seconds:
+                return []
+            self._sealed_sec = seconds[-1]
+            # Fold any completed staged second into w60 before reading it.
+            self._state = S.flush_seconds(self._state, now)
+            idx = torch.tensor([s % C.MINUTE_BUCKETS for s in seconds],
+                               device=self.device)
+            w60 = W.rotate(self._state.w60, now, S.SPEC_60S)
+            slices = w60.counts[idx].permute(2, 0, 1).cpu().numpy()
+            threads = self._state.cur_threads.cpu().numpy()
+            metas = self.registry.meta
+        ev = [C.MetricEvent.PASS, C.MetricEvent.BLOCK,
+              C.MetricEvent.SUCCESS, C.MetricEvent.EXCEPTION]
+        active_rows, active_k = np.nonzero(slices[:, :, ev].any(axis=2))
+        out = []
+        for row, k in zip(active_rows.tolist(), active_k.tolist()):
+            m = metas[row]
+            if m.kind != KIND_CLUSTER:
+                continue
+            t = slices[row, k]
+            succ = int(t[C.MetricEvent.SUCCESS])
+            out.append(MetricNode(
+                timestamp=seconds[k] * 1000,
+                resource=m.resource,
+                pass_qps=int(t[C.MetricEvent.PASS]),
+                block_qps=int(t[C.MetricEvent.BLOCK]),
+                success_qps=succ,
+                exception_qps=int(t[C.MetricEvent.EXCEPTION]),
+                rt=float(t[C.MetricEvent.RT]) / max(succ, 1),
+                occupied_pass_qps=int(t[C.MetricEvent.OCCUPIED_PASS]),
+                concurrency=int(threads[row]),
+                classification=m.resource_type,
+            ))
+        out.sort(key=lambda n: n.timestamp)
+        return out
+
+    def row_stats(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(per-second QPS totals f32[R, E], threads int[R]) as numpy.
+        Totals are normalized by the instant-window interval."""
+        self._flush_committer()
+        with self._lock:
+            self._ensure_compiled()
+            now = self.now_ms()
+            w1 = W.rotate(self._state.w1, now, self._spec1)
+            totals = W.all_totals(w1).cpu().numpy()
+            threads = self._state.cur_threads.cpu().numpy()
+        scale = np.float32(1000.0 / self._spec1.interval_ms)
+        return totals.astype(np.float32) * scale, threads
+
+    def tree_dict(self) -> Dict:
+        """Call tree rooted at machine-root (command API ``jsonTree``;
+        reference: ``FetchJsonTreeCommandHandler``)."""
+        totals, threads = self.row_stats()
+        metas = self.registry.meta
+
+        def render(row: int) -> Dict:
+            m = metas[row]
+            t = totals[row]
+            succ = float(t[C.MetricEvent.SUCCESS])
+            return {
+                "id": m.row,
+                "resource": m.resource,
+                "threadNum": int(threads[row]),
+                "passQps": float(t[C.MetricEvent.PASS]),
+                "blockQps": float(t[C.MetricEvent.BLOCK]),
+                "totalQps": float(t[C.MetricEvent.PASS])
+                + float(t[C.MetricEvent.BLOCK]),
+                "successQps": succ,
+                "exceptionQps": float(t[C.MetricEvent.EXCEPTION]),
+                "averageRt": float(t[C.MetricEvent.RT]) / succ
+                if succ > 0 else 0.0,
+                "children": [render(c) for c in m.children],
+            }
+
+        return render(ROOT_ROW)
+
+    def node_snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Per-resource live stats (command-API ``cnode`` source)."""
+        totals, threads = self.row_stats()
+        out = {}
+        for res, row in self.registry.resources().items():
+            t = totals[row]
+            succ = float(t[C.MetricEvent.SUCCESS])
+            out[res] = {
+                "passQps": float(t[C.MetricEvent.PASS]),
+                "blockQps": float(t[C.MetricEvent.BLOCK]),
+                "successQps": succ,
+                "exceptionQps": float(t[C.MetricEvent.EXCEPTION]),
+                "avgRt": float(t[C.MetricEvent.RT]) / succ if succ > 0 else 0.0,
+                "curThreadNum": int(threads[row]),
+            }
+        return out

@@ -452,8 +452,18 @@ def _eval_flow_slots(
         stored = g(fs.stored_tokens, 0.0)
         wtok = g(rt.warning_token, 0.0)
         above_warn = stored >= wtok
-        warning_qps = 1.0 / fma32(stored - wtok, g(rt.slope, 0.0),
-                                  1.0 / torch.clamp(thr, min=1e-9))
+        inv_thr = 1.0 / torch.clamp(thr, min=1e-9)
+        if batch.size == 1:
+            # Follows the compiler of the JAX oracle, not a rule of the
+            # reference: XLA's CPU backend contracts this multiply-add at
+            # every ladder width but 1, where it rounds twice (checked at
+            # 1, 8, 64, 512 and 2048 in tests/test_torch_models.py).
+            # Whether XLA's TPU backend contracts it at width 1 is not
+            # known.
+            warning_qps = 1.0 / ((stored - wtok) * g(rt.slope, 0.0) + inv_thr)
+        else:
+            warning_qps = 1.0 / fma32(stored - wtok, g(rt.slope, 0.0),
+                                      inv_thr)
         warm_thr = torch.where(above_warn, warning_qps, thr)
         warm_ok = used + acq <= warm_thr
 

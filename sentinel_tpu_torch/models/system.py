@@ -3,15 +3,17 @@
 
 The five effective thresholds compile to 0-d float32 tensors. Only inbound
 traffic is guarded, against the global ENTRY_NODE row. load1 / CPU usage
-come from the caller as a 2-element signal vector in the state (-1 = not
-sampled); the host sampler (``SystemStatusListener``) is a later slice.
+come from the 1 Hz host sampler (``SystemStatusListener``) as a 2-element
+signal vector in the state (-1 = not sampled, which never blocks).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sentinel_tpu_torch.core import constants as C
@@ -178,3 +180,82 @@ def _eval_system(
 
     ok = qps_ok & thr_ok & rt_ok & load_ok & cpu_ok
     return applicable & (~ok)
+
+
+class SystemStatusListener:
+    """1 Hz host sampler of load1 + process-visible CPU usage.
+
+    Reference: ``SystemStatusListener`` polls ``OperatingSystemMXBean``.
+    Here: ``/proc/loadavg`` and a ``/proc/stat`` delta. Thread-safe reads of
+    the latest sample via :meth:`snapshot`.
+    """
+
+    def __init__(self, interval_s: float = 1.0):
+        self.interval_s = interval_s
+        self._lock = threading.Lock()
+        self._load = -1.0
+        self._cpu = -1.0
+        self._prev_stat = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._sample()  # prime synchronously so the first check has data
+        self._thread = threading.Thread(
+            target=self._run, name="sentinel-torch-system-status",
+            daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            # Join so a stop()-then-start() can't leave two samplers racing
+            # on the cleared stop event.
+            self._thread.join(timeout=self.interval_s + 1.0)
+        self._thread = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._sample()
+
+    def _sample(self) -> None:
+        load = self._read_load()
+        cpu = self._read_cpu()
+        with self._lock:
+            if load is not None:
+                self._load = load
+            if cpu is not None:
+                self._cpu = cpu
+
+    def snapshot(self) -> np.ndarray:
+        with self._lock:
+            return np.asarray([self._load, self._cpu], np.float32)
+
+    @staticmethod
+    def _read_load() -> Optional[float]:
+        try:
+            with open("/proc/loadavg") as f:
+                return float(f.read().split()[0])
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _read_cpu(self) -> Optional[float]:
+        try:
+            with open("/proc/stat") as f:
+                parts = f.readline().split()
+            if parts[0] != "cpu":
+                return None
+            vals = [int(x) for x in parts[1:8]]
+        except (OSError, ValueError, IndexError):
+            return None
+        idle = vals[3] + vals[4]  # idle + iowait
+        total = sum(vals)
+        prev = self._prev_stat
+        self._prev_stat = (total, idle)
+        if prev is None or total <= prev[0]:
+            return None
+        dt, di = total - prev[0], idle - prev[1]
+        return max(0.0, min(1.0, 1.0 - di / dt)) if dt > 0 else None

@@ -16,7 +16,8 @@ compare the two. Each wrapper checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()``, raises on a non-zero launch error, and
 adds one to ``launches`` for each launch (and to ``tile_launches`` when the
-launcher reports that it ran the tile walk). There is no fallback: the
+launcher reports that it ran the tile walk, and to ``launches_by_shape``
+under its (K, N, M)). There is no fallback: the
 plain version (``ops/segment.py:segmented_prefix_plain``) is the CPU path
 and the oracle, never a rescue for a failed build or launch.
 """
@@ -30,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +42,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches since import (or since a caller reset them to 0), and
-# how many of them went to the tile walk.
+# Kernel launches since import (or since a caller reset them to 0), how
+# many of them went to the tile walk, and all of them by (K, N, M).
 launches = 0
 tile_launches = 0
+launches_by_shape: Dict[Tuple[int, int, int], int] = {}
 
 # Column counts M the launcher instantiates: the models' sweeps use 1 and 2.
 COLUMNS = (1, 2)
@@ -189,6 +191,7 @@ def _launch(ids: torch.Tensor, values: torch.Tensor, tiles: bool
                            f"cudaError {err}")
     global launches, tile_launches
     launches += 1
+    launches_by_shape[k, n, m] = launches_by_shape.get((k, n, m), 0) + 1
     if path.value == PATH_TILE_WALK:
         tile_launches += 1
     return prefix, is_first

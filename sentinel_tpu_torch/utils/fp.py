@@ -11,6 +11,10 @@ arithmetic) then admits one request more or less. ``fma32`` computes
 float32 values is exact, the float64 sum rounds once more than a true
 FMA would, which can differ from it only on an exact float32 halfway
 tie.
+
+Not every multiply-add is contracted: in the step's program at batch
+width 1 the warm-up ``warning_qps`` rounds twice in the reference, so
+``models/flow.py`` follows it there (``tests/test_torch_models.py``).
 """
 
 from __future__ import annotations

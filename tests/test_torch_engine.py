@@ -21,6 +21,8 @@ from sentinel_tpu.core.engine import SentinelEngine as JEngine
 
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core import exceptions as PX
+from sentinel_tpu_torch.core.context import enter as context_enter
+from sentinel_tpu_torch.core.context import exit_context
 from sentinel_tpu_torch.core.engine import SentinelEngine
 from sentinel_tpu_torch.models import authority as PA
 from sentinel_tpu_torch.models import degrade as PD
@@ -33,6 +35,21 @@ from tests.test_torch_support import (
     jax_entry, jax_exit, jax_to_np, port_np)
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _fresh_call_context():
+    """These tests build engines directly, not through ``reset()``: drop
+    the thread's call context and retire the pooled auto context, as
+    ``reset()`` does, so no entrance row of an earlier engine (another
+    test's, or another file's in the same worker) is reused."""
+    from sentinel_tpu_torch.core.context import (bump_generation,
+                                                 replace_context)
+
+    replace_context(None)
+    bump_generation()
+    yield
+    replace_context(None)
 
 
 class _Clock:
@@ -140,9 +157,14 @@ def test_entry_raises_typed_block_exceptions():
     with pytest.raises(PX.FlowException):
         eng.entry("f")
 
-    eng.entry("a", origin="good").exit()
+    # The origin comes from the call context, as in the JAX engine.
+    context_enter("ctx_good", "good")
+    eng.entry("a").exit()
+    exit_context()
+    context_enter("ctx_bad", "bad")
     with pytest.raises(PX.AuthorityException):
-        eng.entry("a", origin="bad")
+        eng.entry("a")
+    exit_context()
 
     eng.entry("p", args=("k",)).exit()
     eng.entry("p", args=("other",)).exit()
@@ -187,18 +209,33 @@ def test_no_card_and_no_device_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+# Modules of the st.entry slice that the walk below must reach.
+API_MODULES = (
+    "sentinel_tpu_torch.core.context", "sentinel_tpu_torch.core.config",
+    "sentinel_tpu_torch.core.spi", "sentinel_tpu_torch.core.lease",
+    "sentinel_tpu_torch.log.record_log", "sentinel_tpu_torch.native",
+    "sentinel_tpu_torch.metrics.metric_node",
+    "sentinel_tpu_torch.utils.time_util")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, the native lease ring's loader included,
+    imports without JAX or the JAX package; the ring is then built and
+    loaded too, and still nothing of JAX is imported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sentinel_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'sentinel_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "from sentinel_tpu_torch.native import load_lease_ext\n"
+        "load_lease_ext()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib')) or k == 'sentinel_tpu' or "
         "k.startswith('sentinel_tpu.'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        f"missing = sorted(set({API_MODULES!r}) - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 35 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -215,3 +252,71 @@ def test_chip_smoke_imports_only_the_port():
     assert not any(m == "jax" or m.startswith("jax.") or m == "sentinel_tpu"
                    or m.startswith("sentinel_tpu.") for m in mods), mods
     assert any(m.startswith("sentinel_tpu_torch") for m in mods)
+
+
+def test_entry_and_handle_signatures_match_jax():
+    """The width-1 API takes the JAX package's arguments in its order:
+    ``entry(resource, entry_type, count, args, prioritized)``, with the
+    origin taken from the call context, and ``EntryHandle`` carries the
+    context, the lease flag and the caller's clock read."""
+    import inspect
+
+    from sentinel_tpu.core.engine import EntryHandle as JHandle
+
+    from sentinel_tpu_torch.core.engine import EntryHandle
+
+    assert inspect.signature(SentinelEngine.entry) == \
+        inspect.signature(JEngine.entry)
+    assert inspect.signature(EntryHandle) == inspect.signature(JHandle)
+    assert list(inspect.signature(SentinelEngine.entry).parameters) == [
+        "self", "resource", "entry_type", "count", "args", "prioritized"]
+    for field in ("context", "leased"):
+        assert field in EntryHandle.__slots__
+
+
+def test_system_listener_feeds_the_step_signals():
+    """A system rule on load or CPU starts the 1 Hz OS sampler at compile,
+    the next step folds its sample into the state, and close() stops it."""
+    clock = _Clock()
+    eng = SentinelEngine(capacity=64, device="cpu", clock=clock)
+    try:
+        eng.system_rules.load_rules([PY.SystemRule(highest_system_load=1e9,
+                                                   highest_cpu_usage=1.0)])
+        with eng.entry("s", C.EntryType.IN):
+            pass
+        assert eng.system_status._thread is not None
+        load, cpu = eng.state.sys_signals.tolist()
+        assert load >= 0.0 and -1.0 <= cpu <= 1.0
+    finally:
+        eng.close()
+    assert eng.system_status._thread is None
+
+
+def test_init_funcs_and_host_slots_of_the_module_api():
+    """@init_func runs once the default engine is installed (at once when
+    registered after boot); a registered host slot sees every entry."""
+    import sentinel_tpu_torch as st
+
+    calls = []
+    eng = st.reset(capacity=64, device="cpu")
+    try:
+        st.init_func()(lambda: calls.append(st.get_engine()))
+        assert calls == [eng]
+
+        class Count(st.ProcessorSlot):
+            def __init__(self):
+                self.seen = []
+
+            def on_entry(self, info):
+                self.seen.append((info.resource, info.context_name))
+
+        slot = Count()
+        st.register_slot(slot)
+        try:
+            with st.entry("free"):
+                pass
+        finally:
+            st.unregister_slot(slot)
+        assert slot.seen == [("free", C.CONTEXT_DEFAULT_NAME)]
+    finally:
+        eng.close()

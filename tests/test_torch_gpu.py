@@ -1,6 +1,9 @@
 """Card-only tests of the port (marker ``gpu``): the segmented-prefix CUDA
 kernels (block sort and tile walk) against the plain version and each
-other, and the fused step on ``cuda`` against the same step on ``cpu``.
+other, the fused step on ``cuda`` against the same step on ``cpu``, and the
+``st.entry`` path on the card: the native lease ring, the stats committer
+flushing from its thread and drained by ``close()``, and the device path
+launching the kernel at width 1.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -218,3 +221,93 @@ def test_step_on_cuda_matches_cpu(cuda):
             else:
                 np.testing.assert_array_equal(x[k], y[k])
     cmp(*[runs[d][1] for d in ("cuda", "cpu")])
+
+
+# -- the st.entry path on the card -----------------------------------------
+
+
+@pytest.fixture
+def api(cuda):
+    """The port's module API on a fresh default engine on the card."""
+    import sentinel_tpu_torch as st
+
+    eng = st.reset(capacity=512)
+    assert eng.device.type == "cuda"
+    yield st
+    eng.close()
+
+
+def test_native_lease_ring_builds(api):
+    eng = api.get_engine()
+    assert eng.lease_ring == "native"
+    api.load_flow_rules([api.FlowRule(resource="fast", count=5)])
+    assert eng._leases["fast"].native
+
+
+def test_committer_flushes_on_cuda_from_its_thread(api):
+    """Leased and unruled traffic reach the card through the committer's
+    own thread, which launches the prefix kernel at the flush's width."""
+    import threading
+    import time
+
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    eng = api.get_engine()
+    api.load_flow_rules([api.FlowRule(resource="fast", count=1000)])
+    eng.warmup((1, 8))
+    threads = []
+    run = eng._run_entry_batch
+
+    def recorded(batch):
+        threads.append(threading.current_thread().name)
+        return run(batch)
+
+    eng._run_entry_batch = recorded
+    before = prefix_cuda.launches
+    for res in ("fast", "free") * 3:
+        with api.entry(res):
+            pass
+    committer = eng.committer
+    deadline = time.monotonic() + 30
+    while committer.pending() != (0, 0) or committer.flushes == 0:
+        assert time.monotonic() < deadline, "committer never flushed"
+        time.sleep(0.01)
+    with committer._flush_lock:  # the background flush has dispatched
+        pass
+    assert threads and set(threads) == {"sentinel-torch-stats-committer"}
+    assert prefix_cuda.launches > before
+    snap = eng.node_snapshot()
+    assert snap["fast"]["passQps"] == 3 and snap["free"]["passQps"] == 3
+    assert snap["fast"]["curThreadNum"] == 0
+
+
+def test_close_drains_the_committer(api):
+    eng = api.get_engine()
+    api.load_flow_rules([api.FlowRule(resource="fast", count=1000)])
+    committer = None
+    for _ in range(50):
+        with api.entry("fast"):
+            pass
+        committer = eng.committer
+    eng.close()
+    assert eng.committer is None
+    assert committer.pending() == (0, 0)
+    assert committer._thread is None
+    totals = eng.state.telemetry.totals.sum() + eng.state.sec.counts.sum()
+    assert int(totals) > 0
+
+
+def test_device_path_launches_the_kernel_at_width_one(api):
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    eng = api.get_engine()
+    api.load_degrade_rules([api.DegradeRule(resource="d", count=1,
+                                            time_window=1)])
+    with api.entry("d"):
+        pass
+    before, tiles = prefix_cuda.launches, prefix_cuda.tile_launches
+    with api.entry("d"):
+        pass
+    assert prefix_cuda.launches > before
+    assert prefix_cuda.tile_launches == tiles
+    assert eng.fail_open_count == 0

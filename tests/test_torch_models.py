@@ -321,3 +321,49 @@ def test_warmup_threshold_rounds_like_xla():
     assert_tree_equal(jax_to_np(jv), port_np(pv))
     # 4 passed + 6 admitted = 10 <= 10.0: the seventh is the one blocked.
     assert pv.blocked.tolist() == [False] * 6 + [True, False]
+
+
+@pytest.mark.parametrize("width", [1, 8, 64, 512, 2048])
+def test_warmup_threshold_rounding_follows_the_reference_width(width):
+    """The reference's fused step contracts the warm-up ``warning_qps``
+    multiply-add at width 8 and above but rounds it twice at width 1: a
+    cold bucket of count 30 over 4 s admits its tenth request at 33 ms
+    spacing at width 8 (threshold 10.0) and blocks it at width 1
+    (9.999999). The port's step gives the same verdicts at every ladder
+    width the engine dispatches (1, 8, 64, 512, 2048)."""
+    from sentinel_tpu.core.batch import make_entry_batch_np
+    from sentinel_tpu.core.registry import NodeRegistry as JRegistry
+
+    from sentinel_tpu_torch.ops import step as PS
+
+    reg = JRegistry(64)
+    ent = reg.entrance_row("c")
+    cr, dn = reg.cluster_row("w"), reg.default_row("c", "w", ent)
+    rules = [JF.FlowRule("w", count=30, control_behavior=1,
+                         warm_up_period_sec=4)]
+    ft, _ = JF.compile_flow_rules(rules, reg, 64)
+    dt, di = JD.compile_degrade_rules([], reg, 64, min_slots=0)
+    jrules = JS.RulePack(
+        flow=ft, degrade=dt,
+        authority=JA.compile_authority_rules([], reg, 64, min_slots=0),
+        system=JY.compile_system_rules([]),
+        param=JP.compile_param_rules([], reg, 64, min_slots=0))
+    jstate = JS.make_state(64, ft.num_rules, NOW0,
+                           degrade=JD.make_degrade_state(dt, di),
+                           param=JP.make_param_state(8))
+    prules = convert.rules_from_numpy(jax_to_np(jrules), "cpu")
+    pstate = convert.state_from_numpy(jax_to_np(jstate), "cpu")
+    step = jax.jit(JS.entry_step)
+    jgot, pgot = [], []
+    now = NOW0
+    for i in range(11):
+        now += 33 if i else 0
+        buf = make_entry_batch_np(width)
+        buf["cluster_row"][0], buf["dn_row"][0], buf["count"][0] = cr, dn, 1
+        jstate, jdec = step(jstate, jrules, jax_entry(buf), jnp.int64(now))
+        pstate, pdec = PS.entry_step(pstate, prules, to_device(buf, "cpu"),
+                                     now)
+        jgot.append(int(np.asarray(jdec.reason)[0]))
+        pgot.append(int(pdec.reason[0]))
+    assert pgot == jgot
+    assert jgot[9] == (1 if width == 1 else 0)
