@@ -53,7 +53,26 @@ Phases (any failure raises and exits non-zero; none is caught):
    each 5 ms step of the port's frozen clock, then runs on ``cuda`` and on
    ``cpu``: verdicts and ``node_snapshot()`` must be equal. Prints one
    ``{"api": ...}`` line.
-7. The kernels line, the card line, and the final ``{"ok": true, ...}``.
+7. Pipeline: a fresh default engine with the API phase's resources and
+   rules, warmed at widths 1, 8 and 64, under ``start_pipeline(max_batch=8,
+   linger_s=0.0002)``: 16 threads of ``with st.entry(...)`` pairs on the
+   real clock for 10 s over the API phase's class mix, every one of them
+   decided on the card in the collector's cycles. Prints one
+   ``{"pipeline": ...}`` line: pairs/s, pair ms by class, blocked shares,
+   ``pipeline_stats()``, the cycles' ladder widths, ``step_timer``, the
+   engine lock's held share, prefix launches by shape, host-to-device
+   copies per batch, the trace ring's counts and ``fail_open_count``; no
+   cycle may fail open, batching must engage, the kernel must run (block
+   sort only), the thread gauges must drain and the trace pump must see
+   no error. Then, under the frozen clock, each on a fresh engine: 100
+   tickets straight to the collector come back in FIFO order (50 pass, 50
+   FLOW) with two cycles in flight, and 40 more entries allocate no
+   staging buffer; 16 threads x 10 entries on a count-25 rule pass exactly
+   25; a seeded 90-op stream gives the same verdicts synchronously on
+   ``cuda``, pipelined on ``cuda`` and pipelined on ``cpu``, and the two
+   pipelined ``node_snapshot()``s agree.
+8. The smoke's wall time, the kernels line, the card line, and the final
+   ``{"ok": true, ...}``.
 
 It imports the port only — never JAX or the JAX package.
 """
@@ -77,7 +96,7 @@ import sentinel_tpu_torch as st
 from sentinel_tpu_torch import convert
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
-    make_entry_batch_np, make_exit_batch_np, to_device)
+    H2D, make_entry_batch_np, make_exit_batch_np, to_device)
 from sentinel_tpu_torch.core.config import LOG_DIR, config
 from sentinel_tpu_torch.core.engine import SentinelEngine
 from sentinel_tpu_torch.models import authority as A
@@ -692,10 +711,13 @@ def pct(xs, q):
 class TimedLock:
     """The engine lock, with each outermost hold's wait to acquire and its
     hold timed and keyed by the taking thread's role (the committer's
-    thread or a caller) and the function that took it. The engine only
-    takes its lock with ``with``; reentrant holds are not timed again."""
+    thread, the pipeline's collector, the trace pump, or a caller) and the
+    function that took it. The engine only takes its lock with ``with``;
+    reentrant holds are not timed again."""
 
-    COMMITTER = "sentinel-torch-stats-committer"
+    ROLES = {"sentinel-torch-stats-committer": "committer",
+             "sentinel-torch-pipeline": "collector",
+             "sentinel-torch-trace-pump": "trace_pump"}
 
     def __init__(self, inner):
         self._inner = inner
@@ -708,8 +730,7 @@ class TimedLock:
         t0 = time.perf_counter()
         self._inner.acquire()
         if depth == 0:
-            role = ("committer" if threading.current_thread().name
-                    == self.COMMITTER else "caller")
+            role = self.ROLES.get(threading.current_thread().name, "caller")
             local.key = f"{role}:{sys._getframe(1).f_code.co_name}"
             local.t_req, local.t_acq = t0, time.perf_counter()
         local.depth = depth + 1
@@ -932,10 +953,315 @@ def api_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: pipelined admission
+# ---------------------------------------------------------------------------
+
+PIPE_THREADS = 16
+PIPE_WINDOW_S = 10.0
+PIPE_MAX_BATCH = 8       # below the producer count (bench.py:338-340)
+PIPE_LINGER_S = 0.0002   # bench.py's latency section
+PIPE_STREAM_OPS = 90
+PIPE_STREAM_SEED = 11
+
+
+def stream_ops(seed: int, n: int = PIPE_STREAM_OPS):
+    """A seeded entry/exit stream of ``tests/test_pipeline.py``'s kind:
+    three resources (a QPS quota, a THREAD gauge, a rate limiter), mixed
+    acquire counts, random holds and clock advances."""
+    import random
+
+    rng = random.Random(seed)
+    ops, live = [], []
+    for i in range(n):
+        if rng.random() < 0.15:
+            ops.append(("advance", rng.choice([1, 40, 300, 1000])))
+        if live and rng.random() < 0.4:
+            ops.append(("exit", live.pop(rng.randrange(len(live)))))
+        res = rng.choice(["sa", "sa", "st_thread", "sr"])
+        ops.append(("entry", i, res, rng.choice([1, 1, 2, 3])))
+        live.append(i)
+    return ops
+
+
+def stream_rules():
+    return [st.FlowRule(resource="sa", count=25),
+            st.FlowRule(resource="st_thread", count=3,
+                        grade=C.FLOW_GRADE_THREAD),
+            st.FlowRule(resource="sr", count=40,
+                        control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER,
+                        max_queueing_time_ms=0)]
+
+
+def run_stream(ops):
+    """The stream through the module API; the verdict of each entry."""
+    verdicts, held = [], {}
+    for op in ops:
+        if op[0] == "advance":
+            time_util.advance_time(op[1])
+        elif op[0] == "entry":
+            try:
+                held[op[1]] = st.entry(op[2], count=op[3])
+                verdicts.append("pass")
+            except st.BlockException as ex:
+                verdicts.append(type(ex).__name__)
+        elif op[1] in held:
+            held.pop(op[1]).exit()
+    for h in held.values():
+        h.exit()
+    return verdicts
+
+
+def frozen_engine(dev, rules, capacity=512):
+    """A fresh default engine under the port's frozen clock."""
+    time_util.freeze_time(NOW0)
+    eng = st.reset(capacity=capacity, device=dev)
+    st.load_flow_rules(rules)
+    return eng
+
+
+def ticket_fields(eng, resource, context="t_ctx"):
+    reg = eng.registry
+    cr, dr, orow, oid = reg.resolve_entry(
+        resource, context, "", reg.entrance_row(context), 0)
+    return dict(cluster_row=cr, dn_row=dr, origin_row=orow, origin_id=oid,
+                origin_named=False, context_id=reg.context_id(context),
+                count=1, prioritized=False, entry_in=False,
+                skip_cluster=False, pre_blocked=False, params=())
+
+
+def pipeline_card_checks(dev):
+    """The frozen-clock checks of the pipeline on the card."""
+    out = {}
+    try:
+        # 1. FIFO tickets with two cycles in flight, then a warm pool.
+        eng = frozen_engine(dev, [st.FlowRule(resource="deep", count=50),
+                                  st.FlowRule(resource="pool", count=1e9)])
+        eng.warmup((1, 8))
+        pipe = eng.start_pipeline(max_batch=PIPE_MAX_BATCH, linger_s=0.0)
+        tickets = [pipe.submit_entry(ticket_fields(eng, "deep"))
+                   for _ in range(100)]
+        for t in tickets:
+            if not t.done.wait(30.0):
+                raise AssertionError("a ticket never resolved")
+        reasons = [t.reason for t in tickets]
+        if reasons != [0] * 50 + [int(C.BlockReason.FLOW)] * 50:
+            raise AssertionError(f"ticket verdicts out of FIFO order: "
+                                 f"{reasons}")
+        if pipe.max_inflight < 2:
+            raise AssertionError("the double buffer never engaged")
+        for _ in range(6):
+            st.entry("pool").exit()
+        allocated = pipe.pool.allocated
+        for _ in range(40):
+            st.entry("pool").exit()
+        if pipe.pool.allocated != allocated:
+            raise AssertionError("a warm pipeline allocated a staging buffer")
+        pinned = all(buf.block.is_pinned() for stack in pipe.pool._free.values()
+                     for buf in stack)
+        if not pipe.pool.pinned or not pinned:
+            raise AssertionError("a staging buffer on the card is not pinned")
+        out["fifo_tickets"] = {"tickets": 100, "passed": reasons.count(0),
+                               "inflight_depth_max": pipe.max_inflight,
+                               "pool_allocated": pipe.pool.allocated,
+                               "pool_reused": pipe.pool.reused,
+                               "buffers_pinned": True}
+        eng.close()
+
+        # 2. A shared quota under 16 concurrent callers.
+        eng = frozen_engine(dev, [st.FlowRule(resource="conc", count=25)])
+        eng.start_pipeline(max_batch=PIPE_MAX_BATCH, linger_s=0.0005)
+        passed = []
+
+        def worker():
+            n = 0
+            for _ in range(10):
+                h = st.entry_ok("conc")
+                if h:
+                    n += 1
+                    h.exit()
+            passed.append(n)
+
+        threads = [threading.Thread(target=worker)
+                   for _ in range(PIPE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if sum(passed) != 25:
+            raise AssertionError(f"{sum(passed)} of 160 passed a count-25 "
+                                 "rule")
+        out["shared_quota"] = {"attempts": 160, "passed": sum(passed)}
+        eng.close()
+
+        # 3. The same stream synchronously on the card, pipelined on the
+        # card, pipelined on the CPU.
+        ops = stream_ops(PIPE_STREAM_SEED)
+        runs = {}
+        for name, d, piped in (("sync_cuda", dev, False),
+                               ("pipelined_cuda", dev, True),
+                               ("pipelined_cpu", "cpu", True)):
+            eng = frozen_engine(d, stream_rules())
+            if piped:
+                eng.start_pipeline(max_batch=PIPE_MAX_BATCH, linger_s=0.0005)
+            verdicts = run_stream(ops)
+            eng.stop_pipeline()
+            runs[name] = (verdicts, eng.node_snapshot(), eng.fail_open_count)
+            eng.close()
+        want = runs["sync_cuda"][0]
+        for name, (verdicts, _, fail_open) in runs.items():
+            if verdicts != want:
+                first = next(i for i, (a, b) in enumerate(zip(verdicts, want))
+                             if a != b)
+                raise AssertionError(f"stream op {first}: {verdicts[first]} "
+                                     f"{name}, {want[first]} sync_cuda")
+            if fail_open:
+                raise AssertionError(f"{name}: fail_open_count {fail_open}")
+        sc, sp = runs["pipelined_cuda"][1], runs["pipelined_cpu"][1]
+        if set(sc) != set(sp):
+            raise AssertionError("pipelined node_snapshot resources differ")
+        for res in sc:
+            for k, v in sc[res].items():
+                if not math.isclose(v, sp[res][k], rel_tol=FLOAT_RTOL,
+                                    abs_tol=0):
+                    raise AssertionError(f"pipelined {res}.{k}: {v} on cuda, "
+                                         f"{sp[res][k]} on cpu")
+        out["stream"] = {"ops": len(ops), "entries": len(want),
+                         "verdicts_equal": True, "node_snapshot_equal": True,
+                         "verdict_counts": {v: want.count(v)
+                                            for v in sorted(set(want))}}
+    finally:
+        time_util.unfreeze_time()
+    return out
+
+
+def pipeline_phase(dev):
+    """16 producers of ``st.entry`` pairs for a fixed window under the
+    pipeline, then the frozen-clock card checks; prints the
+    ``{"pipeline": ...}`` line."""
+    t0 = time.perf_counter()
+    pools = api_pools()
+    eng = api_engine(dev)
+    eng.warmup((1, 8, 64))
+    eng._lock = TimedLock(eng._lock)
+    pipe = eng.start_pipeline(max_batch=PIPE_MAX_BATCH, linger_s=PIPE_LINGER_S)
+    results = [None] * PIPE_THREADS
+    barrier = threading.Barrier(PIPE_THREADS + 1)
+    window = {}
+
+    def worker(t):
+        rng = np.random.default_rng(2000 + t)
+        out = []
+        barrier.wait()
+        end = window["end"]
+        while time.perf_counter() < end:
+            cls, res, origin, args, error = api_pick(rng, pools, API_MIX)
+            t1 = time.perf_counter()
+            verdict = api_pair(res, origin, args, error)
+            out.append((cls, time.perf_counter() - t1, verdict))
+        results[t] = out
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(PIPE_THREADS)]
+    for th in threads:
+        th.start()
+    torch.cuda.synchronize()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    h2d0 = H2D.copies
+    eng.step_timer.snapshot(reset=True)
+    eng._lock.samples.clear()
+    t1 = time.perf_counter()
+    window["end"] = t1 + PIPE_WINDOW_S
+    barrier.wait()
+    for th in threads:
+        th.join()
+    wall_s = time.perf_counter() - t1
+    lock = eng._lock.report(wall_s)
+    eng.stop_pipeline()
+    torch.cuda.synchronize()
+    launches = prefix_cuda.launches
+    tile = prefix_cuda.tile_launches
+    by_shape = dict(prefix_cuda.launches_by_shape)
+    h2d = H2D.copies - h2d0
+    steps = eng.step_timer.snapshot()
+    stats = eng.pipeline_stats()
+    inflight_left = pipe.inflight_depth_now()
+    eng._flush_committer()
+    threads_left = int(eng.state.cur_threads.sum())
+    eng.traces.drain()
+    traces = eng.traces.snapshot(limit=0)
+    fail_open = eng.fail_open_count
+    committer = eng.committer
+    eng.close()
+    rows = [r for out in results for r in out]
+    by_cls = {}
+    for cls, dt, verdict in rows:
+        by_cls.setdefault(cls, []).append((dt, verdict))
+    all_ms = [dt * 1e3 for _, dt, _ in rows]
+    batches = sum(steps.get(k, {}).get("dispatches", 0)
+                  for k in ("entry", "exit"))
+
+    if stats["failOpenCycles"] or fail_open:
+        raise AssertionError(f"failOpenCycles {stats['failOpenCycles']}, "
+                             f"fail_open_count {fail_open}")
+    if stats["batched"] <= stats["cycles"]:
+        raise AssertionError(f"batching never engaged: {stats['batched']} "
+                             f"entries in {stats['cycles']} cycles")
+    if launches <= 0 or tile:
+        raise AssertionError(f"prefix launches {launches}, tile walk {tile}")
+    if inflight_left or threads_left:
+        raise AssertionError(f"after stop: {inflight_left} cycles in flight, "
+                             f"thread gauges sum to {threads_left}")
+    if traces["errors"]:
+        raise AssertionError(f"trace pump errors {traces['errors']}")
+    if committer is not None and (committer.pending() != (0, 0)
+                                  or committer.failures):
+        raise AssertionError(f"committer after close: {committer.pending()} "
+                             f"pending, {committer.failures} failures")
+    out = {
+        "threads": PIPE_THREADS, "window_s": PIPE_WINDOW_S,
+        "max_batch": PIPE_MAX_BATCH, "linger_s": PIPE_LINGER_S,
+        "wall_s": wall_s, "pairs": len(rows),
+        "pairs_per_s": len(rows) / wall_s,
+        "pair_ms": {"p50": pct(all_ms, 50), "p99": pct(all_ms, 99)},
+        "pair_ms_by_class": {
+            c: {"n": len(xs), "p50": pct([dt * 1e3 for dt, _ in xs], 50),
+                "p99": pct([dt * 1e3 for dt, _ in xs], 99)}
+            for c, xs in sorted(by_cls.items())},
+        "blocked_share": {c: sum(v != "pass" for _, v in xs) / len(xs)
+                          for c, xs in sorted(by_cls.items())},
+        "pipeline_stats": stats,
+        "mean_cycle_width": stats["batched"] / stats["cycles"],
+        "entry_cycle_ladder_widths": dict(sorted(pipe.widths.items())),
+        "step_timer": steps,
+        "engine_lock": lock,
+        "prefix_launches": launches,
+        "prefix_launches_block_sort": launches - tile,
+        "prefix_launches_by_shape": {
+            f"K={k},N={n},M={m}": c for (k, n, m), c in sorted(by_shape.items())},
+        "h2d_copies": h2d,
+        "h2d_copies_per_batch": h2d / batches if batches else None,
+        "h2d_copies_per_entry_cycle": h2d / stats["cycles"],
+        "traces": {k: traces[k] for k in ("seenBlocked", "recorded",
+                                          "droppedBatches", "errors")},
+        "fail_open_count": fail_open,
+        "inflight_after_stop": inflight_left,
+        "thread_gauges_after_stop": threads_left,
+        "committer_started": committer is not None,
+    }
+    out["card_checks"] = pipeline_card_checks(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"pipeline": out}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -957,7 +1283,10 @@ def main() -> int:
     profile_phase(dev)
     parity_phase()
     api_phase(dev)
+    pipeline_phase(dev)
 
+    print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "segmented_prefix",
         "route": "cuda",

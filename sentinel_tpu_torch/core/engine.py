@@ -20,18 +20,33 @@ push never waits on a device dispatch. The readers (``seal_metrics``,
 The batch API (``check_batch`` / ``complete_batch`` /
 ``harvest_decisions``) runs the step on caller-built batches.
 
-What it does not have yet (later slices): the pipeline, the slot table,
-the cluster token check, shadow lanes and the flight recorder, SPI device
-checkers, window retuning, checkpoints.
+``start_pipeline()`` switches to micro-batched admission
+(``core/pipeline.py``): a collector thread folds concurrent callers'
+entries and exits into one step per cycle. While it runs, every guarded
+and unruled entry goes to the device (the leases and the unruled pass
+stand down), as in the reference. Every dispatch is timed
+(``step_timer``, ``metrics/profiling.py``) and every entry dispatch hands
+its verdicts to the decision-trace pump (``traces``,
+``telemetry/trace_ring.py``). ``set_window_geometry`` and ``set_clock``
+retune the instant window and swap the timebase at runtime.
+
+What it does not have yet (later slices): the slot table, the cluster
+token check, shadow lanes and the flight recorder, SPI device checkers,
+checkpoints.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
 segmented-prefix kernel is built at construction, so a build failure
-raises here and not in the first ``entry()``.
+raises here and not in the first ``entry()``. Every dispatch and every
+read of the state runs on ONE stream, the device's default stream, made
+current in whichever thread dispatches (callers, the stats committer,
+the pipeline's collector), so the steps on the shared state tensors are
+ordered by the stream alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -45,13 +60,15 @@ from sentinel_tpu_torch.core import context as ctx_mod
 from sentinel_tpu_torch.core import spi as spi_mod
 from sentinel_tpu_torch.core.batch import (
     BATCH_WIDTHS, MAX_PARAMS, Decisions, EntryBatch, ExitBatch,
-    make_entry_batch_np, make_exit_batch_np, to_device)
-from sentinel_tpu_torch.core.config import config
+    make_entry_batch_np, make_exit_batch_np, stage_row, to_device)
+from sentinel_tpu_torch.core.config import (
+    DEFAULT_PROFILE_SYNC_EVERY, PROFILE_SYNC_EVERY, config)
 from sentinel_tpu_torch.core.exceptions import (
     BlockException, exception_for_reason)
 from sentinel_tpu_torch.core.registry import (
     KIND_CLUSTER, ROOT_ROW, NodeRegistry)
 from sentinel_tpu_torch.log.record_log import log_block, record_log
+from sentinel_tpu_torch.metrics.profiling import StepTimer, timed_call
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
 from sentinel_tpu_torch.models import flow as F
@@ -60,6 +77,7 @@ from sentinel_tpu_torch.models import system as Y
 from sentinel_tpu_torch.native import load_lease_ext
 from sentinel_tpu_torch.ops import step as S
 from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
 from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import resolve_device
 from sentinel_tpu_torch.utils.param_hash import hash_param
@@ -73,6 +91,19 @@ class DeviceDispatchError(RuntimeError):
     raising site has already dropped the engine to a cold state (rules
     durable, stats ephemeral); the width-1 entry path fails open and
     counts it (``fail_open_count``), batch-API callers see this error."""
+
+
+class _StagedVerdicts:
+    """A dispatched step's (reason, wait_us) on their way to the host: on
+    CUDA, pinned host tensors filled by non-blocking copies and the event
+    recorded after them; on the CPU, the step's own tensors."""
+
+    __slots__ = ("reason", "wait_us", "event")
+
+    def __init__(self, reason, wait_us, event):
+        self.reason = reason
+        self.wait_us = wait_us
+        self.event = event
 
 
 class _FastPathState:
@@ -147,10 +178,14 @@ class SentinelEngine:
 
     def __init__(self, capacity: int = 4096, device=None, clock=None):
         self.device = resolve_device(device)
+        # The one stream every dispatch and state read runs on (None on
+        # the CPU).
+        self._stream = None
         if self.device.type == "cuda":
             from sentinel_tpu_torch.ops import prefix_cuda
 
             prefix_cuda.build()
+            self._stream = torch.cuda.default_stream(self.device)
         self.capacity = capacity
         self.registry = NodeRegistry(capacity)
         # None = the process clock (time_util, which tests may freeze); a
@@ -185,6 +220,35 @@ class SentinelEngine:
         self._dirty = {k: False for k in
                        ("flow", "degrade", "authority", "system", "param")}
         self._spi = spi_mod
+        # The step functions, as attributes so a test can poison one (the
+        # reference's ``_entry_jit`` / ``_exit_jit``).
+        self._entry_step = S.entry_step
+        self._exit_step = S.exit_step
+        # Per-step timing: enqueue wall per dispatch, and a synchronous
+        # wall every ``csp.sentinel.profile.syncEvery``-th one.
+        sync_every = config.get_int(PROFILE_SYNC_EVERY,
+                                    DEFAULT_PROFILE_SYNC_EVERY)
+        if sync_every <= 0:
+            record_log.warn("invalid %s=%s; using default %d",
+                            PROFILE_SYNC_EVERY, sync_every,
+                            DEFAULT_PROFILE_SYNC_EVERY)
+            sync_every = DEFAULT_PROFILE_SYNC_EVERY
+        self.step_timer = StepTimer(sync_every=sync_every)
+        # Sampled decision traces, pulled off the device by a daemon pump.
+        self.traces = DecisionTraceBuffer(self)
+        # Pipelined admission (core/pipeline.py) and its counters summed
+        # over pipeline generations (the live Pipeline dies with
+        # stop_pipeline; the totals stay monotone).
+        self._pipeline = None
+        self._pipeline_totals = {
+            "cycles": 0, "batched": 0, "harvests": 0, "failOpenCycles": 0,
+            "inflightDepthMax": 0, "poolAllocated": 0, "poolReused": 0,
+        }
+        # Guards the totals fold and the retiring hand-off, so a stats read
+        # during stop_pipeline() never sees a counter dip. Not the engine
+        # lock: stats reads must not wait behind a dispatch.
+        self._pipeline_stats_lock = threading.Lock()
+        self._retiring_pipeline = None
         self.flow_rules = F.FlowRuleManager()
         self.degrade_rules = D.DegradeRuleManager()
         self.authority_rules = A.AuthorityRuleManager()
@@ -203,6 +267,36 @@ class SentinelEngine:
         clock = self._clock
         return int(clock()) if clock is not None else \
             time_util.current_time_millis()
+
+    def set_clock(self, clock) -> None:
+        """Install (or clear, with None) an injected clock, resetting the
+        engine's time cursors and its volatile statistics to the new
+        timebase.
+
+        The cursors assume time never moves backward: ``_sealed_sec``
+        gates the metric log, and the signal and fail-open-log throttles
+        hold last-read stamps. A timebase earlier than the old one would
+        wedge them. The device state is dropped cold for the same reason
+        (window bucket starts and the staged second carry old stamps);
+        rules survive, statistics restart on the next dispatch. The lease
+        mirrors carry old stamps too: the fast path swaps to empty first,
+        so the rebuild starts every mirror cold."""
+        with self._config_lock, self._lock:
+            self._clock = clock
+            now = self.now_ms()
+            self._sealed_sec = now // 1000 - 1
+            self._signals_refreshed_ms = 0
+            self._fail_open_logged_ms = 0
+            self._state = None  # _ensure_compiled rebuilds it
+            self._fastpath = _FastPathState({}, frozenset(),
+                                            self.lease_enabled)
+            self._rebuild_leases()
+
+    def _on_stream(self):
+        """Make the engine's stream current for a dispatch or a read."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def _maybe_start_system_listener(self) -> None:
         def is_set(v):
@@ -314,7 +408,7 @@ class SentinelEngine:
         targets = [res for res in targets if res in table]
         if not targets:
             return
-        with self._lock:
+        with self._lock, self._on_stream():
             state = self._state
             if state is not None:
                 pass_counts = state.w1.counts[:, C.MetricEvent.PASS, :] \
@@ -453,18 +547,26 @@ class SentinelEngine:
 
     def _run_entry_batch_locked(self, batch, now_ms: Optional[int] = None
                                 ) -> Decisions:
-        batch = self._as_batch(batch, EntryBatch)
-        self._ensure_compiled()
-        now = now_ms if now_ms is not None else self.now_ms()
-        self._refresh_signals(now)
-        try:
-            self._state, dec = S.entry_step(
-                self._state, self._rules, batch, now, spec1=self._spec1,
-                occupy_timeout_ms=self._occupy_timeout_ms)
-        except Exception as ex:  # noqa: BLE001 — the state may be consumed
-            self._state = None  # restart cold: rules durable, stats not
-            raise DeviceDispatchError(
-                f"entry dispatch failed: {ex!r:.200}") from ex
+        host = batch if isinstance(batch, dict) else None
+        with self._on_stream():
+            batch = self._as_batch(batch, EntryBatch)
+            self._ensure_compiled()
+            now = now_ms if now_ms is not None else self.now_ms()
+            self._refresh_signals(now)
+            try:
+                self._state, dec = timed_call(
+                    self.step_timer, "entry", batch.size, self._sync,
+                    self._entry_step, self._state, self._rules, batch, now,
+                    spec1=self._spec1,
+                    occupy_timeout_ms=self._occupy_timeout_ms)
+            except Exception as ex:  # noqa: BLE001 — the state may be consumed
+                self._state = None  # restart cold: rules durable, stats not
+                raise DeviceDispatchError(
+                    f"entry dispatch failed: {ex!r:.200}") from ex
+            # Sampled decision traces: a snapshot and a hand-off only; the
+            # pump reads it off this thread. The host staging columns are
+            # read when the batch came as one.
+            self.traces.submit(host if host is not None else batch, dec, now)
         return dec
 
     def _run_entry_batch(self, batch) -> Decisions:
@@ -472,17 +574,26 @@ class SentinelEngine:
             return self._run_entry_batch_locked(batch)
 
     def _run_exit_batch(self, batch, now_ms: Optional[int] = None) -> None:
-        batch = self._as_batch(batch, ExitBatch)
-        with self._lock:
+        with self._on_stream():
+            batch = self._as_batch(batch, ExitBatch)
+        with self._lock, self._on_stream():
             self._ensure_compiled()
             now = now_ms if now_ms is not None else self.now_ms()
             try:
-                self._state = S.exit_step(self._state, self._rules, batch,
-                                          now, spec1=self._spec1)
+                self._state = timed_call(
+                    self.step_timer, "exit", batch.size, self._sync,
+                    self._exit_step, self._state, self._rules, batch, now,
+                    spec1=self._spec1)
             except Exception as ex:  # noqa: BLE001
                 self._state = None
                 raise DeviceDispatchError(
                     f"exit dispatch failed: {ex!r:.200}") from ex
+
+    @property
+    def _sync(self):
+        """Wait for the engine's stream (the step timer's sampled wall);
+        None on the CPU, where a step has finished when it returns."""
+        return self._stream.synchronize if self._stream is not None else None
 
     # -- batch API -----------------------------------------------------------
 
@@ -496,10 +607,43 @@ class SentinelEngine:
         """One completion step (``ExitBatch`` or a numpy staging dict)."""
         self._run_exit_batch(batch, now_ms)
 
-    def harvest_decisions(self, dec: Decisions
-                          ) -> Tuple[np.ndarray, np.ndarray]:
-        """Materialize a step's verdicts on the host: (reason, wait_us)."""
-        return dec.reason.cpu().numpy(), dec.wait_us.cpu().numpy()
+    def stage_decisions(self, dec) -> _StagedVerdicts:
+        """Start a step's verdicts on their way to the host without
+        blocking: on CUDA, non-blocking copies of ``reason`` and
+        ``wait_us`` into pinned memory on the engine's stream, then one
+        event. Needs no lock: the copies follow the step on the stream."""
+        if isinstance(dec, _StagedVerdicts):
+            return dec
+        if self._stream is None:
+            return _StagedVerdicts(dec.reason, dec.wait_us, None)
+        with self._on_stream():
+            out = []
+            for t in (dec.reason, dec.wait_us):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                out.append(host)
+            event = torch.cuda.Event()
+            event.record()
+        return _StagedVerdicts(out[0], out[1], event)
+
+    def harvest_decisions(self, dec) -> Tuple[np.ndarray, np.ndarray]:
+        """Materialize a dispatched step's verdicts on the host: (reason,
+        wait_us). ``dec`` is a step's ``Decisions`` or what
+        :meth:`stage_decisions` made of them. Waits on the copies' event
+        WITHOUT the engine lock, so a concurrent dispatch never stalls
+        behind it. A failure here (a step that died after dispatch) drops
+        the state cold, as a dispatch-time failure does, and raises
+        ``DeviceDispatchError``."""
+        try:
+            staged = self.stage_decisions(dec)
+            if staged.event is not None:
+                staged.event.synchronize()
+            return staged.reason.numpy(), staged.wait_us.numpy()
+        except Exception as ex:  # noqa: BLE001 — device or runtime death
+            with self._lock:
+                self._state = None
+            raise DeviceDispatchError(
+                f"harvest failed: {ex!r:.200}") from ex
 
     def warmup(self, widths: Optional[Sequence[int]] = None) -> None:
         """Run one no-op entry and exit step (all rows -1, nothing
@@ -511,7 +655,8 @@ class SentinelEngine:
             self._run_exit_batch(make_exit_batch_np(int(width)))
 
     def close(self) -> None:
-        """Stop the background workers (stats committer, OS sampler).
+        """Stop the background workers: the stats committer, then the
+        pipeline, then the OS sampler and the trace pump.
 
         The fast path goes off FIRST (one swap under both locks, which
         ``_ensure_committer`` checks), so no new entry takes it; then the
@@ -524,7 +669,140 @@ class SentinelEngine:
             committer, self._committer = self._committer, None
         if committer is not None:
             committer.stop()
+        self.stop_pipeline()
         self.system_status.stop()
+        self.traces.stop()
+
+    # -- runtime retuning ----------------------------------------------------
+
+    def set_occupy_timeout(self, timeout_ms: int) -> None:
+        """Retune the prioritized-borrow wait cap (reference:
+        ``OccupyTimeoutProperty``), within one instant window."""
+        timeout_ms = int(timeout_ms)
+        with self._lock:
+            if timeout_ms < 0 or timeout_ms > self._spec1.interval_ms:
+                raise ValueError(
+                    f"occupy timeout {timeout_ms}ms must be within "
+                    f"[0, {self._spec1.interval_ms}] (one instant window)")
+            self._occupy_timeout_ms = timeout_ms
+
+    def set_window_geometry(self, interval_ms: Optional[int] = None,
+                            sample_count: Optional[int] = None) -> None:
+        """Retune the instant window at runtime (reference:
+        ``IntervalProperty`` / ``SampleCountProperty``).
+
+        The instant-window statistics RESET under the new geometry;
+        breakers, param buckets, the minute window and the concurrency
+        gauge survive. Pending occupy borrows are dropped: their bucket
+        geometry no longer exists. The step takes the geometry as an
+        argument, so nothing is rebuilt but the state and the leases."""
+        # Queued commits belong to the OLD window: land them in it before
+        # it is discarded (outside the lock: the flush takes it).
+        self._flush_committer()
+        with self._config_lock, self._lock:
+            cur = self._spec1
+            interval_ms = cur.interval_ms if interval_ms is None \
+                else int(interval_ms)
+            sample_count = cur.buckets if sample_count is None \
+                else int(sample_count)
+            if interval_ms <= 0 or sample_count <= 0 \
+                    or interval_ms % sample_count != 0:
+                raise ValueError(
+                    f"invalid window geometry: interval {interval_ms}ms must "
+                    f"be a positive multiple of sample count {sample_count}")
+            new = W.WindowSpec(interval_ms, sample_count)
+            if new == cur:
+                return
+            self._spec1 = new
+            # The borrow-wait cap stays within one instant window: a shrink
+            # below it clamps it, loudly.
+            if self._occupy_timeout_ms > new.interval_ms:
+                record_log.warn(
+                    "occupy timeout %sms clamped to new %sms window",
+                    self._occupy_timeout_ms, new.interval_ms)
+                self._occupy_timeout_ms = new.interval_ms
+            # Reset the device window BEFORE rebuilding the leases: the new
+            # mirrors (new bucket count) seed from the new-geometry window.
+            if self._state is not None:
+                with self._on_stream():
+                    self._state = self._state._replace(
+                        w1=W.make_window(self.capacity, new, self.device),
+                        occupied_next=torch.zeros(
+                            (self.capacity,), dtype=torch.int32,
+                            device=self.device),
+                        occupied_stamp=torch.tensor(
+                            -1, dtype=torch.int64, device=self.device))
+            self._rebuild_leases()
+
+    # -- pipelined mode ------------------------------------------------------
+
+    def start_pipeline(self, max_batch: int = 2048,
+                       linger_s: Optional[float] = None,
+                       inflight_depth: Optional[int] = None):
+        """Switch to micro-batched admission (``core/pipeline.py``):
+        concurrent entries fold into one device step per cycle, up to
+        ``inflight_depth`` cycles in flight. ``linger_s`` and
+        ``inflight_depth`` default to the ``csp.sentinel.pipeline.*``
+        keys. While it runs, the leases and the unruled pass stand down."""
+        from sentinel_tpu_torch.core.pipeline import Pipeline
+
+        with self._lock:
+            if self._pipeline is None:
+                with self._on_stream():
+                    self._ensure_compiled()  # compile before the loop starts
+                self._pipeline = Pipeline(
+                    self, max_batch, linger_s,
+                    inflight_depth=inflight_depth).start()
+            return self._pipeline
+
+    def stop_pipeline(self) -> None:
+        with self._pipeline_stats_lock:
+            pipeline, self._pipeline = self._pipeline, None
+            if pipeline is None:
+                return  # a concurrent stop owns (or already folded) it
+            self._retiring_pipeline = pipeline
+        pipeline.stop()  # may drain for a while: counters stay readable
+        with self._pipeline_stats_lock:
+            s = pipeline.stats()
+            t = self._pipeline_totals
+            for k in ("cycles", "batched", "harvests", "failOpenCycles",
+                      "poolAllocated", "poolReused"):
+                t[k] += s[k]
+            t["inflightDepthMax"] = max(t["inflightDepthMax"],
+                                        s["inflightDepthMax"])
+            self._retiring_pipeline = None
+
+    def pipeline_stats(self) -> Dict:
+        """Pipelined admission at a glance: counters monotone across
+        pipeline generations (a stopping pipeline keeps reporting through
+        the retiring hand-off), the live in-flight depth, and the
+        queue-wait vs device-wait split from the step timer. Never takes
+        the engine lock."""
+        with self._pipeline_stats_lock:
+            t = dict(self._pipeline_totals)
+            p = self._pipeline or self._retiring_pipeline
+            live = p.stats() if p is not None else None
+            active = self._pipeline is not None
+
+        def total(k):
+            return t[k] + (live[k] if live else 0)
+
+        out = {
+            "active": active,
+            "cycles": total("cycles"),
+            "batched": total("batched"),
+            "harvests": total("harvests"),
+            "failOpenCycles": total("failOpenCycles"),
+            "inflightDepth": live["inflightDepth"] if live else 0,
+            "inflightDepthMax": max(
+                t["inflightDepthMax"],
+                live["inflightDepthMax"] if live else 0),
+            "configuredDepth": live["configuredDepth"] if live else 0,
+            "poolAllocated": total("poolAllocated"),
+            "poolReused": total("poolReused"),
+        }
+        out.update(self.step_timer.pipeline_snapshot())
+        return out
 
     # -- width-1 API ---------------------------------------------------------
 
@@ -589,9 +867,11 @@ class SentinelEngine:
         # Token-lease fast path: eligible resources admit host-side and
         # stream their stats to the device. Prioritized requests keep the
         # device path: a rejected one may still borrow the next window.
+        # Under the pipeline every entry goes to the device.
         fp = self._fastpath  # ONE read: never a torn (leases, guarded, unruled)
         lease = fp.leases.get(resource)
-        fast_ok = not slots and not self._spi.device_checkers()
+        fast_ok = (not slots and self._pipeline is None
+                   and not self._spi.device_checkers())
         if lease is not None and not prioritized and fast_ok:
             now = self.now_ms()
             block_reason = lease.admit(count, now, params)
@@ -621,10 +901,10 @@ class SentinelEngine:
             return handle
 
         if lease is not None:
-            # Device path on a LEASED resource (a prioritized request):
-            # land pending leased commits first so the device check sees
-            # them, and mirror the verdict below so the lease never drifts
-            # from the device window.
+            # Device path on a LEASED resource (a prioritized request, or
+            # the pipeline's): land pending leased commits first so the
+            # device check sees them, and mirror the verdict below so the
+            # lease never drifts from the device window.
             self._flush_committer()
         reason, wait_us = self._submit_entry(
             resource, cluster_row, dn_row, origin_row, origin_id,
@@ -651,31 +931,43 @@ class SentinelEngine:
     def _submit_entry(self, resource, cluster_row, dn_row, origin_row,
                       origin_id, context_id, count, prioritized, entry_in,
                       params, pre_blocked=False) -> Tuple[int, int]:
-        """One width-1 device step; (reason, wait_us). A failed step
-        fails open, counted."""
+        """One entry's device verdict, (reason, wait_us): a ticket of the
+        pipeline's when it runs, else one width-1 step. A failed step or
+        cycle fails open, counted."""
+        fields = dict(
+            cluster_row=cluster_row, dn_row=dn_row, origin_row=origin_row,
+            origin_id=origin_id,
+            origin_named=origin_id in self._named_origins.get(resource, ()),
+            context_id=context_id, count=count, prioritized=prioritized,
+            entry_in=entry_in, skip_cluster=False, pre_blocked=pre_blocked,
+            params=params)
+        pipeline = self._pipeline
+        if pipeline is not None:
+            ticket = pipeline.submit_entry(fields)
+            # A submitted ticket is completed exactly once, by a cycle or
+            # by stop()'s straggler drain: NEVER resubmit it (that would
+            # double-commit). Only a None ticket (closed before submit)
+            # takes the synchronous path.
+            if ticket is not None:
+                while not ticket.done.wait(timeout=2.0):
+                    if pipeline.closed and not ticket.done.wait(timeout=2.0):
+                        # stop() drained what it could and the ticket never
+                        # surfaced (the collector died mid-cycle).
+                        self._note_fail_open("collector died mid-cycle")
+                        return 0, 0
+                if ticket.reason == -2:  # cycle error: pass-through
+                    self._note_fail_open("pipeline cycle error")
+                    return 0, 0
+                return ticket.reason, ticket.wait_us
         buf = make_entry_batch_np(1)
-        buf["cluster_row"][0] = cluster_row
-        buf["dn_row"][0] = dn_row
-        buf["origin_row"][0] = origin_row
-        buf["origin_id"][0] = origin_id
-        buf["origin_named"][0] = origin_id in self._named_origins.get(
-            resource, ())
-        buf["context_id"][0] = context_id
-        buf["count"][0] = count
-        buf["prioritized"][0] = prioritized
-        buf["entry_in"][0] = entry_in
-        buf["pre_blocked"][0] = pre_blocked
-        for i, h in enumerate(params):
-            buf["param_hash"][0, i] = h
-            buf["param_present"][0, i] = True
+        stage_row(buf, 0, fields)
         with self._lock:
             try:
                 dec = self._run_entry_batch_locked(buf)
             except DeviceDispatchError as ex:
                 self._note_fail_open(str(ex))
                 return 0, 0
-            reason, wait_us = self.harvest_decisions(dec)
-        return int(reason[0]), int(wait_us[0])
+            return int(dec.reason[0]), int(dec.wait_us[0])
 
     def _note_fail_open(self, why: str) -> None:
         """Count + rate-limited log of an unguarded pass-through."""
@@ -721,24 +1013,21 @@ class SentinelEngine:
                 True, handle.error)
             ctx_mod.auto_exit_context()
             return
-        buf = make_exit_batch_np(1)
-        buf["cluster_row"][0] = handle.cluster_row
-        buf["dn_row"][0] = handle.dn_row
-        buf["origin_row"][0] = handle.origin_row
-        buf["entry_in"][0] = handle.entry_in
-        buf["count"][0] = count
-        buf["rt_ms"][0] = min(rt, C.DEFAULT_MAX_RT_MS)
-        buf["success"][0] = True
-        buf["error"][0] = handle.error
-        for i, h in enumerate(handle.params):
-            buf["param_hash"][0, i] = h
-            buf["param_present"][0, i] = True
-        try:
-            self._run_exit_batch(buf)
-        except DeviceDispatchError as ex:
-            # An exit commit is pure statistics: an infrastructure failure
-            # must never break the caller's happy path.
-            self._note_fail_open(str(ex))
+        fields = dict(
+            cluster_row=handle.cluster_row, dn_row=handle.dn_row,
+            origin_row=handle.origin_row, entry_in=handle.entry_in,
+            count=count, rt_ms=min(rt, C.DEFAULT_MAX_RT_MS), success=True,
+            error=handle.error, params=handle.params)
+        pipeline = self._pipeline
+        if pipeline is None or not pipeline.submit_exit(fields):
+            buf = make_exit_batch_np(1)
+            stage_row(buf, 0, fields)
+            try:
+                self._run_exit_batch(buf)
+            except DeviceDispatchError as ex:
+                # An exit commit is pure statistics: an infrastructure
+                # failure must never break the caller's happy path.
+                self._note_fail_open(str(ex))
         ctx_mod.auto_exit_context()
 
     # -- readers ---------------------------------------------------------------
@@ -753,7 +1042,7 @@ class SentinelEngine:
         now = now_ms if now_ms is not None else self.now_ms()
         now_sec = now // 1000
         self._flush_committer()  # leased commits land before sealing
-        with self._lock:
+        with self._lock, self._on_stream():
             self._ensure_compiled()
             first = max(self._sealed_sec + 1, now_sec - C.MINUTE_BUCKETS + 1)
             seconds = list(range(first, now_sec))
@@ -797,7 +1086,7 @@ class SentinelEngine:
         """(per-second QPS totals f32[R, E], threads int[R]) as numpy.
         Totals are normalized by the instant-window interval."""
         self._flush_committer()
-        with self._lock:
+        with self._lock, self._on_stream():
             self._ensure_compiled()
             now = self.now_ms()
             w1 = W.rotate(self._state.w1, now, self._spec1)

@@ -48,8 +48,8 @@ import numpy as np
 
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
-    BATCH_WIDTHS,
     MAX_PARAMS,
+    ladder_width,
     make_entry_batch_np,
     make_exit_batch_np,
 )
@@ -57,13 +57,6 @@ from sentinel_tpu_torch.native import load_lease_ext
 
 _FLOW_REASON = int(C.BlockReason.FLOW)
 _PARAM_REASON = int(C.BlockReason.PARAM_FLOW)
-
-
-def _ladder_width(n: int) -> int:
-    for w in BATCH_WIDTHS:
-        if n <= w:
-            return w
-    return BATCH_WIDTHS[-1]
 
 
 class LocalLease:
@@ -535,7 +528,7 @@ def _entry_batch_from(chunk: List[tuple]) -> dict:
     batch at its ladder width (the ONE fill site both committers share).
     ``block_reason`` names the rejecting family for blocked entries
     (attribution channel); ignored for passes."""
-    buf = make_entry_batch_np(_ladder_width(len(chunk)))
+    buf = make_entry_batch_np(ladder_width(len(chunk)))
     for i, (cr, dr, orow, ein, cnt, passed, reason) in enumerate(chunk):
         buf["cluster_row"][i] = cr
         buf["dn_row"][i] = dr
@@ -552,7 +545,7 @@ def _entry_batch_from(chunk: List[tuple]) -> dict:
 def _exit_batch_from(chunk: List[tuple]) -> dict:
     """(cluster_row, dn_row, origin_row, entry_in, count, rt_ms, success,
     error) tuples → the numpy staging dict of an exit batch."""
-    buf = make_exit_batch_np(_ladder_width(len(chunk)))
+    buf = make_exit_batch_np(ladder_width(len(chunk)))
     for i, (cr, dr, orow, ein, cnt, rt, succ, err) in enumerate(chunk):
         buf["cluster_row"][i] = cr
         buf["dn_row"][i] = dr

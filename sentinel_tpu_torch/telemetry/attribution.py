@@ -1,5 +1,6 @@
 """Block-reason attribution + RT histogram geometry (the part of
-``sentinel_tpu/telemetry/attribution.py`` the fused step uses).
+``sentinel_tpu/telemetry/attribution.py`` the fused step and the decision
+traces use).
 
 Reason channels: the per-(reason, node row) staging counter carries one
 channel per blockable family, in :data:`ATTR_REASON_VALUES` order. Slot
@@ -27,11 +28,41 @@ ATTR_REASON_VALUES: Tuple[int, ...] = (
 )
 NUM_ATTR_REASONS = len(ATTR_REASON_VALUES)
 
+# Channel index for a BlockReason value (-1 for PASS / WAIT).
+_CHANNEL_OF = {v: i for i, v in enumerate(ATTR_REASON_VALUES)}
+
+
+def reason_channel(reason: int) -> int:
+    return _CHANNEL_OF.get(int(reason), -1)
+
+
 # Channel per BlockReason value (-1 = unattributed: PASS, WAIT).
 REASON_CHANNEL_TABLE = np.full((max(int(v) for v in C.BlockReason) + 1,),
                                -1, np.int32)
-for _ch, _v in enumerate(ATTR_REASON_VALUES):
+for _v, _ch in _CHANNEL_OF.items():
     REASON_CHANNEL_TABLE[_v] = _ch
+
+# Rule-slot field width in the packed reason code; one slot value is
+# reserved for "unknown".
+_SLOT_BITS = 8
+MAX_SLOT_CODE = (1 << _SLOT_BITS) - 2
+
+
+def encode_reason_code(reason: int, slot: int) -> int:
+    """``family x first-blocking-slot`` packed as one int: slot -1
+    (unknown) encodes as the reserved top value; reason 0 (PASS) is 0."""
+    if reason == 0:
+        return 0
+    s = MAX_SLOT_CODE + 1 if slot < 0 else min(int(slot), MAX_SLOT_CODE)
+    return (int(reason) << _SLOT_BITS) | s
+
+
+def decode_reason_code(code: int) -> Tuple[int, int]:
+    """Inverse of :func:`encode_reason_code` -> ``(reason, slot)``."""
+    if code == 0:
+        return 0, -1
+    slot = code & ((1 << _SLOT_BITS) - 1)
+    return code >> _SLOT_BITS, (-1 if slot > MAX_SLOT_CODE else slot)
 
 SLOT_BIN_MAX_EXACT = 8                     # bins 0..7 are exact slot indices
 SLOT_BIN_OVERFLOW = SLOT_BIN_MAX_EXACT     # slot >= 8

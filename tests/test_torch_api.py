@@ -116,6 +116,10 @@ class Pair:
             tu.freeze_time(NOW0)
         for ctx in (jctx, pctx):
             ctx.replace_context(None)
+            # reset() retires the contexts of an earlier DEFAULT engine
+            # only; an engine an earlier test built directly may have left
+            # a pooled auto context holding its rows on this thread.
+            ctx.bump_generation()
         self.j.attach(jst.reset(capacity=CAPACITY))
         self.p.attach(pst.reset(capacity=CAPACITY, device="cpu"))
         self.rules(**WARM_RULES)

@@ -3,7 +3,11 @@ kernels (block sort and tile walk) against the plain version and each
 other, the fused step on ``cuda`` against the same step on ``cpu``, and the
 ``st.entry`` path on the card: the native lease ring, the stats committer
 flushing from its thread and drained by ``close()``, and the device path
-launching the kernel at width 1.
+launching the kernel at width 1; and pipelined admission on the card: pinned
+staging buffers released only after their cycle's harvest, the same
+verdicts as on the CPU, a clean stop with cycles in flight, the trace pump
+reading verdicts from a CUDA engine, and a retune resetting the window on
+the card.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -311,3 +315,167 @@ def test_device_path_launches_the_kernel_at_width_one(api):
     assert prefix_cuda.launches > before
     assert prefix_cuda.tile_launches == tiles
     assert eng.fail_open_count == 0
+
+
+# -- pipelined admission on the card ----------------------------------------
+
+
+def test_pipeline_stages_in_pinned_buffers_released_after_harvest(
+        api, monkeypatch):
+    """Every staging buffer is pinned, and none goes back to the pool (or
+    out again) before the harvest of the cycle whose copy may read it."""
+    import threading
+
+    from sentinel_tpu_torch.core.batch import BatchBufferPool
+
+    eng = api.get_engine()
+    api.load_degrade_rules([api.DegradeRule(resource="d", count=1e9,
+                                            time_window=1)])
+    eng.warmup((1, 8))
+    pipe = eng.start_pipeline(max_batch=8, linger_s=0.0)
+    assert pipe.pool.pinned
+    out_now = set()   # buffers handed out and not yet released
+    harvested = set()  # buffers whose cycle has harvested
+    bufs_of = {}       # staged verdicts -> the buffers of their record
+    errors = []
+    acquire, release = BatchBufferPool.acquire, BatchBufferPool.release
+    flush, harvest = pipe._flush_entries, eng.harvest_decisions
+
+    def acquired(pool, kind, width):
+        buf = acquire(pool, kind, width)
+        if id(buf) in out_now or not buf.block.is_pinned():
+            errors.append(("reacquired or unpinned", kind, width))
+        out_now.add(id(buf))
+        return buf
+
+    def released(pool, kind, buf):
+        if id(buf) not in harvested:
+            errors.append(("released before its harvest", kind))
+        harvested.discard(id(buf))
+        out_now.discard(id(buf))
+        release(pool, kind, buf)
+
+    def flushed(entries, exit_bufs):
+        flush(entries, exit_bufs)
+        rec = pipe._inflight[-1]
+        bufs_of[id(rec.dec)] = [id(b) for _, b in rec.bufs]
+
+    def harvested_(dec):
+        out = harvest(dec)
+        harvested.update(bufs_of.pop(id(dec), ()))
+        return out
+
+    monkeypatch.setattr(BatchBufferPool, "acquire", acquired)
+    monkeypatch.setattr(BatchBufferPool, "release", released)
+    pipe._flush_entries, eng.harvest_decisions = flushed, harvested_
+
+    def worker():
+        for _ in range(12):
+            with api.entry("d"):
+                pass
+
+    threads = [threading.Thread(target=worker) for _ in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    eng.stop_pipeline()
+    assert not errors, errors[:5]
+    assert pipe.batched == 16 * 12 and pipe.batched > pipe.cycles
+    assert pipe.max_inflight >= 2
+    assert int(eng.state.cur_threads.sum()) == 0
+    assert eng.fail_open_count == 0
+
+
+def test_pipelined_verdicts_on_cuda_equal_cpu(cuda):
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.utils import time_util
+
+    from chip_smoke import run_stream, stream_ops, stream_rules
+
+    ops = stream_ops(11)
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            time_util.freeze_time(1_700_000_000_000)
+            eng = st.reset(capacity=512, device=dev)
+            st.load_flow_rules(stream_rules())
+            eng.start_pipeline(max_batch=8, linger_s=0.0005)
+            verdicts = run_stream(ops)
+            eng.stop_pipeline()
+            runs[dev] = (verdicts, eng.node_snapshot())
+            assert eng.fail_open_count == 0
+            eng.close()
+    finally:
+        time_util.unfreeze_time()
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert {"pass", "FlowException"} <= set(runs["cuda"][0])
+    for res, row in runs["cuda"][1].items():
+        for k, v in row.items():
+            assert v == pytest.approx(runs["cpu"][1][res][k], rel=1e-6), \
+                (res, k)
+
+
+def test_stop_with_cycles_in_flight_resolves_every_ticket(api):
+    import time
+
+    from chip_smoke import ticket_fields
+
+    eng = api.get_engine()
+    api.load_flow_rules([api.FlowRule(resource="sfl", count=1e9)])
+    eng.warmup((1, 8))
+    pipe = eng.start_pipeline(max_batch=8, linger_s=0.0)
+    tickets = [pipe.submit_entry(ticket_fields(eng, "sfl"))
+               for _ in range(64)]
+    eng.stop_pipeline()
+    for t in tickets:
+        assert t.done.is_set() and t.reason in (0, -2)
+    assert pipe.inflight_depth_now() == 0 and pipe._thread is None
+    harvests = pipe.harvests
+    time.sleep(0.05)
+    assert pipe.harvests == harvests
+
+
+@pytest.fixture
+def frozen():
+    from sentinel_tpu_torch.utils import time_util
+
+    time_util.freeze_time(time_util.current_time_millis())
+    yield time_util
+    time_util.unfreeze_time()
+
+
+def test_trace_pump_records_from_a_cuda_engine(api, frozen):
+    from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
+
+    eng = api.get_engine()
+    eng.traces.stop()
+    eng.traces = DecisionTraceBuffer(eng, sample_every=1, capacity=16)
+    api.load_flow_rules([api.FlowRule(resource="tb", count=2)])
+    eng.start_pipeline(max_batch=8, linger_s=0.0)
+    got = [api.entry_ok("tb") is not None for _ in range(5)]
+    eng.stop_pipeline()
+    assert got == [True, True, False, False, False]
+    eng.traces.drain()
+    snap = eng.traces.snapshot()
+    assert snap["errors"] == 0 and snap["recorded"] == 3
+    assert {t["resource"] for t in snap["traces"]} == {"tb"}
+    assert snap["traces"][0]["reason"] == "FLOW"
+    assert snap["traces"][0]["window"]["blockQps"] >= 1
+
+
+def test_retune_resets_the_window_on_the_card(api, frozen):
+    eng = api.get_engine()
+    api.load_flow_rules([api.FlowRule(resource="geo", count=3)])
+    for _ in range(3):
+        assert api.entry_ok("geo")
+    eng._flush_committer()
+    assert int(eng.state.w1.counts.sum()) > 0
+    eng.set_window_geometry(2000, 4)
+    w1 = eng.state.w1
+    assert w1.counts.device.type == "cuda" and w1.counts.shape[0] == 4
+    assert int(w1.counts.sum()) == 0
+    assert eng.state.occupied_next.device.type == "cuda"
+    assert int(eng.state.occupied_stamp) == -1
+    got = [api.entry_ok("geo") is not None for _ in range(7)]
+    assert got == [True] * 5 + [False] * 2
