@@ -71,8 +71,34 @@ Phases (any failure raises and exits non-zero; none is caught):
    25; a seeded 90-op stream gives the same verdicts synchronously on
    ``cuda``, pipelined on ``cuda`` and pipelined on ``cpu``, and the two
    pipelined ``node_snapshot()``s agree.
-8. The smoke's wall time, the kernels line, the card line, and the final
+8. Slots: first card against CPU, with identical injected clocks: the
+   reference's differential oracle (16 names, ``FlowRule(count=3)`` on
+   names 0, 5 and 10, Zipf weights, 10 simulated seconds x 20 pairs, slot
+   budgets 8 and 64) and its storm drill (budget 3, ``slots.evict.storm``
+   armed after=2, times=2) give the same verdicts, ``slots.status()``,
+   event histories, ``timeseries_view`` and state (ring included) on both;
+   the budget-8 engine evicts, its twin does not, and their verdicts are
+   equal. Then a timed run at a deployment's size:
+   ``SentinelEngine(slot_budget=4098)``, 4,000 resources with leaseable
+   QPS rules (pinned hot) and an unruled Zipf(1.2) tail of 12,000 names
+   contesting the 96 dynamic slots, 10 simulated seconds of 1,024 leased
+   and 64 tail pairs and one fold each. It must evict, rehydrate and pass
+   cold, never block cold or evict a pinned resource, never fail open,
+   and conserve every PASS (device totals at the current slots + spill
+   records + cold tallies = pairs served). Prints one ``{"slots": ...}``
+   line: pairs/s, pair latency by class, hit rate, steals, evictions and
+   rehydrations, the surgeries (count, ms, bytes each way), the spill ms,
+   the prefix launches by shape (block sort only) and the peak memory.
+   The phase must end within 120 s.
+9. The smoke's wall time, the kernels line, the card line, and the final
    ``{"ok": true, ...}``.
+
+Every engine above carries the 128-second flight ring by default: the
+main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
+checks that the spilled history's PASS per resource equals the device
+totals; the parity phase compares the card's ring with the CPU's. Each
+phase prints ``torch.cuda.memory_allocated()`` at its start (what earlier
+phases still hold) and ``torch.cuda.max_memory_allocated()`` over it.
 
 It imports the port only — never JAX or the JAX package.
 """
@@ -118,6 +144,9 @@ WIDTHS = (2048, 8192)
 PARITY_ROUNDS = 8
 PARITY_WIDTH = 2048
 FLOAT_RTOL = 1e-6  # float32 state: same arithmetic on both devices
+# Host syncs of one check_batch + complete_batch round on the main path
+# (PERF.md section 5): the flight ring's fold must not add one.
+HOST_SYNCS_PER_ROUND = 15.0625
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32, outside the tensor cores
 CTX = "sentinel_default_context"
@@ -415,9 +444,27 @@ def exit_buf(rng, ebuf, reason):
     return buf
 
 
+def memory_mark() -> int:
+    """Reset the peak counter; the bytes allocated now (what earlier
+    phases still hold)."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def memory_report(at_start: int) -> dict:
+    peak = torch.cuda.max_memory_allocated()
+    return {"at_start": at_start, "peak": peak,
+            "peak_above_start": peak - at_start}
+
+
+def ring_bytes(ring) -> int:
+    return sum(t.numel() * t.element_size() for t in ring)
+
+
 def main_path_phase(dev):
     """Drive the engine at the headline size; returns (per-width results,
     kernel launches during the measured rounds)."""
+    mem0 = memory_mark()
     eng, clock, cluster, dn, origin_a = make_engine(dev, tight=False)
     rng = np.random.default_rng(7)
     results = {}
@@ -471,6 +518,9 @@ def main_path_phase(dev):
             "host_syncs_per_round": syncs / ROUNDS,
         }
         print(json.dumps({"main_path": results[width]}), flush=True)
+        if syncs / ROUNDS != HOST_SYNCS_PER_ROUND:
+            raise AssertionError(f"host syncs per round {syncs / ROUNDS} at "
+                                 f"width {width}, not {HOST_SYNCS_PER_ROUND}")
     # Output check: every admitted token committed PASS to its DefaultNode
     # and ClusterNode rows, and every admitted entry has exited.
     st = eng.state
@@ -480,9 +530,31 @@ def main_path_phase(dev):
                              f"tokens {admitted_tokens}")
     if int(st.cur_threads.sum()) != 0:
         raise AssertionError("thread gauges did not return to 0")
-    print(json.dumps({"main_path_check": {"admitted_tokens": admitted_tokens,
-                                          "committed_pass": passes}}),
+    # The flight recorder: the completed seconds' PASS per resource in the
+    # spilled history equal the device's cumulative PASS totals (the fold
+    # moves every completed second into both).
+    if st.flight is None:
+        raise AssertionError("the default engine carries no flight ring")
+    view = eng.timeseries_view(now_ms=clock.now)
+    ring_pass = {}
+    for sec in view["seconds"]:
+        for res, r in sec["resources"].items():
+            ring_pass[res] = ring_pass.get(res, 0) + r["pass"]
+    totals = eng.state.telemetry.totals[C.MetricEvent.PASS].cpu().numpy()
+    for res, row in eng.registry.resources().items():
+        if ring_pass.get(res, 0) != int(totals[row]):
+            raise AssertionError(f"{res}: ring PASS {ring_pass.get(res, 0)} "
+                                 f"!= device totals {int(totals[row])}")
+    print(json.dumps({"main_path_check": {
+        "admitted_tokens": admitted_tokens, "committed_pass": passes,
+        "flight_ring_seconds": eng.flight_seconds,
+        "flight_ring_bytes": ring_bytes(eng.state.flight),
+        "ring_seconds_spilled": len(view["seconds"]),
+        "ring_pass_total": sum(ring_pass.values()),
+        "ring_pass_equals_device_totals": True,
+        "memory_bytes": memory_report(mem0)}}),
           flush=True)
+    eng.close()
     return results, total_launches
 
 
@@ -547,7 +619,29 @@ def profile_phase(dev, rounds: int = 8, width: int = 8192):
                 for e in top]}}), flush=True)
 
 
+def compare_states(x, y, path=""):
+    """Two states as ``convert.state_to_numpy`` gives them: the same keys,
+    integer tensors equal, float tensors within FLOAT_RTOL."""
+    if set(x) != set(y):
+        raise AssertionError(f"{path}: fields {sorted(set(x) ^ set(y))} "
+                             "differ between cuda and cpu")
+    for k in x:
+        if isinstance(x[k], dict):
+            compare_states(x[k], y[k], f"{path}.{k}")
+            continue
+        if x[k].dtype != y[k].dtype:
+            raise AssertionError(f"{path}.{k}: dtype {x[k].dtype} vs "
+                                 f"{y[k].dtype}")
+        if x[k].dtype.kind == "f":
+            np.testing.assert_allclose(x[k], y[k], rtol=FLOAT_RTOL,
+                                       atol=0, err_msg=f"{path}.{k}")
+        elif not np.array_equal(x[k], y[k]):
+            raise AssertionError(f"{path}.{k} differs between cuda "
+                                 "and cpu")
+
+
 def parity_phase():
+    mem0 = memory_mark()
     runs = {}
     for dev in ("cuda", "cpu"):
         eng, clock, cluster, dn, origin_a = make_engine(dev, tight=True)
@@ -571,28 +665,23 @@ def parity_phase():
                                      "between cuda and cpu")
         blocked += int((a["reason"] > 0).sum())
 
-    def compare(x, y, path=""):
-        for k in x:
-            if isinstance(x[k], dict):
-                compare(x[k], y[k], f"{path}.{k}")
-                continue
-            if x[k].dtype != y[k].dtype:
-                raise AssertionError(f"{path}.{k}: dtype {x[k].dtype} vs "
-                                     f"{y[k].dtype}")
-            if x[k].dtype.kind == "f":
-                np.testing.assert_allclose(x[k], y[k], rtol=FLOAT_RTOL,
-                                           atol=0, err_msg=f"{path}.{k}")
-            elif not np.array_equal(x[k], y[k]):
-                raise AssertionError(f"{path}.{k} differs between cuda "
-                                     "and cpu")
-
-    compare(runs["cuda"][1], runs["cpu"][1])
+    cuda_state, cpu_state = runs["cuda"][1], runs["cpu"][1]
+    if "flight" not in cuda_state or "flight" not in cpu_state:
+        raise AssertionError("a parity engine carries no flight ring")
+    compare_states(cuda_state, cpu_state)
+    ring_seconds = int((cuda_state["flight"]["stamps"] >= 0).sum())
+    if ring_seconds < 1:
+        raise AssertionError("the parity run folded no second into the ring")
     print(json.dumps({"parity": {"rounds": PARITY_ROUNDS,
                                  "width": PARITY_WIDTH,
                                  "blocked_decisions": blocked,
                                  "decisions_bit_equal": True,
                                  "int_state_equal": True,
-                                 "float_rtol": FLOAT_RTOL}}), flush=True)
+                                 "flight_ring_equal": True,
+                                 "flight_ring_seconds": ring_seconds,
+                                 "float_rtol": FLOAT_RTOL,
+                                 "memory_bytes": memory_report(mem0)}}),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -903,6 +992,7 @@ def api_script(dev):
 def api_phase(dev):
     # Block logs stay inside the checkout (``smoke_logs/``, gitignored).
     config.set(LOG_DIR, str(Path(__file__).resolve().parent / "smoke_logs"))
+    mem0 = memory_mark()
     t0 = time.perf_counter()
     eng = api_engine(dev)
     eng._lock = TimedLock(eng._lock)
@@ -949,6 +1039,7 @@ def api_phase(dev):
         "cuda_s": tc, "cpu_s": tp}
     out["timed_part_s"] = timed_s
     out["phase_s"] = time.perf_counter() - t0
+    out["memory_bytes"] = memory_report(mem0)
     print(json.dumps({"api": out}), flush=True)
     return out
 
@@ -1140,6 +1231,7 @@ def pipeline_phase(dev):
     pipeline, then the frozen-clock card checks; prints the
     ``{"pipeline": ...}`` line."""
     t0 = time.perf_counter()
+    mem0 = memory_mark()
     pools = api_pools()
     eng = api_engine(dev)
     eng.warmup((1, 8, 64))
@@ -1253,7 +1345,349 @@ def pipeline_phase(dev):
     }
     out["card_checks"] = pipeline_card_checks(dev)
     out["phase_s"] = time.perf_counter() - t0
+    out["memory_bytes"] = memory_report(mem0)
     print(json.dumps({"pipeline": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: slot-table admission and the once-per-second fold
+# ---------------------------------------------------------------------------
+
+SLOT_ORACLE_NAMES = 16
+SLOT_ORACLE_SECONDS = 10
+SLOT_ORACLE_PAIRS = 20
+# The timed run at a deployment's size (docs/OPERATIONS.md "Slot-table
+# admission": registry 16,384 names, 8 steals a tick, 20% hysteresis):
+# 4,096 usable device rows, 4,000 of them pinned by leaseable QPS rules.
+SLOT_BUDGET = 4098
+SLOT_RULED = 4000
+SLOT_TAIL = 12000
+SLOT_LEASED_PER_S = 1024
+SLOT_TAIL_PER_S = 64
+SLOT_SECONDS = 10
+SLOT_PHASE_LIMIT_S = 120.0
+
+
+class SlotRun:
+    """One slot-mode engine on an injected clock, its event sink kept."""
+
+    def __init__(self, dev, budget, flow=()):
+        from sentinel_tpu_torch.core import context as ctx_mod
+
+        ctx_mod.replace_context(None)
+        self.clock = Clock(NOW0)
+        self.eng = SentinelEngine(device=dev, clock=self.clock,
+                                  slot_budget=budget)
+        self.events = []
+        self.eng.slots.event_sink = self.events.append
+        if flow:
+            self.eng.flow_rules.load_rules(
+                [F.FlowRule(resource=r, count=c) for r, c in flow])
+
+    def serve(self, res) -> str:
+        try:
+            self.eng.entry(res).exit()
+            return "P"
+        except st.BlockException:
+            return "B"
+
+    def second(self):
+        """Land the second's leased commits, step the clock, run the fold
+        (``timeseries_view`` flushes the committer and spills)."""
+        self.eng._flush_committer()
+        self.clock.now += 1000
+        return self.eng.timeseries_view(now_ms=self.clock.now)
+
+    def result(self, verdicts):
+        from sentinel_tpu_torch.core import context as ctx_mod
+
+        eng = self.eng
+        view = eng.timeseries_view(now_ms=self.clock.now)
+        with eng._lock:
+            state = convert.state_to_numpy(eng.state)
+        out = {"verdicts": "".join(verdicts), "status": eng.slots.status(),
+               "events": list(self.events), "view": view, "state": state,
+               "fail_open": eng.fail_open_count}
+        committer = eng.committer
+        eng.close()
+        out["committer_failures"] = committer.failures if committer else 0
+        ctx_mod.replace_context(None)
+        return out
+
+
+def slot_oracle(dev):
+    """The reference's differential oracle (tests/test_slots.py): a
+    6-usable-slot engine and a 62-usable-slot twin on one Zipf stream."""
+    import random
+
+    names = [f"oracle{i}" for i in range(SLOT_ORACLE_NAMES)]
+    flow = [(names[i], 3) for i in (0, 5, 10)]
+    weights = [1.0 / (i + 1) ** 1.2 for i in range(SLOT_ORACLE_NAMES)]
+    out = {}
+    for budget in (8, 64):
+        run = SlotRun(dev, budget, flow)
+        rng = random.Random(1234)
+        verdicts = []
+        for _ in range(SLOT_ORACLE_SECONDS):
+            for _ in range(SLOT_ORACLE_PAIRS):
+                verdicts.append(run.serve(
+                    rng.choices(names, weights=weights)[0]))
+            run.second()
+        out[budget] = run.result(verdicts)
+    return out
+
+
+def slot_storm(dev):
+    """The reference's storm drill: budget 3 (one usable slot),
+    ``slots.evict.storm`` armed after=2, times=2."""
+    from sentinel_tpu_torch.resilience.faults import FaultInjector
+
+    run = SlotRun(dev, 3)
+    plan = [["alpha"] * 3, ["alpha"] * 2, [], ["beta"] * 3,
+            ["alpha"] * 2 + ["beta"], ["alpha", "beta"]]
+    verdicts = []
+    with FaultInjector(seed=99, scope_thread=True) as inj:
+        inj.arm("slots.evict.storm", mode="error", after=2, times=2)
+        for second in plan:
+            for res in second:
+                verdicts.append(run.serve(res))
+            run.second()
+    return run.result(verdicts)
+
+
+def slot_exactness():
+    """Card against CPU: the oracle and the storm drill give the same
+    verdicts, statuses, event histories, views and states on both."""
+    runs = {dev: {"oracle": slot_oracle(dev), "storm": slot_storm(dev)}
+            for dev in ("cuda", "cpu")}
+    cuda, cpu = runs["cuda"], runs["cpu"]
+    pairs = [(f"oracle{b}", cuda["oracle"][b], cpu["oracle"][b])
+             for b in (8, 64)] + [("storm", cuda["storm"], cpu["storm"])]
+    for name, a, b in pairs:
+        for k in ("verdicts", "status", "events", "view"):
+            if a[k] != b[k]:
+                raise AssertionError(f"slot {name}: {k} differs between "
+                                     "cuda and cpu")
+        compare_states(a["state"], b["state"], name)
+        if a["fail_open"] or a["committer_failures"]:
+            raise AssertionError(f"slot {name}: fail-open {a['fail_open']}, "
+                                 f"committer failures "
+                                 f"{a['committer_failures']}")
+    small, twin = cuda["oracle"][8], cuda["oracle"][64]
+    if small["verdicts"] != twin["verdicts"]:
+        raise AssertionError("eviction changed a verdict on the card")
+    if small["status"]["evictionsTotal"] <= 0 \
+            or twin["status"]["evictionsTotal"] != 0:
+        raise AssertionError("the budget-8 engine must evict and the "
+                             "budget-64 twin must not")
+    if cuda["storm"]["status"]["stormsTotal"] != 2:
+        raise AssertionError("the storm drill did not storm twice")
+    return {
+        "oracle_verdicts": small["verdicts"].count("P"),
+        "oracle_blocks": small["verdicts"].count("B"),
+        "oracle_budget8": {k: small["status"][k] for k in (
+            "evictionsTotal", "rehydrationsTotal", "coldPassTotal",
+            "hitRate")},
+        "storm_events": len(cuda["storm"]["events"]),
+        "storm_status": {k: cuda["storm"]["status"][k] for k in (
+            "stormsTotal", "evictionsTotal", "rehydrationsTotal",
+            "coldPassTotal")},
+        "cuda_equals_cpu": True,
+    }
+
+
+def slot_timed(dev):
+    """4,000 pinned leaseable resources and a Zipf(1.2) tail of 12,000
+    unruled names contesting the 96 dynamic slots, 10 simulated seconds
+    of 1,024 leased and 64 tail pairs each, one fold a second."""
+    torch.cuda.synchronize()
+    mem0 = memory_mark()  # the engine's own state counts above it
+    run = SlotRun(dev, SLOT_BUDGET)
+    eng, slots = run.eng, run.eng.slots
+    ruled = [f"slot_hot{i}" for i in range(SLOT_RULED)]
+    tail = [f"slot_tail{i}" for i in range(SLOT_TAIL)]
+    surgeries = []
+
+    execute = slots._execute
+
+    def timed_execute(evicts, admits, now_ms):
+        torch.cuda.synchronize()
+        b0 = (slots.surgery_h2d_bytes_total, slots.surgery_d2h_bytes_total)
+        t0 = time.perf_counter()
+        execute(evicts, admits, now_ms)
+        torch.cuda.synchronize()
+        surgeries.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "evicts": len(evicts), "admits": len(admits),
+            "h2d_bytes": slots.surgery_h2d_bytes_total - b0[0],
+            "d2h_bytes": slots.surgery_d2h_bytes_total - b0[1]})
+
+    slots._execute = timed_execute
+    t0 = time.perf_counter()
+    eng.flow_rules.load_rules([F.FlowRule(resource=r, count=1e9)
+                               for r in ruled])
+    pin_s = time.perf_counter() - t0
+    pin_surgery = surgeries.pop() if surgeries else None
+    missing = [r for r in ruled if slots.current(r) is None
+               or r not in eng._leases]
+    if missing:
+        raise AssertionError(f"{len(missing)} ruled resources are not "
+                             "pinned hot and leased")
+    eng.warmup((1,))
+
+    spill = eng._spill_flight
+    folds = []
+
+    def timed_spill(now_ms=None):
+        n = len(surgeries)
+        t1 = time.perf_counter()
+        spill(now_ms)
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t1) * 1e3
+        folds.append({"ms": took, "surgery_ms": sum(
+            x["ms"] for x in surgeries[n:])})
+
+    eng._spill_flight = timed_spill
+    torch.cuda.synchronize()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    import hashlib
+
+    # The draws, made up front (the tail as bench.py draws its Zipf
+    # churn); their hash says whether two runs served the same stream.
+    rng = np.random.default_rng(20)
+    pick = np.random.default_rng(21)
+    draws = []
+    digest = hashlib.sha256()
+    for _ in range(SLOT_SECONDS):
+        leased = pick.integers(0, SLOT_RULED, size=SLOT_LEASED_PER_S)
+        tail_i = np.minimum(rng.zipf(1.2, size=SLOT_TAIL_PER_S), SLOT_TAIL) - 1
+        digest.update(leased.tobytes())
+        digest.update(tail_i.tobytes())
+        draws.append((leased, tail_i))
+    leased_us, tail_ms, served = [], [], 0
+    t0 = time.perf_counter()
+    for leased, tail_i in draws:
+        for i in leased:
+            t1 = time.perf_counter()
+            if run.serve(ruled[int(i)]) != "P":
+                raise AssertionError("a leased pair blocked at count 1e9")
+            leased_us.append((time.perf_counter() - t1) * 1e6)
+        for i in tail_i:
+            t1 = time.perf_counter()
+            if run.serve(tail[int(i)]) != "P":
+                raise AssertionError("an unruled pair blocked")
+            tail_ms.append((time.perf_counter() - t1) * 1e3)
+        served += SLOT_LEASED_PER_S + SLOT_TAIL_PER_S
+        run.second()
+    eng._flush_committer()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = prefix_cuda.launches
+    tile = prefix_cuda.tile_launches
+    by_shape = dict(prefix_cuda.launches_by_shape)
+    memory = memory_report(mem0)
+    status = slots.status()
+
+    # Conservation: every served PASS is on the device at its current
+    # slot, in a spill record, or in a cold tally.
+    PASS = C.MetricEvent.PASS
+    with eng._lock:
+        state = eng.state
+        dev_pass = (state.telemetry.totals[PASS]
+                    + state.sec.counts[PASS].to(torch.int64)).cpu().numpy()
+        ring = state.flight
+        flight_bytes = ring_bytes(ring) if ring is not None else 0
+    on_device = sum(int(dev_pass[slot])
+                    for slot in slots.resources().values())
+    in_spill = sum(int(rec.tel_totals[PASS]) + int(rec.sec_counts[PASS])
+                   for rec in slots._spill.values())
+    in_cold = sum(int(vec[PASS]) for vec in slots._cold.values())
+    ruled_set = set(ruled)
+    evicted_pinned = [e["resource"] for e in run.events
+                      if e["e"] == "slotEvict" and e["resource"] in ruled_set]
+    committer = eng.committer
+    failures = committer.failures if committer is not None else 0
+    fail_open = eng.fail_open_count
+    eng.close()
+
+    if status["evictionsTotal"] <= 0 or status["rehydrationsTotal"] <= 0 \
+            or status["coldPassTotal"] <= 0:
+        raise AssertionError(f"the slot table did not churn: {status}")
+    if status["coldBlockTotal"] != 0:
+        raise AssertionError(f"coldBlockTotal {status['coldBlockTotal']}")
+    if evicted_pinned:
+        raise AssertionError(f"pinned resources evicted: {evicted_pinned[:5]}")
+    if fail_open or failures:
+        raise AssertionError(f"fail-open {fail_open}, committer failures "
+                             f"{failures}")
+    if on_device + in_spill + in_cold != served:
+        raise AssertionError(
+            f"PASS not conserved: device {on_device} + spill {in_spill} + "
+            f"cold {in_cold} != served {served}")
+    if launches <= 0 or tile:
+        raise AssertionError(f"prefix launches {launches}, tile walk {tile}")
+    if eng.registry.overflow_count:
+        raise AssertionError(f"registry overflow {eng.registry.overflow_count}")
+    ms = [x["ms"] for x in surgeries]
+    spill_ms = [f["ms"] - f["surgery_ms"] for f in folds]
+    by_kind = {}
+    for x in surgeries:
+        k = by_kind.setdefault(f"evicts={x['evicts']},admits={x['admits']}",
+                               {"n": 0, "h2d_bytes": x["h2d_bytes"],
+                                "d2h_bytes": x["d2h_bytes"], "ms": []})
+        k["n"] += 1
+        k["ms"].append(x["ms"])
+    for k in by_kind.values():
+        k["ms_p50"] = pct(k.pop("ms"), 50)
+    return {
+        "budget": SLOT_BUDGET, "ruled": SLOT_RULED, "tail_names": SLOT_TAIL,
+        "seconds": SLOT_SECONDS, "pairs": served, "wall_s": wall_s,
+        "draws_sha256": digest.hexdigest()[:16],
+        "pairs_per_s": served / wall_s,
+        "leased_pair_us": {"n": len(leased_us), "p50": pct(leased_us, 50),
+                           "p99": pct(leased_us, 99)},
+        "tail_pair_ms": {"n": len(tail_ms), "p50": pct(tail_ms, 50),
+                         "p99": pct(tail_ms, 99)},
+        "hit_rate": status["hitRate"],
+        "steals": status["stealsTotal"],
+        "evictions": status["evictionsTotal"],
+        "rehydrations": status["rehydrationsTotal"],
+        "cold_pass": status["coldPassTotal"],
+        "status": status,
+        "pin_load_s": pin_s, "pin_surgery": pin_surgery,
+        "surgeries": {
+            "n": len(surgeries), "ms_p50": pct(ms, 50),
+            "ms_max": max(ms) if ms else None,
+            "h2d_bytes_total": sum(x["h2d_bytes"] for x in surgeries),
+            "d2h_bytes_total": sum(x["d2h_bytes"] for x in surgeries),
+            "by_kind": by_kind},
+        "folds": len(folds),
+        "spill_ms_p50": pct(spill_ms, 50),
+        "fold_ms_p50": pct([f["ms"] for f in folds], 50),
+        "conservation": {"served": served, "on_device": on_device,
+                         "in_spill": in_spill, "in_cold": in_cold},
+        "prefix_launches": launches,
+        "prefix_launches_block_sort": launches - tile,
+        "prefix_launches_by_shape": {
+            f"K={k},N={n},M={m}": c for (k, n, m), c in sorted(by_shape.items())},
+        "flight_ring_bytes": flight_bytes,
+        "memory_bytes": memory,
+    }
+
+
+def slot_phase(dev):
+    t0 = time.perf_counter()
+    out = {"exactness": slot_exactness()}
+    out["exactness_s"] = time.perf_counter() - t0
+    out["timed"] = slot_timed(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"slots": out}), flush=True)
+    if out["phase_s"] > SLOT_PHASE_LIMIT_S:
+        raise AssertionError(f"slot phase took {out['phase_s']:.1f} s, over "
+                             f"{SLOT_PHASE_LIMIT_S} s")
     return out
 
 
@@ -1267,7 +1701,8 @@ def main() -> int:
     count = torch.cuda.device_count()
     card = smi_line()
     print(json.dumps({"device": name, "count": count, "torch": torch.__version__,
-                      "cuda": torch.version.cuda}), flush=True)
+                      "cuda": torch.version.cuda, "numpy": np.__version__}),
+          flush=True)
     print(card, flush=True)
 
     t0 = time.perf_counter()
@@ -1284,6 +1719,7 @@ def main() -> int:
     parity_phase()
     api_phase(dev)
     pipeline_phase(dev)
+    slot_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)

@@ -4,9 +4,10 @@ The JAX package's ``RulePack`` and ``SentinelState`` are pytrees of
 NamedTuples; flattened to nested dicts of numpy arrays (field name ->
 array or sub-dict) they load into this package's NamedTuples of the same
 field names. uint32 arrays (param value hashes, owner keys) become int64
-holding the same values; every other dtype is kept. Fields this package
-does not carry (the JAX state's ``shadow`` and ``flight``, ``None`` unless
-enabled) are ignored.
+holding the same values; every other dtype is kept. The flight-recorder
+ring (``flight``) carries both ways, and stays ``None`` when the dict has
+none (a flattened JAX state drops its ``None`` fields). Fields this
+package does not carry (the JAX state's ``shadow`` lanes) are ignored.
 
 This module sees only numpy: it imports no JAX.
 """
@@ -33,7 +34,8 @@ _NESTED = {
                  "system": Y.SystemRuleTensors, "param": P.ParamRuleTensors},
     S.SentinelState: {"w1": W.Window, "w60": W.Window, "flow": F.FlowState,
                       "degrade": D.DegradeState, "param": P.ParamFlowState,
-                      "sec": S.SecondAccum, "telemetry": S.TelemetryState},
+                      "sec": S.SecondAccum, "telemetry": S.TelemetryState,
+                      "flight": S.FlightRecorder},
     D.DegradeState: {"win": W.RowWindow},
 }
 
@@ -52,7 +54,9 @@ def tree_from_numpy(cls, d: Dict[str, Any], device):
     nested = _NESTED.get(cls, {})
     kw = {}
     for name in cls._fields:
-        if name in nested:
+        if name not in d and name in cls._field_defaults:
+            kw[name] = cls._field_defaults[name]  # an optional part, absent
+        elif name in nested:
             kw[name] = tree_from_numpy(nested[name], d[name], device)
         else:
             kw[name] = _tensor(d[name], device)
@@ -72,11 +76,15 @@ def state_from_numpy(d: Dict[str, Any], device) -> S.SentinelState:
 
 def state_to_numpy(state) -> Dict[str, Any]:
     """This package's state (or any NamedTuple of tensors) -> nested dict
-    of numpy arrays."""
+    of numpy arrays; ``None`` fields are dropped. The arrays are copies:
+    on the CPU a tensor's numpy view would follow the next step's
+    in-place updates."""
     out = {}
     for name, v in state._asdict().items():
+        if v is None:
+            continue
         if isinstance(v, tuple) and hasattr(v, "_asdict"):
             out[name] = state_to_numpy(v)
         else:
-            out[name] = v.detach().cpu().numpy()
+            out[name] = v.detach().cpu().numpy().copy()
     return out

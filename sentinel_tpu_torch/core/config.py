@@ -31,6 +31,47 @@ TELEMETRY_TRACE_CAPACITY = "csp.sentinel.telemetry.trace.capacity"
 PIPELINE_INFLIGHT_DEPTH = "csp.sentinel.pipeline.inflight.depth"
 PIPELINE_LINGER_US = "csp.sentinel.pipeline.linger.us"
 PIPELINE_POOL_WIDTHS = "csp.sentinel.pipeline.pool.widths"
+# timeseries.seconds: device-resident flight-recorder ring length in
+# seconds (0 disables recording entirely: no ring tensors on the device);
+# timeseries.history.seconds bounds the compacted host-side spill.
+TELEMETRY_TIMESERIES_SECONDS = "csp.sentinel.telemetry.timeseries.seconds"
+TELEMETRY_TIMESERIES_HISTORY = \
+    "csp.sentinel.telemetry.timeseries.history.seconds"
+# shard.slices: the flowId slice ring the population telescope attributes
+# keys to (``telemetry/population.py:slice_of``).
+CLUSTER_SHARD_SLICES = "csp.sentinel.cluster.shard.slices"
+# Namespace telescope (telemetry/population.py), riding the spill fold.
+# topk: Space-Saving summary size (error floor total/k); cms.*: count-min
+# geometry (cold-tail error (e/width)*total at confidence 1-e^-depth);
+# hll.precision: global cardinality registers (2^p, stderr
+# 1.04/sqrt(2^p)); slice.precision: the cheaper per-slice and per-window
+# register sets; window.seconds: churn-window length; churn.history:
+# sealed windows retained; baseline.*: the EWMA cardinality-growth alarm
+# (z-score vs prior baseline).
+POPULATION_ENABLED = "csp.sentinel.population.enabled"
+POPULATION_TOPK = "csp.sentinel.population.topk"
+POPULATION_CMS_DEPTH = "csp.sentinel.population.cms.depth"
+POPULATION_CMS_WIDTH = "csp.sentinel.population.cms.width"
+POPULATION_HLL_PRECISION = "csp.sentinel.population.hll.precision"
+POPULATION_SLICE_PRECISION = "csp.sentinel.population.slice.precision"
+POPULATION_WINDOW_SECONDS = "csp.sentinel.population.window.seconds"
+POPULATION_CHURN_HISTORY = "csp.sentinel.population.churn.history"
+POPULATION_BASELINE_ALPHA = "csp.sentinel.population.baseline.alpha"
+POPULATION_BASELINE_ZSCORE = "csp.sentinel.population.baseline.zscore"
+# Slot-table admission (core/slots.py). budget: device slot-table size
+# (0 = off: registry rows == device rows); registry.capacity: the host
+# name-table size in slot mode (hot + cold namespace); max.steals: steal
+# ceiling per rebalance cycle; hysteresis.pct: a challenger must beat the
+# victim's observed rate by this margin before a steal; spill.max: spilled
+# row records retained host-side (LRU past it, a dropped record rehydrates
+# cold, counted); stale.seconds: telescope staleness horizon for the
+# freeze gate.
+SLOTS_BUDGET = "csp.sentinel.slots.budget"
+SLOTS_REGISTRY_CAPACITY = "csp.sentinel.slots.registry.capacity"
+SLOTS_MAX_STEALS = "csp.sentinel.slots.max.steals"
+SLOTS_HYSTERESIS_PCT = "csp.sentinel.slots.hysteresis.pct"
+SLOTS_SPILL_MAX = "csp.sentinel.slots.spill.max"
+SLOTS_STALE_SECONDS = "csp.sentinel.slots.stale.seconds"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_PROFILE_SYNC_EVERY = 64
@@ -38,6 +79,24 @@ DEFAULT_TELEMETRY_TRACE_SAMPLE_EVERY = 64
 DEFAULT_TELEMETRY_TRACE_CAPACITY = 256
 DEFAULT_PIPELINE_INFLIGHT_DEPTH = 2
 DEFAULT_PIPELINE_LINGER_US = 100
+DEFAULT_TELEMETRY_TIMESERIES_SECONDS = 128
+DEFAULT_TELEMETRY_TIMESERIES_HISTORY = 1024
+DEFAULT_CLUSTER_SHARD_SLICES = 64
+DEFAULT_POPULATION_TOPK = 64
+DEFAULT_POPULATION_CMS_DEPTH = 4
+DEFAULT_POPULATION_CMS_WIDTH = 512
+DEFAULT_POPULATION_HLL_PRECISION = 11
+DEFAULT_POPULATION_SLICE_PRECISION = 7
+DEFAULT_POPULATION_WINDOW_SECONDS = 10
+DEFAULT_POPULATION_CHURN_HISTORY = 360
+DEFAULT_POPULATION_BASELINE_ALPHA = 0.2
+DEFAULT_POPULATION_BASELINE_ZSCORE = 4.0
+DEFAULT_SLOTS_BUDGET = 0
+DEFAULT_SLOTS_REGISTRY_CAPACITY = 16384
+DEFAULT_SLOTS_MAX_STEALS = 8
+DEFAULT_SLOTS_HYSTERESIS_PCT = 20.0
+DEFAULT_SLOTS_SPILL_MAX = 4096
+DEFAULT_SLOTS_STALE_SECONDS = 30
 
 
 def _env_key(key: str) -> str:
@@ -67,6 +126,13 @@ class SentinelConfig:
         v = self.get(key)
         try:
             return int(v) if v is not None else default
+        except ValueError:
+            return default
+
+    def get_float(self, key: str, default: float) -> float:
+        v = self.get(key)
+        try:
+            return float(v) if v is not None else default
         except ValueError:
             return default
 
@@ -101,6 +167,86 @@ class SentinelConfig:
             if w > 0:
                 out.append(w)
         return tuple(out)
+
+    def cluster_shard_slices(self) -> int:
+        v = self.get_int(CLUSTER_SHARD_SLICES, DEFAULT_CLUSTER_SHARD_SLICES)
+        return v if v > 0 else DEFAULT_CLUSTER_SHARD_SLICES
+
+    # Namespace telescope (telemetry/population.py).
+
+    def population_enabled(self) -> bool:
+        return (self.get(POPULATION_ENABLED) or "true").lower() != "false"
+
+    def population_topk(self) -> int:
+        v = self.get_int(POPULATION_TOPK, DEFAULT_POPULATION_TOPK)
+        return v if v > 0 else DEFAULT_POPULATION_TOPK
+
+    def population_cms_depth(self) -> int:
+        v = self.get_int(POPULATION_CMS_DEPTH, DEFAULT_POPULATION_CMS_DEPTH)
+        return v if v > 0 else DEFAULT_POPULATION_CMS_DEPTH
+
+    def population_cms_width(self) -> int:
+        v = self.get_int(POPULATION_CMS_WIDTH, DEFAULT_POPULATION_CMS_WIDTH)
+        return v if v >= 8 else DEFAULT_POPULATION_CMS_WIDTH
+
+    def population_hll_precision(self) -> int:
+        v = self.get_int(POPULATION_HLL_PRECISION,
+                         DEFAULT_POPULATION_HLL_PRECISION)
+        return v if 4 <= v <= 16 else DEFAULT_POPULATION_HLL_PRECISION
+
+    def population_slice_precision(self) -> int:
+        v = self.get_int(POPULATION_SLICE_PRECISION,
+                         DEFAULT_POPULATION_SLICE_PRECISION)
+        return v if 4 <= v <= 16 else DEFAULT_POPULATION_SLICE_PRECISION
+
+    def population_window_seconds(self) -> int:
+        v = self.get_int(POPULATION_WINDOW_SECONDS,
+                         DEFAULT_POPULATION_WINDOW_SECONDS)
+        return v if v > 0 else DEFAULT_POPULATION_WINDOW_SECONDS
+
+    def population_churn_history(self) -> int:
+        v = self.get_int(POPULATION_CHURN_HISTORY,
+                         DEFAULT_POPULATION_CHURN_HISTORY)
+        return v if v > 0 else DEFAULT_POPULATION_CHURN_HISTORY
+
+    def population_baseline_alpha(self) -> float:
+        v = self.get_float(POPULATION_BASELINE_ALPHA,
+                           DEFAULT_POPULATION_BASELINE_ALPHA)
+        return v if 0.0 < v <= 1.0 else DEFAULT_POPULATION_BASELINE_ALPHA
+
+    def population_baseline_zscore(self) -> float:
+        v = self.get_float(POPULATION_BASELINE_ZSCORE,
+                           DEFAULT_POPULATION_BASELINE_ZSCORE)
+        return v if v > 0.0 else DEFAULT_POPULATION_BASELINE_ZSCORE
+
+    # Slot-table admission (core/slots.py): the only readers of the
+    # csp.sentinel.slots.* keys.
+
+    def slots_budget(self) -> int:
+        v = self.get_int(SLOTS_BUDGET, DEFAULT_SLOTS_BUDGET)
+        return v if v >= 0 else DEFAULT_SLOTS_BUDGET
+
+    def slots_registry_capacity(self) -> int:
+        v = self.get_int(SLOTS_REGISTRY_CAPACITY,
+                         DEFAULT_SLOTS_REGISTRY_CAPACITY)
+        return v if v > 0 else DEFAULT_SLOTS_REGISTRY_CAPACITY
+
+    def slots_max_steals(self) -> int:
+        v = self.get_int(SLOTS_MAX_STEALS, DEFAULT_SLOTS_MAX_STEALS)
+        return v if v > 0 else DEFAULT_SLOTS_MAX_STEALS
+
+    def slots_hysteresis_pct(self) -> float:
+        v = self.get_float(SLOTS_HYSTERESIS_PCT,
+                           DEFAULT_SLOTS_HYSTERESIS_PCT)
+        return v if v >= 0.0 else DEFAULT_SLOTS_HYSTERESIS_PCT
+
+    def slots_spill_max(self) -> int:
+        v = self.get_int(SLOTS_SPILL_MAX, DEFAULT_SLOTS_SPILL_MAX)
+        return v if v > 0 else DEFAULT_SLOTS_SPILL_MAX
+
+    def slots_stale_seconds(self) -> int:
+        v = self.get_int(SLOTS_STALE_SECONDS, DEFAULT_SLOTS_STALE_SECONDS)
+        return v if v > 0 else DEFAULT_SLOTS_STALE_SECONDS
 
     def reset_for_tests(self) -> None:
         with self._lock:

@@ -30,9 +30,24 @@ its verdicts to the decision-trace pump (``traces``,
 ``telemetry/trace_ring.py``). ``set_window_geometry`` and ``set_clock``
 retune the instant window and swap the timebase at runtime.
 
-What it does not have yet (later slices): the slot table, the cluster
-token check, shadow lanes and the flight recorder, SPI device checkers,
-checkpoints.
+The once-per-second fold: the state carries the flight-recorder ring by
+default (``csp.sentinel.telemetry.timeseries.seconds``, 128), written by
+the step at each second's fold; ``_spill_flight`` (run by
+``timeseries_view`` and ``population_report``) gathers the fresh ring
+slots into the host history (``telemetry/timeseries.py``), then rolls
+the namespace telescope (``telemetry/population.py``, fed from every
+entry dispatch), then runs the slot table's rebalance.
+
+Slot mode (``SentinelEngine(slot_budget=N)``, or
+``csp.sentinel.slots.budget``): the device state has N rows and the slot
+table (``core/slots.py``) maps the live hot set into them, evicting and
+rehydrating columns of the state; cold resources degrade to counted
+host-side passes (host-exact for leaseable rules). Slot mode runs without
+the pipeline, as in the reference.
+
+What it does not have yet (later slices): the cluster token check,
+shadow lanes, SPI device checkers, checkpoints, and the fold's SLO,
+waterfall, adaptive and stream hooks.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -62,7 +77,9 @@ from sentinel_tpu_torch.core.batch import (
     BATCH_WIDTHS, MAX_PARAMS, Decisions, EntryBatch, ExitBatch,
     make_entry_batch_np, make_exit_batch_np, stage_row, to_device)
 from sentinel_tpu_torch.core.config import (
-    DEFAULT_PROFILE_SYNC_EVERY, PROFILE_SYNC_EVERY, config)
+    DEFAULT_PROFILE_SYNC_EVERY, DEFAULT_TELEMETRY_TIMESERIES_HISTORY,
+    DEFAULT_TELEMETRY_TIMESERIES_SECONDS, PROFILE_SYNC_EVERY,
+    TELEMETRY_TIMESERIES_HISTORY, TELEMETRY_TIMESERIES_SECONDS, config)
 from sentinel_tpu_torch.core.exceptions import (
     BlockException, exception_for_reason)
 from sentinel_tpu_torch.core.registry import (
@@ -77,6 +94,9 @@ from sentinel_tpu_torch.models import system as Y
 from sentinel_tpu_torch.native import load_lease_ext
 from sentinel_tpu_torch.ops import step as S
 from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.telemetry.population import PopulationTracker
+from sentinel_tpu_torch.telemetry.timeseries import (
+    TimeseriesHistory, compact_second, page_newest_first, second_to_dict)
 from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
 from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import resolve_device
@@ -125,7 +145,7 @@ class EntryHandle:
     __slots__ = (
         "engine", "resource", "context", "cluster_row", "dn_row",
         "origin_row", "entry_in", "count", "created_ms", "error", "exited",
-        "params", "leased",
+        "params", "leased", "slot_gen",
     )
 
     def __init__(self, engine, resource, context, cluster_row, dn_row,
@@ -146,6 +166,9 @@ class EntryHandle:
         self.exited = False
         self.params = params
         self.leased = leased
+        # Slot mode: the tenancy generation the entry committed under, or
+        # slots.COLD_GEN for a cold-path entry; -1 outside slot mode.
+        self.slot_gen = -1
 
     def trace(self, ex: Optional[BaseException] = None) -> None:
         """Record a business exception (reference: ``Tracer.trace``)."""
@@ -176,7 +199,8 @@ class SentinelEngine:
     the state. Never take ``_config_lock`` while holding ``_lock``.
     """
 
-    def __init__(self, capacity: int = 4096, device=None, clock=None):
+    def __init__(self, capacity: int = 4096, device=None, clock=None,
+                 slot_budget: int = 0):
         self.device = resolve_device(device)
         # The one stream every dispatch and state read runs on (None on
         # the CPU).
@@ -186,8 +210,22 @@ class SentinelEngine:
 
             prefix_cuda.build()
             self._stream = torch.cuda.default_stream(self.device)
-        self.capacity = capacity
-        self.registry = NodeRegistry(capacity)
+        # Slot mode: slot_budget > 0 (or csp.sentinel.slots.budget) bounds
+        # the device state to ``budget`` rows and maps the live hot set
+        # into them (core/slots.py); the registry keeps the larger
+        # name table. 0 = fixed-capacity mode.
+        if not slot_budget:
+            slot_budget = config.slots_budget()
+        if slot_budget:
+            from sentinel_tpu_torch.core.slots import SlotTable
+
+            self.registry = NodeRegistry(config.slots_registry_capacity())
+            self.capacity = int(slot_budget)
+            self.slots = SlotTable(self, int(slot_budget))
+        else:
+            self.registry = NodeRegistry(capacity)
+            self.capacity = capacity
+            self.slots = None
         # None = the process clock (time_util, which tests may freeze); a
         # callable = this engine's private timebase.
         self._clock = clock
@@ -236,6 +274,19 @@ class SentinelEngine:
         self.step_timer = StepTimer(sync_every=sync_every)
         # Sampled decision traces, pulled off the device by a daemon pump.
         self.traces = DecisionTraceBuffer(self)
+        # Flight recorder: the device ring's length (0 = no ring tensors)
+        # and the compacted host history it spills into on reads; tees get
+        # each freshly spilled second rendered by ``second_to_dict``.
+        self.flight_seconds = max(0, config.get_int(
+            TELEMETRY_TIMESERIES_SECONDS,
+            DEFAULT_TELEMETRY_TIMESERIES_SECONDS))
+        self.timeseries = TimeseriesHistory(config.get_int(
+            TELEMETRY_TIMESERIES_HISTORY,
+            DEFAULT_TELEMETRY_TIMESERIES_HISTORY))
+        self._flight_tees: List = []
+        # Namespace telescope, fed from every entry dispatch and rolled by
+        # the spill fold.
+        self.population = PopulationTracker(self)
         # Pipelined admission (core/pipeline.py) and its counters summed
         # over pipeline generations (the live Pipeline dies with
         # stop_pipeline; the totals stay monotone).
@@ -274,7 +325,8 @@ class SentinelEngine:
         timebase.
 
         The cursors assume time never moves backward: ``_sealed_sec``
-        gates the metric log, and the signal and fail-open-log throttles
+        gates the metric log, ``timeseries.last_stamp_ms`` gates the
+        flight-recorder spill, and the signal and fail-open-log throttles
         hold last-read stamps. A timebase earlier than the old one would
         wedge them. The device state is dropped cold for the same reason
         (window bucket starts and the staged second carry old stamps);
@@ -288,9 +340,24 @@ class SentinelEngine:
             self._signals_refreshed_ms = 0
             self._fail_open_logged_ms = 0
             self._state = None  # _ensure_compiled rebuilds it
+            self.timeseries.clear()
             self._fastpath = _FastPathState({}, frozenset(),
                                             self.lease_enabled)
             self._rebuild_leases()
+        # The telescope's open churn window carries an old-timebase stamp;
+        # it resets outside the engine locks (it takes its own).
+        self.population.reset_timebase()
+
+    def add_flight_tee(self, fn) -> None:
+        """Subscribe ``fn(second_dict)`` to every freshly spilled complete
+        flight-recorder second."""
+        self._flight_tees.append(fn)
+
+    def remove_flight_tee(self, fn) -> None:
+        try:
+            self._flight_tees.remove(fn)
+        except ValueError:
+            pass
 
     def _on_stream(self):
         """Make the engine's stream current for a dispatch or a read."""
@@ -416,7 +483,7 @@ class SentinelEngine:
                 starts = state.w1.starts.cpu().numpy()
             rows = {}
             for res in targets:
-                row = self.registry.get_cluster_row(res)
+                row = self._device_row_of(res)
                 if row is not None:
                     rows[res] = row
         committer = self._committer
@@ -445,6 +512,7 @@ class SentinelEngine:
                 self._named_origins = F.named_origin_map(
                     self.flow_rules.get_rules(), self.registry)
             self._rebuild_leases()
+        self._slots_sync_pins()
 
     def _ratchet_slots(self, **tensors) -> None:
         for family, rt in tensors.items():
@@ -452,7 +520,7 @@ class SentinelEngine:
 
     def _compile_flow(self):
         ft, named = F.compile_flow_rules(
-            self.flow_rules.get_rules(), self.registry, self.capacity,
+            self.flow_rules.get_rules(), self._rule_registry(), self.capacity,
             min_slots=self._slot_floor["flow"], device=self.device)
         self._ratchet_slots(flow=ft)
         self._named_origins = {r: set(o) for r, o in named.items()}
@@ -460,21 +528,24 @@ class SentinelEngine:
 
     def _compile_degrade(self):
         dt, di = D.compile_degrade_rules(
-            self.degrade_rules.get_rules(), self.registry, self.capacity,
+            self.degrade_rules.get_rules(), self._rule_registry(),
+            self.capacity,
             min_slots=self._slot_floor["degrade"], device=self.device)
         self._ratchet_slots(degrade=dt)
         return dt, di
 
     def _compile_authority(self):
         at = A.compile_authority_rules(
-            self.authority_rules.get_rules(), self.registry, self.capacity,
+            self.authority_rules.get_rules(), self._rule_registry(),
+            self.capacity,
             min_slots=self._slot_floor["authority"], device=self.device)
         self._ratchet_slots(authority=at)
         return at
 
     def _compile_param(self):
         pt = P.compile_param_rules(
-            self.param_rules.get_rules(), self.registry, self.capacity,
+            self.param_rules.get_rules(), self._rule_registry(),
+            self.capacity,
             min_slots=self._slot_floor["param"], device=self.device)
         self._ratchet_slots(param=pt)
         return pt
@@ -502,7 +573,8 @@ class SentinelEngine:
                 self.capacity, ft.num_rules, now,
                 degrade=D.make_degrade_state(dt, di),
                 param=P.make_param_state(pt.num_rules, device=self.device),
-                spec1=self._spec1, device=self.device)
+                spec1=self._spec1, device=self.device,
+                flight_seconds=self.flight_seconds)
             self._maybe_start_system_listener()
             return
         if not any(self._dirty.values()):
@@ -567,6 +639,7 @@ class SentinelEngine:
             # pump reads it off this thread. The host staging columns are
             # read when the batch came as one.
             self.traces.submit(host if host is not None else batch, dec, now)
+            self._observe_population(host, batch)
         return dec
 
     def _run_entry_batch(self, batch) -> Decisions:
@@ -746,6 +819,12 @@ class SentinelEngine:
         keys. While it runs, the leases and the unruled pass stand down."""
         from sentinel_tpu_torch.core.pipeline import Pipeline
 
+        if self.slots is not None:
+            raise RuntimeError(
+                "pipelined admission is not supported in slot mode: the "
+                "pipeline resolves rows outside the slot-tenancy "
+                "re-validation protocol (run slot mode synchronous, or "
+                "fixed-capacity mode pipelined)")
         with self._lock:
             if self._pipeline is None:
                 with self._on_stream():
@@ -821,6 +900,12 @@ class SentinelEngine:
         if ctx.is_null or not self.enabled:
             return EntryHandle(self, resource, ctx, -1, -1, -1, entry_in,
                                count, ())
+        if self.slots is not None:
+            # Slot mode: hot resources take the lease / device machinery
+            # at their SLOT row, cold ones degrade loudly; nothing raises
+            # at capacity.
+            return self._slot_entry(resource, ctx, entry_type, count, args,
+                                    prioritized)
 
         reg = self.registry
         if ctx.entrance_row < 0:
@@ -985,6 +1070,11 @@ class SentinelEngine:
             ctx.entry_stack.pop()
         elif handle in ctx.entry_stack:
             ctx.entry_stack.remove(handle)
+        if self.slots is not None and handle.slot_gen != -1:
+            # Slot mode: generation-stamped exit accounting (current-slot
+            # device exit / spill-record decrement / cold tally).
+            self._slot_exit(handle, count)
+            return
         if handle.cluster_row < 0:
             ctx_mod.auto_exit_context()
             return
@@ -1056,7 +1146,7 @@ class SentinelEngine:
             w60 = W.rotate(self._state.w60, now, S.SPEC_60S)
             slices = w60.counts[idx].permute(2, 0, 1).cpu().numpy()
             threads = self._state.cur_threads.cpu().numpy()
-            metas = self.registry.meta
+            metas = self._device_metas()
         ev = [C.MetricEvent.PASS, C.MetricEvent.BLOCK,
               C.MetricEvent.SUCCESS, C.MetricEvent.EXCEPTION]
         active_rows, active_k = np.nonzero(slices[:, :, ev].any(axis=2))
@@ -1099,7 +1189,7 @@ class SentinelEngine:
         """Call tree rooted at machine-root (command API ``jsonTree``;
         reference: ``FetchJsonTreeCommandHandler``)."""
         totals, threads = self.row_stats()
-        metas = self.registry.meta
+        metas = self._device_metas()
 
         def render(row: int) -> Dict:
             m = metas[row]
@@ -1126,7 +1216,7 @@ class SentinelEngine:
         """Per-resource live stats (command-API ``cnode`` source)."""
         totals, threads = self.row_stats()
         out = {}
-        for res, row in self.registry.resources().items():
+        for res, row in self._device_resources().items():
             t = totals[row]
             succ = float(t[C.MetricEvent.SUCCESS])
             out[res] = {
@@ -1138,3 +1228,451 @@ class SentinelEngine:
                 "curThreadNum": int(threads[row]),
             }
         return out
+
+    # -- flight recorder and the once-per-second fold ------------------------
+
+    def _spill_flight(self, now_ms: Optional[int] = None) -> None:
+        """Pull completed seconds off the device ring into the host
+        history, then roll the telescope and run the slot table's
+        rebalance on the same fold (the reference's order; its SLO,
+        waterfall, adaptive and stream hooks are not ported). The ring
+        read gathers ONLY the slots newer than the last spilled stamp, in
+        one gather and one device-to-host copy under the engine lock."""
+        now = now_ms if now_ms is not None else self.now_ms()
+        fresh = []
+        with self._lock, self._on_stream():
+            self._ensure_compiled()
+            state = self._state
+            if state is not None and state.flight is not None:
+                # Fold any completed staged second into the ring first, so
+                # a read right after a second boundary sees that second.
+                self._state = state = S.flush_seconds(state, now)
+                ring = state.flight
+                stamps = ring.stamps.cpu().numpy()
+                last = self.timeseries.last_stamp_ms
+                fresh = sorted((int(s), i) for i, s in
+                               enumerate(stamps.tolist())
+                               if s >= 0 and s > last)
+                if fresh:
+                    idx = torch.tensor([i for _, i in fresh],
+                                       dtype=torch.long, device=self.device)
+                    parts = [ring.events[idx], ring.attr[idx],
+                             ring.hist[idx], ring.slot_attr[idx]]
+                    k = len(fresh)
+                    host = torch.cat([p.reshape(k, -1) for p in parts],
+                                     dim=1).cpu().numpy()
+                    cut = np.cumsum([0] + [p[0].numel() for p in parts])
+                    ev, attr, hist, slot = (
+                        host[:, cut[j]:cut[j + 1]].reshape(
+                            (k,) + tuple(parts[j].shape[1:]))
+                        for j in range(4))
+        metas = self._device_metas()
+        slots_tbl = self.slots
+        for j, (stamp, _i) in enumerate(fresh):
+            rec = compact_second(stamp, ev[j], attr[j], hist[j], slot[j])
+            self.timeseries.append(rec)
+            if slots_tbl is not None:
+                # Pin the tenancy this second spilled under: history renders
+                # a reused slot's PAST seconds under the evicted occupant.
+                slots_tbl.remember_metas(stamp, metas)
+            if self._flight_tees:
+                sec_dict = second_to_dict(rec, metas)
+                for tee in list(self._flight_tees):
+                    try:
+                        tee(sec_dict)
+                    except Exception:  # noqa: BLE001 — a tee can't stall spill
+                        record_log.warn("flight tee %r failed; detaching",
+                                        tee)
+                        self.remove_flight_tee(tee)
+        # The telescope folds its staged observations on the same cadence;
+        # the slot table's rebalance follows (the telescope's top-k ranks
+        # the challengers), 1/s-throttled and freeze-gated inside.
+        self.population.roll(now)
+        if slots_tbl is not None:
+            slots_tbl.on_spill(now)
+
+    def _observe_population(self, host, batch) -> None:
+        """Stage one admission batch's (row, tokens) traffic for the
+        telescope: from the host staging dict when the batch came as one,
+        else from the CPU tensors, else (device tensors) by non-blocking
+        copies into pinned memory behind an event that the fold waits on.
+        No device dispatch and no host sync on the dispatch path."""
+        population = self.population
+        if not population.enabled or self.slots is not None:
+            # Slot mode observes at RESOURCE grain in _slot_entry (cold
+            # entries never reach a device batch).
+            return
+        metas = self.registry.meta
+        if host is not None:
+            population.observe_rows(host["cluster_row"], host["count"],
+                                    metas)
+        elif batch.cluster_row.device.type == "cpu":
+            population.observe_rows(batch.cluster_row.numpy(),
+                                    batch.count.numpy(), metas)
+        else:
+            cols = []
+            for t in (batch.cluster_row, batch.count):
+                pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                pinned.copy_(t, non_blocking=True)
+                cols.append(pinned)
+            event = torch.cuda.Event()
+            event.record()
+            population.observe_rows_staged(cols[0], cols[1], event, metas)
+
+    def population_report(self, slot_budget: int = 1024,
+                          now_ms: Optional[int] = None) -> Dict:
+        """Admission-readiness projection for a hypothetical slot budget:
+        bring the telescope current on the fold it rides, then project
+        the hot-set hit rate, eviction rate and cold-tail mass."""
+        self._flush_committer()
+        self._spill_flight(now_ms)
+        return self.population.report(slot_budget)
+
+    def timeseries_view(self, resource: Optional[str] = None,
+                        start_ms: Optional[int] = None,
+                        end_ms: Optional[int] = None,
+                        limit: Optional[int] = None,
+                        offset: int = 0,
+                        now_ms: Optional[int] = None) -> Dict:
+        """Exact per-second telemetry series within the host retention.
+
+        Seconds return in chronological order; ``offset`` / ``limit``
+        paginate newest-first (offset 0 ends at the most recent complete
+        second). ``resource`` filters each second's per-resource map.
+        ``now_ms`` drives the fold boundary (the in-progress second stays
+        staged). Runs the fold: the committer's flush, then
+        ``_spill_flight``."""
+        self._flush_committer()  # leased commits land before the fold
+        self._spill_flight(now_ms)
+        recs = self.timeseries.query(start_ms, end_ms)
+        metas = self._device_metas()
+        slots_tbl = self.slots
+        if resource is not None and slots_tbl is None:
+            row = self._device_row_of(resource)
+            recs = ([r for r in recs if row in r.rows]
+                    if row is not None else [])
+        total = len(recs)
+        recs = page_newest_first(recs, limit, offset)
+        if slots_tbl is None:
+            seconds = [second_to_dict(r, metas, resource) for r in recs]
+        else:
+            # Each second renders under the tenancy it was RECORDED under.
+            seconds = [
+                second_to_dict(
+                    r, slots_tbl.recall_metas(r.stamp_ms) or metas, resource)
+                for r in recs]
+            if resource is not None:
+                seconds = [s for s in seconds if s.get("resources")]
+        return {
+            "seconds": seconds,
+            "total": total,
+            "retainedSeconds": self.timeseries.retained(),
+            "recorderSeconds": self.flight_seconds,
+        }
+
+    # -- slot-table admission (core/slots.py) --------------------------------
+
+    def _slot_entry(self, resource: str, ctx, entry_type: int, count: int,
+                    args: Sequence, prioritized: bool) -> EntryHandle:
+        """entry() in slot mode. Hot resources run the lease / device
+        machinery at their slot row; cold-tail resources degrade LOUDLY:
+        leaseable-ruled -> host-exact lease verdict, everything else ->
+        counted pass (unenforced if device-only-ruled). Handles carry
+        (slot, generation) so exits never land on a reused slot's
+        successor."""
+        from sentinel_tpu_torch.core.slots import COLD_GEN
+
+        slots = self.slots
+        entry_in = entry_type == C.EntryType.IN
+        params = tuple(hash_param(a) for a in args[:MAX_PARAMS]) \
+            if args else ()
+        now = self.now_ms()
+        # Intern the name host-side: metadata only, never a device row.
+        # Past registry capacity this degrades loudly (overflow counter).
+        self.registry.cluster_row(resource, int(entry_type))
+        # The telescope drives admit / steal, so it sees EVERY entry at
+        # resource grain; cold ones never reach a device batch.
+        population = self.population
+        if population.enabled:
+            population.observe_pairs(((resource, count),))
+        cur = slots.current(resource)
+        if cur is None:
+            cur = slots.try_admit(resource, now)
+        fp = self._fastpath
+        lease = fp.leases.get(resource)
+
+        if cur is None:
+            # ---- cold tail: no slot, no raise ---------------------------
+            if lease is not None:
+                # Host-exact verdict through the lease: eviction costs
+                # stats continuity, never rule fidelity.
+                block_reason = lease.admit(count, now, params)
+                if block_reason:
+                    slots.cold_block(resource, count)
+                    slots.note_verdict(resource, -1, COLD_GEN, now // 1000,
+                                       "block", block_reason)
+                    ctx_mod.auto_exit_context()
+                    ex = exception_for_reason(block_reason, resource)
+                    log_block(resource, type(ex).__name__, ctx.origin,
+                              count, now)
+                    raise ex
+                slots.cold_pass(resource, count)
+            else:
+                unenforced = resource in fp.guarded or not fp.unruled
+                slots.cold_pass(resource, count, unenforced=unenforced)
+            slots.note_verdict(resource, -1, COLD_GEN, now // 1000,
+                               "pass", 0)
+            handle = EntryHandle(self, resource, ctx, -1, -1, -1, entry_in,
+                                 count, params, now_ms=now)
+            handle.slot_gen = COLD_GEN
+            ctx.entry_stack.append(handle)
+            return handle
+
+        slots.hot_hits_total += 1
+        slot, gen = cur
+        fast_ok = (not self._spi.host_slots()
+                   and not self._spi.device_checkers())
+        if lease is not None and not prioritized and fast_ok:
+            # ---- leased-hot: host verdict, committer commit -------------
+            block_reason = lease.admit(count, now, params)
+            # Committer BEFORE gate: its lazy construction takes _lock,
+            # and the lock order is _lock -> gate, never the reverse.
+            committer = self._ensure_committer()
+            with slots.gate:
+                cur2 = slots._hot.get(resource)
+                if cur2 is not None:
+                    # Re-translated under the gate: the enqueue can never
+                    # target a slot whose tenancy already changed.
+                    committer.add_entry(cur2[0], -1, -1, entry_in, count,
+                                        block_reason == 0, block_reason)
+                    slot, gen = cur2
+            if cur2 is None:
+                # Evicted between translation and enqueue: the verdict
+                # stands (host-exact), the stats tally cold.
+                if block_reason:
+                    slots.cold_block(resource, count)
+                else:
+                    slots.cold_pass(resource, count)
+            if block_reason:
+                slots.note_verdict(resource, slot if cur2 else -1,
+                                   gen if cur2 else COLD_GEN, now // 1000,
+                                   "block", block_reason)
+                ctx_mod.auto_exit_context()
+                ex = exception_for_reason(block_reason, resource)
+                log_block(resource, type(ex).__name__, ctx.origin, count,
+                          now)
+                raise ex
+            slots.note_verdict(resource, slot if cur2 else -1,
+                               gen if cur2 else COLD_GEN, now // 1000,
+                               "pass", 0)
+            handle = EntryHandle(self, resource, ctx,
+                                 cur2[0] if cur2 else -1, -1, -1, entry_in,
+                                 count, params, leased=cur2 is not None,
+                                 now_ms=now)
+            handle.slot_gen = gen if cur2 else COLD_GEN
+            ctx.entry_stack.append(handle)
+            return handle
+
+        # ---- device path at the slot row --------------------------------
+        # SPI host slots keep their veto: a BlockException pre-blocks the
+        # device commit.
+        pre_blocked = False
+        custom_ex = None
+        spi_slots = self._spi.host_slots()
+        if spi_slots:
+            info = self._spi.EntryInfo(
+                resource=resource, origin=ctx.origin, count=count,
+                entry_type=int(entry_type), prioritized=prioritized,
+                args=tuple(args), context_name=ctx.name)
+            for spi_slot in spi_slots:
+                try:
+                    spi_slot.on_entry(info)
+                except BlockException as ex:
+                    custom_ex, pre_blocked = ex, True
+                    break
+                except Exception:
+                    ctx_mod.auto_exit_context()
+                    raise
+        if lease is not None:
+            # Pending leased commits must land before the device check.
+            self._flush_committer()
+        oid = self.registry.origin_id(ctx.origin)
+        # No cluster token check in this package yet: every lane is local.
+        fields = dict(
+            cluster_row=-1, dn_row=-1, origin_row=-1, origin_id=oid,
+            origin_named=oid in self._named_origins.get(resource, ()),
+            context_id=self.registry.context_id(ctx.name), count=count,
+            prioritized=prioritized, entry_in=entry_in, skip_cluster=False,
+            pre_blocked=pre_blocked, params=params)
+        reason, wait_us, cur2 = self._slot_submit(resource, fields)
+        if custom_ex is not None:
+            ctx_mod.auto_exit_context()
+            log_block(resource, type(custom_ex).__name__, ctx.origin,
+                      count, now)
+            raise custom_ex
+        if cur2 is None:
+            # Tenancy changed between translation and dispatch: nothing
+            # committed; serve the entry as a counted cold pass.
+            slots.cold_pass(resource, count)
+            slots.note_verdict(resource, -1, COLD_GEN, now // 1000,
+                               "pass", 0)
+            handle = EntryHandle(self, resource, ctx, -1, -1, -1, entry_in,
+                                 count, params, now_ms=now)
+            handle.slot_gen = COLD_GEN
+            ctx.entry_stack.append(handle)
+            return handle
+        slot, gen = cur2
+        if reason > 0 and reason != C.BlockReason.WAIT:
+            slots.note_verdict(resource, slot, gen, now // 1000, "block",
+                               int(reason))
+            ctx_mod.auto_exit_context()
+            ex = exception_for_reason(reason, resource)
+            log_block(resource, type(ex).__name__, ctx.origin, count,
+                      self.now_ms())
+            raise ex
+        if wait_us > 0:
+            time.sleep(wait_us / 1e6)
+        if lease is not None:
+            lease.add(count, self.now_ms(), params)
+        slots.note_verdict(resource, slot, gen, now // 1000, "pass", 0)
+        handle = EntryHandle(self, resource, ctx, slot, -1, -1, entry_in,
+                             count, params, now_ms=now)
+        handle.slot_gen = gen
+        ctx.entry_stack.append(handle)
+        return handle
+
+    def _slot_submit(self, resource: str, fields: Dict
+                     ) -> Tuple[int, int, Optional[Tuple[int, int]]]:
+        """Width-1 device dispatch with in-lock tenancy re-validation: the
+        slot row is resolved INSIDE ``_lock`` (the surgery holds it), so a
+        commit only lands under live tenancy. Returns (reason, wait_us,
+        (slot, gen) committed under); (0, 0, None) when the resource went
+        cold first (nothing committed)."""
+        with self._lock:
+            cur = self.slots.current(resource)
+            if cur is None:
+                return 0, 0, None
+            buf = make_entry_batch_np(1)
+            stage_row(buf, 0, dict(fields, cluster_row=cur[0]))
+            try:
+                dec = self._run_entry_batch_locked(buf)
+            except DeviceDispatchError as ex:
+                self._note_fail_open(str(ex))
+                return 0, 0, cur
+            return int(dec.reason[0]), int(dec.wait_us[0]), cur
+
+    def _slot_exit(self, handle: EntryHandle, count: int) -> None:
+        """_do_exit in slot mode. A resource hot NOW (any generation)
+        exits at its CURRENT slot; evicted-and-still-cold exits decrement
+        the spill record and tally host-side; cold-path entries always
+        tally host-side."""
+        from sentinel_tpu_torch.core.slots import COLD_GEN
+
+        slots = self.slots
+        now = self.now_ms()
+        rt = min(max(0, now - handle.created_ms), C.DEFAULT_MAX_RT_MS)
+        if handle.slot_gen == COLD_GEN:
+            slots.cold_exit(handle.resource, count, rt, handle.error)
+            ctx_mod.auto_exit_context()
+            return
+        committer = self._committer  # one read: close() nulls it
+        if handle.leased and committer is not None:
+            with slots.gate:
+                cur = slots._hot.get(handle.resource)
+                if cur is not None:
+                    committer.add_exit(cur[0], -1, -1, handle.entry_in,
+                                       count, rt, True, handle.error)
+            if cur is None:
+                slots.evicted_exit(handle.resource, count, rt,
+                                   handle.error, now)
+            ctx_mod.auto_exit_context()
+            return
+        with self._lock:
+            cur = slots.current(handle.resource)
+            if cur is not None:
+                buf = make_exit_batch_np(1)
+                stage_row(buf, 0, dict(
+                    cluster_row=cur[0], dn_row=-1, origin_row=-1,
+                    entry_in=handle.entry_in, count=count, rt_ms=rt,
+                    success=True, error=handle.error, params=handle.params))
+                try:
+                    self._run_exit_batch(buf)
+                except DeviceDispatchError as ex:
+                    self._note_fail_open(str(ex))
+        if cur is None:
+            slots.evicted_exit(handle.resource, count, rt, handle.error,
+                               now)
+        ctx_mod.auto_exit_context()
+
+    def _device_metas(self):
+        """Row-indexed meta view of the DEVICE state: the registry in
+        fixed-capacity mode, the slot table's tenancy view in slot mode.
+        Every reader that renders device rows to names reads through
+        here, so a reused slot renders as its CURRENT occupant only."""
+        slots = self.slots
+        return self.registry.meta if slots is None else slots.device_metas()
+
+    def _device_resources(self) -> Dict[str, int]:
+        """resource -> device row of everything with a live device row."""
+        slots = self.slots
+        return self.registry.resources() if slots is None \
+            else slots.resources()
+
+    def _device_row_of(self, resource: str) -> Optional[int]:
+        """Current device row of one resource, or None (cold / never
+        registered)."""
+        slots = self.slots
+        if slots is None:
+            return self.registry.get_cluster_row(resource)
+        return slots.device_row(resource)
+
+    def _rule_registry(self):
+        """What the rule compilers resolve rows through: the registry in
+        fixed-capacity mode, the slot table's facade in slot mode (a cold
+        ruled resource compiles inert; the pins prevent that outside a
+        pin overflow)."""
+        slots = self.slots
+        return self.registry if slots is None else slots.rule_registry_view()
+
+    def _slot_pinned_resources(self) -> set:
+        """Resources the compiled rules target: PINNED hot, since the rule
+        tensors hold their slot indices. A staged rollout candidate's
+        rules would pin too; this package has no rollout yet."""
+        if self.slots is None:
+            return set()
+        pinned: set = set()
+
+        def _add(rules) -> None:
+            for r in rules:
+                res = getattr(r, "resource", "")
+                if res:
+                    pinned.add(res)
+                ref = getattr(r, "ref_resource", "")
+                if ref:
+                    pinned.add(ref)
+
+        _add(self.flow_rules.get_rules())
+        _add(self.degrade_rules.get_rules())
+        _add(self.param_rules.get_rules())
+        _add(self.authority_rules.get_rules())
+        rollout = getattr(self, "rollout", None)
+        spec = rollout.device_spec() if rollout is not None else None
+        if spec:
+            for fam in ("flow", "degrade", "authority", "param"):
+                _add(spec.get(fam) or ())
+        return pinned
+
+    def _slots_sync_pins(self) -> None:
+        """Config-plane hook on every rule push: admit (stealing if
+        needed) every newly ruled resource BEFORE its rules compile. If
+        pinning changed occupancy, every family re-dirties: the next
+        dispatch recompiles against the final mapping."""
+        slots = self.slots
+        if slots is None:
+            return
+        before = slots.admits_total
+        slots.ensure_pinned(self._slot_pinned_resources(), self.now_ms())
+        if slots.admits_total != before:
+            with self._config_lock:
+                for fam in ("flow", "degrade", "authority", "param"):
+                    self._dirty[fam] = True

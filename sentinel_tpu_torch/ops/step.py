@@ -17,14 +17,20 @@ param gauges.
 The JAX state is donated every step; here the step CONSUMES its input
 state: the minute window, the second staging, the telemetry staging and
 the param-flow tables are updated in place, the small tensors are
-replaced. Callers keep only the returned state. The staged-rollout shadow
-lanes and the flight recorder of the JAX step (``None`` unless asked for)
-are not part of this package yet, and the step takes no such arguments.
+replaced. Callers keep only the returned state.
+
+The flight recorder (``state.flight``, a per-second ring of the staged
+second's deltas) is written at the once-per-second fold in
+``_roll_second``. A bare ``make_state`` leaves it ``None`` unless
+``flight_seconds`` is given; the engine asks for it by default
+(``csp.sentinel.telemetry.timeseries.seconds``, 128), as the reference
+engine does. The staged-rollout shadow lanes are not part of this package
+yet, and the step takes no such arguments.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,6 +94,37 @@ def make_telemetry_state(num_rows: int, device) -> TelemetryState:
     )
 
 
+class FlightRecorder(NamedTuple):
+    """Device-resident per-second telemetry ring (the flight recorder).
+
+    One slot per second, indexed ``(second_start_ms // 1000) % ring``:
+    each holds that second's exact deltas, the tensors the
+    ``_roll_second`` fold already stages (``sec.counts`` and the
+    attribution / histogram / slot staging), copied in place at the fold,
+    at most once per second. ``stamps`` holds each slot's second-start ms
+    (-1 = never written); a reader checks the stamp before trusting a
+    slot. The host spill and the longer history are in
+    ``telemetry/timeseries.py``."""
+
+    stamps: torch.Tensor     # int64[RING] second-start ms per slot; -1 unset
+    events: torch.Tensor     # int32[RING, NUM_EVENTS, R] per-second deltas
+    attr: torch.Tensor       # int32[RING, NUM_ATTR_REASONS, R]
+    hist: torch.Tensor       # int32[RING, NUM_RT_BUCKETS, R]
+    slot_attr: torch.Tensor  # int32[RING, NUM_ATTR_REASONS, NUM_SLOT_BINS]
+
+
+def make_flight_recorder(num_rows: int, seconds: int,
+                         device) -> FlightRecorder:
+    z = lambda shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    return FlightRecorder(
+        stamps=torch.full((seconds,), -1, dtype=torch.int64, device=device),
+        events=z((seconds, C.NUM_EVENTS, num_rows)),
+        attr=z((seconds, NUM_ATTR_REASONS, num_rows)),
+        hist=z((seconds, NUM_RT_BUCKETS, num_rows)),
+        slot_attr=z((seconds, NUM_ATTR_REASONS, NUM_SLOT_BINS)),
+    )
+
+
 class SentinelState(NamedTuple):
     """All mutable device state, consumed and returned by every step."""
 
@@ -102,6 +139,9 @@ class SentinelState(NamedTuple):
     occupied_next: torch.Tensor   # int32[R] pending occupy borrows per row
     occupied_stamp: torch.Tensor  # int64[] w1 bucket-start of the grants
     telemetry: TelemetryState
+    # The per-second flight-recorder ring, or None when recording is off
+    # (the default of a bare make_state). Written only at the fold.
+    flight: Optional[FlightRecorder] = None
 
 
 class RulePack(NamedTuple):
@@ -118,7 +158,7 @@ def make_state(num_rows: int, flow_rules: int, now_ms: int,
                degrade: D.DegradeState = None,
                param: P.ParamFlowState = None,
                spec1: W.WindowSpec = SPEC_1S,
-               device=None) -> SentinelState:
+               device=None, flight_seconds: int = 0) -> SentinelState:
     device = resolve_device(device)
     if degrade is None:
         dt, di = D.compile_degrade_rules([], None, num_rows, device=device)
@@ -145,27 +185,40 @@ def make_state(num_rows: int, flow_rules: int, now_ms: int,
                                   device=device),
         occupied_stamp=torch.tensor(-1, dtype=torch.int64, device=device),
         telemetry=make_telemetry_state(num_rows, device),
+        flight=(make_flight_recorder(num_rows, flight_seconds, device)
+                if flight_seconds > 0 else None),
     )
 
 
 def _roll_second(w60: W.Window, sec: SecondAccum, telemetry: TelemetryState,
-                 now_ms: int
-                 ) -> Tuple[W.Window, SecondAccum, TelemetryState]:
+                 flight: Optional[FlightRecorder], now_ms: int
+                 ) -> Tuple[W.Window, SecondAccum, TelemetryState,
+                            Optional[FlightRecorder]]:
     """Fold the staged second into the minute window if the second rolled
-    (IN PLACE on all three). The fold freshens only the stamped bucket and
+    (IN PLACE on all four). The fold freshens only the stamped bucket and
     lands the whole [E, R] delta with one dense add; the cumulative
-    telemetry counters fold from the same pre-reset staging. One counted
-    sync reads the stamp."""
+    telemetry counters fold from the same pre-reset staging, and the
+    flight recorder (when present) copies that pre-reset staging into the
+    completed second's ring slot first. One counted sync reads the stamp;
+    the ring write rides the same branch."""
     now = int(now_ms)
     sec_start = now - now % SPEC_60S.bucket_ms
     SYNCS.count += 1
     stamp = int(sec.stamp)
     if stamp >= 0 and stamp != sec_start:
+        t = telemetry
+        if flight is not None:
+            # Slot of the COMPLETED second (the stamp, not sec_start).
+            i = (stamp // SPEC_60S.bucket_ms) % flight.stamps.shape[0]
+            flight.stamps[i] = stamp
+            flight.events[i].copy_(sec.counts)
+            flight.attr[i].copy_(t.stage_attr)
+            flight.hist[i].copy_(t.stage_hist)
+            flight.slot_attr[i].copy_(t.stage_slot)
         W.rotate_current(w60, stamp, SPEC_60S)
         idx = W.current_index(stamp, SPEC_60S)
         w60.counts[idx] += sec.counts
         w60.min_rt[idx] = torch.minimum(w60.min_rt[idx], sec.min_rt)
-        t = telemetry
         t.block_by_reason.add_(t.stage_attr)
         t.rt_hist.add_(t.stage_hist)
         t.totals.add_(sec.counts)
@@ -176,15 +229,16 @@ def _roll_second(w60: W.Window, sec: SecondAccum, telemetry: TelemetryState,
         sec.counts.zero_()
         sec.min_rt.fill_(W.MIN_RT_EMPTY)
     sec.stamp.fill_(sec_start)
-    return w60, sec, telemetry
+    return w60, sec, telemetry, flight
 
 
 def flush_seconds(state: SentinelState, now_ms: int) -> SentinelState:
-    """Host-boundary flush: fold any completed staged second into ``w60``
-    and the cumulative telemetry counters (in place)."""
-    w60, sec, telemetry = _roll_second(state.w60, state.sec, state.telemetry,
-                                       now_ms)
-    return state._replace(w60=w60, sec=sec, telemetry=telemetry)
+    """Host-boundary flush: fold any completed staged second into ``w60``,
+    the cumulative telemetry counters and the flight ring (in place)."""
+    w60, sec, telemetry, flight = _roll_second(
+        state.w60, state.sec, state.telemetry, state.flight, now_ms)
+    return state._replace(w60=w60, sec=sec, telemetry=telemetry,
+                          flight=flight)
 
 
 def _target_rows(cluster_row, dn_row, origin_row, entry_in):
@@ -241,8 +295,9 @@ def entry_step(
     """One admission step; consumes ``state``."""
     now_ms = int(now_ms)
     w1 = W.rotate(state.w1, now_ms, spec1)
-    w60, sec, tele = _roll_second(state.w60, state.sec, state.telemetry,
-                                  now_ms)
+    w60, sec, tele, flight = _roll_second(state.w60, state.sec,
+                                          state.telemetry, state.flight,
+                                          now_ms)
 
     # Land pending occupy borrows once the bucket after the granting one
     # is current; a jump of 2+ buckets drops them.
@@ -353,7 +408,7 @@ def entry_step(
                               sys_signals=state.sys_signals, sec=sec,
                               occupied_next=occupied_next,
                               occupied_stamp=occupied_stamp,
-                              telemetry=tele)
+                              telemetry=tele, flight=flight)
     return new_state, Decisions(reason=reason, wait_us=wait_us,
                                 rule_slot=rule_slot)
 
@@ -370,8 +425,9 @@ def exit_step(
     ``state``."""
     now_ms = int(now_ms)
     w1 = W.rotate(state.w1, now_ms, spec1)
-    w60, sec, tele = _roll_second(state.w60, state.sec, state.telemetry,
-                                  now_ms)
+    w60, sec, tele, flight = _roll_second(state.w60, state.sec,
+                                          state.telemetry, state.flight,
+                                          now_ms)
 
     valid = batch.cluster_row >= 0
     rows4 = _target_rows(batch.cluster_row, batch.dn_row, batch.origin_row,
@@ -416,4 +472,4 @@ def exit_step(
 
     return state._replace(w1=w1, w60=w60, cur_threads=cur_threads,
                           degrade=degrade, param=param, sec=sec,
-                          telemetry=tele)
+                          telemetry=tele, flight=flight)

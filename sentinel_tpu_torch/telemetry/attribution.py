@@ -26,6 +26,8 @@ ATTR_REASON_VALUES: Tuple[int, ...] = (
     int(C.BlockReason.PARAM_FLOW),
     int(C.BlockReason.CUSTOM),
 )
+ATTR_REASON_NAMES: Tuple[str, ...] = tuple(
+    C.BlockReason(v).name for v in ATTR_REASON_VALUES)
 NUM_ATTR_REASONS = len(ATTR_REASON_VALUES)
 
 # Channel index for a BlockReason value (-1 for PASS / WAIT).
@@ -68,12 +70,28 @@ SLOT_BIN_MAX_EXACT = 8                     # bins 0..7 are exact slot indices
 SLOT_BIN_OVERFLOW = SLOT_BIN_MAX_EXACT     # slot >= 8
 SLOT_BIN_UNKNOWN = SLOT_BIN_MAX_EXACT + 1  # slot -1 (remote / unattributed)
 NUM_SLOT_BINS = SLOT_BIN_MAX_EXACT + 2
+SLOT_BIN_LABELS: Tuple[str, ...] = tuple(
+    [str(i) for i in range(SLOT_BIN_MAX_EXACT)] + ["8+", "unknown"])
 
 
 def slot_bin_index(slot: torch.Tensor) -> torch.Tensor:
     """int32[N] slot bin per rule-slot value."""
     binned = torch.clamp(slot, max=SLOT_BIN_OVERFLOW)
     return torch.where(slot < 0, SLOT_BIN_UNKNOWN, binned).to(torch.int32)
+
+
+def slot_bins_to_dict(arr) -> dict:
+    """[NUM_ATTR_REASONS, NUM_SLOT_BINS] counts -> {reason: {label:
+    count}}, zero bins and empty reasons skipped (the one rendering of the
+    (reason, slot) split the JSON surfaces share)."""
+    out = {}
+    for ch, reason in enumerate(ATTR_REASON_NAMES):
+        bins = {SLOT_BIN_LABELS[b]: int(arr[ch, b])
+                for b in range(min(arr.shape[1], NUM_SLOT_BINS))
+                if arr[ch, b]}
+        if bins:
+            out[reason] = bins
+    return out
 
 
 RT_BUCKET_EDGES_MS: Tuple[int, ...] = (

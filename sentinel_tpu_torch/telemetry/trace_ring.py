@@ -200,7 +200,7 @@ class DecisionTraceBuffer:
         counts = _host(cols["count"])
         entry_in = _host(cols["entry_in"])
         window = self._window_snapshot([int(rows[i]) for i in picked])
-        metas = self.engine.registry.meta
+        metas = self.engine._device_metas()
         for i in picked:
             row = int(rows[i])
             orow = int(origin_rows[i])

@@ -130,10 +130,9 @@ def test_batch_api_matches_jax_engine():
             xbuf = sc.exit_batch(rng, ebuf, reason, width)
             jeng.complete_batch(jax_exit(xbuf))
             peng.complete_batch(xbuf)
+        # Both engines keep the per-second flight recorder by default.
         want = jax_to_np(jeng._state)
-        # The JAX engine keeps a per-second flight recorder by default;
-        # the port has none yet (a later slice).
-        want.pop("flight", None)
+        assert "flight" in want
         assert_tree_equal(want, port_np(peng.state))
         assert_tree_equal(jax_to_np(jeng._rules), port_np(peng.rules))
     finally:

@@ -479,3 +479,146 @@ def test_retune_resets_the_window_on_the_card(api, frozen):
     assert int(eng.state.occupied_stamp) == -1
     got = [api.entry_ok("geo") is not None for _ in range(7)]
     assert got == [True] * 5 + [False] * 2
+
+
+# -- the once-per-second fold on the card ------------------------------------
+
+
+def _fold_run(dev, rounds=12, width=64, flight=None):
+    """Batches across second boundaries on a fresh engine; (timeseries
+    view, state as numpy, host syncs of the steps, step dispatches)."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core.batch import (
+        make_entry_batch_np, make_exit_batch_np)
+    from sentinel_tpu_torch.core.config import (
+        TELEMETRY_TIMESERIES_SECONDS, config)
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.models import flow as F
+    from sentinel_tpu_torch.utils.device import SYNCS
+
+    if flight is not None:
+        config.set(TELEMETRY_TIMESERIES_SECONDS, str(flight))
+    try:
+        now = [1_700_000_000_000]
+        eng = SentinelEngine(capacity=256, device=dev, clock=lambda: now[0])
+    finally:
+        config.set(TELEMETRY_TIMESERIES_SECONDS, "")
+    rows = [eng.registry.cluster_row(f"f{i}") for i in range(20)]
+    eng.flow_rules.load_rules([F.FlowRule(f"f{i}", count=3)
+                               for i in range(0, 20, 2)])
+    rng = np.random.default_rng(3)
+    eng.warmup((width,))
+    SYNCS.count = 0
+    for _ in range(rounds):
+        now[0] += 310
+        b = make_entry_batch_np(width)
+        b["cluster_row"][:] = rng.choice(rows, size=width)
+        reason = eng.harvest_decisions(eng.check_batch(b))[0]
+        x = make_exit_batch_np(width)
+        x["cluster_row"][:] = np.where(reason == 0, b["cluster_row"], -1)
+        x["count"][:] = 1
+        x["success"][:] = reason == 0
+        x["rt_ms"][:] = rng.integers(1, 900, size=width)
+        eng.complete_batch(x)
+    syncs = SYNCS.count
+    dispatches = {k: v["dispatches"]
+                  for k, v in eng.step_timer.snapshot().items()}
+    view = eng.timeseries_view(now_ms=now[0])
+    state = convert.state_to_numpy(eng.state)
+    eng.close()
+    return view, state, syncs, dispatches
+
+
+def test_flight_ring_and_spill_on_cuda_equal_cpu(cuda):
+    from chip_smoke import compare_states
+
+    cv, cuda_state, _, _ = _fold_run(cuda)
+    pv, cpu_state, _, _ = _fold_run(torch.device("cpu"))
+    assert len(cv["seconds"]) >= 2
+    assert cv == pv
+    assert "flight" in cuda_state
+    compare_states(cuda_state, cpu_state)
+
+
+def test_flight_ring_fold_adds_no_host_sync(cuda):
+    _, with_ring, syncs_on, disp_on = _fold_run(cuda)
+    _, without, syncs_off, disp_off = _fold_run(cuda, flight=0)
+    assert "flight" in with_ring and "flight" not in without
+    assert syncs_on == syncs_off
+    assert disp_on == disp_off
+
+
+def test_slot_surgeries_on_cuda_equal_cpu(cuda):
+    """The reference's oracle at budget 8 on both devices: the state after
+    every surgery (spill, zero, graft, ring columns zeroed) is equal."""
+    import random
+
+    import chip_smoke as cs
+    from sentinel_tpu_torch import convert
+
+    names = [f"oracle{i}" for i in range(16)]
+    weights = [1.0 / (i + 1) ** 1.2 for i in range(16)]
+    snaps = {}
+    for dev in ("cuda", "cpu"):
+        run = cs.SlotRun(dev, 8, [(names[i], 3) for i in (0, 5, 10)])
+        eng, got = run.eng, []
+        execute = eng.slots._execute
+
+        def recorded(*a, _execute=execute, _eng=eng, _got=got, **k):
+            _execute(*a, **k)
+            with _eng._lock:
+                _got.append(convert.state_to_numpy(_eng.state))
+
+        eng.slots._execute = recorded
+        rng = random.Random(1234)
+        for _ in range(6):
+            for _ in range(20):
+                run.serve(rng.choices(names, weights=weights)[0])
+            run.second()
+        assert eng.slots.evictions_total > 0
+        assert eng.slots.surgery_d2h_bytes_total > 0
+        run.result([])
+        snaps[dev] = got
+    assert len(snaps["cuda"]) == len(snaps["cpu"]) > 0
+    for a, b in zip(snaps["cuda"], snaps["cpu"]):
+        cs.compare_states(a, b)
+
+
+def test_telescope_adds_no_dispatch_or_sync_on_cuda(cuda):
+    """Device-tensor batches reach the telescope by pinned copies behind
+    an event: with the telescope on, the same steps and syncs as off, and
+    every lane observed once the fold ran."""
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np, to_device
+    from sentinel_tpu_torch.core.config import POPULATION_ENABLED, config
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.models import flow as F
+    from sentinel_tpu_torch.utils.device import SYNCS
+
+    def run(enabled):
+        config.set(POPULATION_ENABLED, "" if enabled else "false")
+        try:
+            now = [1_700_000_000_000]
+            eng = SentinelEngine(capacity=256, device=cuda,
+                                 clock=lambda: now[0])
+            row = eng.registry.cluster_row("ab")
+            eng.flow_rules.load_rules([F.FlowRule("ab", count=100)])
+            b = make_entry_batch_np(8)
+            b["cluster_row"][:4] = row
+            batch = to_device(b, cuda)
+            SYNCS.count = 0
+            for _ in range(5):
+                eng.check_batch(batch)
+                now[0] += 1000
+            syncs = SYNCS.count
+            eng.timeseries_view(now_ms=now[0])
+            disp = {k: v["dispatches"]
+                    for k, v in eng.step_timer.snapshot().items()}
+            observed = eng.population.observed_total
+            eng.close()
+            return disp, syncs, observed
+        finally:
+            config.set(POPULATION_ENABLED, "")
+
+    off, on = run(False), run(True)
+    assert off[2] == 0 and on[2] == 20
+    assert on[0] == off[0] and on[1] == off[1]
