@@ -90,7 +90,36 @@ Phases (any failure raises and exits non-zero; none is caught):
    rehydrations, the surgeries (count, ms, bytes each way), the spill ms,
    the prefix launches by shape (block sort only) and the peak memory.
    The phase must end within 120 s.
-9. The smoke's wall time, the kernels line, the card line, and the final
+9. Boot: the engine's boot surface, each part on the card and on the CPU
+   with identical injected clocks. (1) Config: engines built under
+   ``csp.sentinel.statistic.interval.ms`` 2000, ``.sample.count`` 4 and
+   ``csp.sentinel.occupy.timeout.ms`` 250 must seed (2000, 4, 250); a
+   seeded stream of 500 ``with eng.entry(...)`` pairs over 5 simulated
+   seconds (a leased QPS quota, a leased warm-up rule, a rate limiter, an
+   exception-ratio breaker, an unruled name) must give the same verdicts
+   and state on both; then ``window_geometry_property`` (1000 ms / 2) and
+   ``occupy_timeout_property`` (250) are pushed (accepted, then an equal
+   push returns False) and the stream runs again. (2) Warm restart: five
+   ``save_checkpoint``s of the main path's engine (capacity 32,768; the
+   lock-held ms, the save ms, the file's bytes), which must leave its
+   state unchanged; the file restored into a fresh card engine and a
+   fresh CPU engine must give the twelve tensors bit for bit (the thread
+   gauges zero) and the same decisions over the next 8 batches at width
+   8192; the slot phase's engine (budget 4,098) saved and restored on
+   both must give back its slot assignment; a ``CheckpointTimer`` every
+   0.5 s over at least 3 s of the API phase's traffic on one thread must
+   write at least 4 files, all loadable. (3) SPI: the two checkers of
+   ``tests/test_spi.py`` in torch (a cap on ``count > 3``, 2 PASS a
+   second per cluster row from the rotated ``w1``) over 250 pairs in 2.5
+   simulated seconds on the API phase's engine kind (capacity 8,192, as
+   its parity script): the same verdicts, reasons and ``rule_slot``s,
+   ``node_snapshot`` and state on both, every pair a device entry while
+   registered, the leased pairs back after unregistering; and one
+   ``check_batch`` at width 8192 with the cap checker must launch the
+   prefix kernel 4 times. Prints one ``{"boot": ...}`` line with the
+   prefix launches by shape (block sort only); the phase must end within
+   60 s.
+10. The smoke's wall time, the kernels line, the card line, and the final
    ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
@@ -107,6 +136,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -123,6 +153,7 @@ from sentinel_tpu_torch import convert
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
     H2D, make_entry_batch_np, make_exit_batch_np, to_device)
+from sentinel_tpu_torch.core.checkpoint import _load_npz, _state_arrays
 from sentinel_tpu_torch.core.config import LOG_DIR, config
 from sentinel_tpu_torch.core.engine import SentinelEngine
 from sentinel_tpu_torch.models import authority as A
@@ -463,7 +494,8 @@ def ring_bytes(ring) -> int:
 
 def main_path_phase(dev):
     """Drive the engine at the headline size; returns (per-width results,
-    kernel launches during the measured rounds)."""
+    kernel launches during the measured rounds, the engine and its rows,
+    still open)."""
     mem0 = memory_mark()
     eng, clock, cluster, dn, origin_a = make_engine(dev, tight=False)
     rng = np.random.default_rng(7)
@@ -554,8 +586,10 @@ def main_path_phase(dev):
         "ring_pass_equals_device_totals": True,
         "memory_bytes": memory_report(mem0)}}),
           flush=True)
-    eng.close()
-    return results, total_launches
+    # The engine stays open for the boot phase's warm restart.
+    main = {"eng": eng, "clock": clock, "cluster": cluster, "dn": dn,
+            "origin_a": origin_a}
+    return results, total_launches, main
 
 
 def profile_phase(dev, rounds: int = 8, width: int = 8192):
@@ -1611,7 +1645,6 @@ def slot_timed(dev):
     committer = eng.committer
     failures = committer.failures if committer is not None else 0
     fail_open = eng.fail_open_count
-    eng.close()
 
     if status["evictionsTotal"] <= 0 or status["rehydrationsTotal"] <= 0 \
             or status["coldPassTotal"] <= 0:
@@ -1642,7 +1675,8 @@ def slot_timed(dev):
         k["ms"].append(x["ms"])
     for k in by_kind.values():
         k["ms_p50"] = pct(k.pop("ms"), 50)
-    return {
+    # The engine stays open for the boot phase's slot-mode checkpoint.
+    return run, {
         "budget": SLOT_BUDGET, "ruled": SLOT_RULED, "tail_names": SLOT_TAIL,
         "seconds": SLOT_SECONDS, "pairs": served, "wall_s": wall_s,
         "draws_sha256": digest.hexdigest()[:16],
@@ -1682,12 +1716,586 @@ def slot_phase(dev):
     t0 = time.perf_counter()
     out = {"exactness": slot_exactness()}
     out["exactness_s"] = time.perf_counter() - t0
-    out["timed"] = slot_timed(dev)
+    run, out["timed"] = slot_timed(dev)
     out["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"slots": out}), flush=True)
     if out["phase_s"] > SLOT_PHASE_LIMIT_S:
         raise AssertionError(f"slot phase took {out['phase_s']:.1f} s, over "
                              f"{SLOT_PHASE_LIMIT_S} s")
+    return out, run
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the engine's boot surface (config seeding, checkpoints, SPI)
+# ---------------------------------------------------------------------------
+
+BOOT_KEYS = {"csp.sentinel.statistic.interval.ms": ("2000", "1000"),
+             "csp.sentinel.statistic.sample.count": ("4", "2"),
+             "csp.sentinel.occupy.timeout.ms": ("250", "500")}
+BOOT_CAPACITY = 1_024
+# Cut from 2,000 stream pairs over 20 s and 1,000 SPI pairs over 10 s, at
+# the same rates, to keep the phase well inside its 60 s: on an H100
+# (700 W) it took 57.3 s with 1,000 and 500.
+BOOT_STREAM_PAIRS = 500
+BOOT_STREAM_SECONDS = 5
+BOOT_PAIRS_PER_STEP = 8
+BOOT_SAVES = 5
+BOOT_RESTORE_BATCHES = 8
+BOOT_RESTORE_WIDTH = 8_192
+BOOT_TIMER_PERIOD_S = 0.5
+BOOT_TIMER_WINDOW_S = 3.0
+BOOT_TIMER_MIN_FILES = 4
+BOOT_SPI_PAIRS = 250
+BOOT_SPI_STEP_MS = 10
+BOOT_PHASE_LIMIT_S = 60.0
+CKPT_DIR = Path(__file__).resolve().parent / "smoke_logs" / "checkpoints"
+
+
+def boot_stream_ops(seed: int = 31):
+    """(resource, count, prioritized, error) per pair: a leased QPS quota,
+    a leased warm-up rule and an unruled name on the host, a rate limiter
+    and a degraded resource on the device path."""
+    rng = np.random.default_rng(seed)
+    names = ("bq", "bw", "bu", "brl", "bd")
+    ops = []
+    for _ in range(BOOT_STREAM_PAIRS):
+        res = names[int(rng.choice(5, p=(0.3, 0.3, 0.3, 0.05, 0.05)))]
+        ops.append((res, int(rng.integers(1, 3)),
+                    res == "bq" and rng.random() < 0.005,
+                    res == "bd" and rng.random() < 0.6))
+    return ops
+
+
+def boot_rules(eng) -> None:
+    """The stream's rules, compiled at once: a compile that the committer's
+    background flush ran would intern the rules' rows at a moment set by
+    thread timing, so row numbers would differ between two runs."""
+    eng.flow_rules.load_rules([
+        st.FlowRule(resource="bq", count=20),
+        st.FlowRule(resource="bw", count=60,
+                    control_behavior=C.CONTROL_BEHAVIOR_WARM_UP,
+                    warm_up_period_sec=5),
+        st.FlowRule(resource="brl", count=25,
+                    control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER,
+                    max_queueing_time_ms=10)])
+    eng.degrade_rules.load_rules([st.DegradeRule(
+        resource="bd", count=0.5, grade=C.DEGRADE_GRADE_EXCEPTION_RATIO,
+        time_window=2, min_request_amount=5)])
+    with eng._lock, eng._on_stream():
+        eng._ensure_compiled()
+
+
+class BusinessError(Exception):
+    """The error a guarded call of the boot stream raises (traced by the
+    entry's ``with`` block as an exception, never a block)."""
+
+
+def boot_drive(eng, clock, ops):
+    """Each pair ``with eng.entry(...)``, 8 to a clock step, the
+    committer flushed before every step (so leased commits land in the
+    second they were admitted in on both devices): the verdict of each."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+
+    step_ms = BOOT_STREAM_SECONDS * 1000 * BOOT_PAIRS_PER_STEP \
+        // BOOT_STREAM_PAIRS
+    waits = []
+    submit = eng._submit_entry
+
+    def recorded(*a, **k):
+        out = submit(*a, **k)
+        waits.append(out[1])
+        return out
+
+    eng._submit_entry = recorded
+    verdicts = []
+    try:
+        for i, (res, count, prioritized, error) in enumerate(ops):
+            if i % BOOT_PAIRS_PER_STEP == 0:
+                eng._flush_committer()
+                clock.now += step_ms
+            n = len(waits)
+            try:
+                with eng.entry(res, count=count, prioritized=prioritized):
+                    if error:
+                        raise BusinessError()
+            except st.BlockException as ex:
+                verdicts.append(type(ex).__name__)
+                continue
+            except BusinessError:
+                pass
+            verdicts.append("wait" if len(waits) > n and waits[-1] > 0
+                            else "pass")
+        eng._flush_committer()
+    finally:
+        del eng._submit_entry
+        ctx_mod.replace_context(None)
+    return verdicts
+
+
+def boot_config_run(dev, ops):
+    """Engine under 2000 / 4 / 250 from config: the stream, then the two
+    push properties (accepted, then an equal push refused), the stream
+    again."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+
+    t0 = time.perf_counter()
+    # A pooled context of an earlier engine on this thread holds that
+    # engine's rows: retire it, or the rows interned here would differ.
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    for key, (value, _) in BOOT_KEYS.items():
+        config.set(key, value)
+    clock = Clock(NOW0)
+    try:
+        eng = SentinelEngine(capacity=BOOT_CAPACITY, device=dev, clock=clock)
+    finally:
+        for key, (_, default) in BOOT_KEYS.items():
+            config.set(key, default)
+    seeded = (eng._spec1.interval_ms, eng._spec1.buckets,
+              eng._occupy_timeout_ms)
+    if seeded != (2000, 4, 250):
+        raise AssertionError(f"{dev}: config seeded {seeded}, not "
+                             "(2000, 4, 250)")
+    boot_rules(eng)
+    out = {"seeded": seeded, "first": boot_drive(eng, clock, ops)}
+    with eng._lock:
+        out["first_state"] = convert.state_to_numpy(eng.state)
+    push = ({"intervalMs": 1000, "sampleCount": 2}, 250)
+    out["push"] = [eng.window_geometry_property.update_value(push[0]),
+                   eng.occupy_timeout_property.update_value(push[1])]
+    out["equal_push"] = [eng.window_geometry_property.update_value(push[0]),
+                         eng.occupy_timeout_property.update_value(push[1])]
+    out["pushed"] = (eng._spec1.interval_ms, eng._spec1.buckets,
+                     eng._occupy_timeout_ms)
+    if out["push"] != [True, True] or out["equal_push"] != [False, False] \
+            or out["pushed"] != (1000, 2, 250):
+        raise AssertionError(f"{dev}: pushes {out['push']}, equal pushes "
+                             f"{out['equal_push']}, pushed {out['pushed']}")
+    out["second"] = boot_drive(eng, clock, ops)
+    with eng._lock:
+        out["second_state"] = convert.state_to_numpy(eng.state)
+    out["fail_open"] = eng.fail_open_count
+    committer = eng.committer
+    eng.close()
+    out["committer_failures"] = committer.failures if committer else 0
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def boot_config(dev):
+    ops = boot_stream_ops()
+    runs = {d: boot_config_run(d, ops) for d in (dev, "cpu")}
+    card, cpu = runs[dev], runs["cpu"]
+    for part in ("first", "second"):
+        if card[part] != cpu[part]:
+            i = next(i for i, (a, b) in enumerate(zip(card[part], cpu[part]))
+                     if a != b)
+            raise AssertionError(f"boot config stream ({part}) pair {i}: "
+                                 f"{card[part][i]} on the card, "
+                                 f"{cpu[part][i]} on the CPU")
+        compare_states(card[f"{part}_state"], cpu[f"{part}_state"],
+                       f"boot config {part}")
+    for name, run in runs.items():
+        if run["fail_open"] or run["committer_failures"]:
+            raise AssertionError(f"boot config {name}: fail-open "
+                                 f"{run['fail_open']}, committer failures "
+                                 f"{run['committer_failures']}")
+    verdicts = card["first"] + card["second"]
+    if not {"pass", "FlowException", "DegradeException"} <= set(verdicts):
+        raise AssertionError(f"the boot stream blocked too little: "
+                             f"{sorted(set(verdicts))}")
+    return {"pairs": 2 * len(ops), "card_s": card["s"], "cpu_s": cpu["s"],
+            "seeded": card["seeded"],
+            "pushed": card["pushed"], "push": card["push"],
+            "equal_push": card["equal_push"], "card_equals_cpu": True,
+            "verdict_counts": {v: verdicts.count(v)
+                               for v in sorted(set(verdicts))}}
+
+
+def restored_equal(eng, arrays, what):
+    """The engine's persisted tensors equal the file's, bit for bit, on the
+    engine's device; the thread gauges zero."""
+    got = _state_arrays(eng.state)
+    for name, want in arrays.items():
+        t = got[name]
+        if t.device.type != eng.device.type or tuple(t.shape) != want.shape \
+                or t.dtype != torch.from_numpy(want).dtype:
+            raise AssertionError(f"{what}: {name} is {t.dtype}"
+                                 f"{list(t.shape)} on {t.device}")
+        if name == "cur_threads":
+            if int(t.abs().sum()):
+                raise AssertionError(f"{what}: cur_threads not zero")
+        elif not np.array_equal(t.cpu().numpy(), want):
+            raise AssertionError(f"{what}: {name} differs from the file")
+
+
+def boot_restart(dev, main, slot_run):
+    """Warm restart at the main path's size and in slot mode, and the
+    background timer."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    meng, mclock = main["eng"], main["clock"]
+    out = {}
+    # The main-path engine must come out unchanged: a device copy of its
+    # whole state, compared after the saves.
+    with meng._lock:
+        before = [t.clone() for t in state_tensors(meng.state)]
+    inner = meng._lock
+    meng._lock = TimedLock(inner)
+    path = str(CKPT_DIR / "main.npz")
+    save_ms = []
+    for _ in range(BOOT_SAVES):
+        t0 = time.perf_counter()
+        st.save_checkpoint(meng, path)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    holds = [h * 1e3 for key, _, h in meng._lock.samples
+             if key.endswith(":save_checkpoint")]
+    meng._lock = inner
+    if len(holds) != BOOT_SAVES:
+        raise AssertionError(f"{len(holds)} save lock holds for "
+                             f"{BOOT_SAVES} saves")
+    with meng._lock:
+        after = state_tensors(meng.state)
+        if len(after) != len(before) or not all(
+                torch.equal(a, b) for a, b in zip(before, after)):
+            raise AssertionError("a save changed the main-path engine's state")
+    _, arrays = _load_npz(path)
+    with meng._lock:
+        for name, t in _state_arrays(meng.state).items():
+            if not np.array_equal(t.cpu().numpy(), arrays[name]):
+                raise AssertionError(f"main checkpoint: {name} differs from "
+                                     "the engine")
+    del before, after
+    out["main"] = {
+        "capacity": meng.capacity, "file_bytes": os.path.getsize(path),
+        "persisted_bytes": sum(a.nbytes for a in arrays.values()),
+        "lock_held_ms": {"p50": pct(holds, 50), "max": max(holds)},
+        "save_ms": {"p50": pct(save_ms, 50), "max": max(save_ms)}}
+    # Restore into a fresh card engine and a fresh CPU engine; the next
+    # batches decide the same on both.
+    restored = {}
+    for d in (dev, "cpu"):
+        clock = Clock(mclock.now)
+        eng = SentinelEngine(capacity=CAPACITY, device=d, clock=clock)
+        load_rules(eng, tight=False)
+        if d == dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.restore_checkpoint(eng, path)
+        if d == dev:
+            torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_equal(eng, arrays, f"main restore on {d}")
+        restored[d] = (eng, clock, restore_ms)
+    out["main"]["restore_ms"] = restored[dev][2]
+    out["main"]["restore_ms_cpu"] = restored["cpu"][2]
+    rng = np.random.default_rng(41)
+    for r in range(BOOT_RESTORE_BATCHES):
+        buf = entry_buf(rng, BOOT_RESTORE_WIDTH, main["cluster"], main["dn"],
+                        main["origin_a"], mixed=(r % 2 == 1))
+        decs = []
+        for d in (dev, "cpu"):
+            eng, clock, _ = restored[d]
+            clock.now += 50
+            dec = eng.check_batch(buf)
+            decs.append({f: getattr(dec, f).cpu().numpy()
+                         for f in dec._fields})
+        for f in decs[0]:
+            if not np.array_equal(decs[0][f], decs[1][f]):
+                raise AssertionError(f"restored batch {r}: decisions.{f} "
+                                     "differ between the card and the CPU")
+    restored["cpu"][0].close()
+    out["main"].update({"restored_bit_equal": True,
+                        "next_batches_equal": BOOT_RESTORE_BATCHES})
+    # Slot mode: the slot phase's engine after its timed run.
+    seng = slot_run.eng
+    spath = str(CKPT_DIR / "slots.npz")
+    t0 = time.perf_counter()
+    st.save_checkpoint(seng, spath)
+    slot_save_ms = (time.perf_counter() - t0) * 1e3
+    saved = seng.slots.checkpoint_dict()
+    seng.close()
+    _, sarrays = _load_npz(spath)
+    for d in (dev, "cpu"):
+        from sentinel_tpu_torch.core import context as ctx_mod
+
+        ctx_mod.replace_context(None)
+        eng = SentinelEngine(device=d, clock=Clock(slot_run.clock.now),
+                             slot_budget=SLOT_BUDGET)
+        st.restore_checkpoint(eng, spath)
+        if eng.slots.checkpoint_dict() != saved:
+            raise AssertionError(f"slot restore on {d}: the assignment "
+                                 "differs from the saved one")
+        restored_equal(eng, sarrays, f"slot restore on {d}")
+        eng.close()
+    out["slots"] = {"budget": SLOT_BUDGET, "hot": len(saved["hot"]),
+                    "file_bytes": os.path.getsize(spath),
+                    "persisted_bytes": sum(a.nbytes for a in
+                                           sarrays.values()),
+                    "save_ms": slot_save_ms, "assignment_equal": True}
+    out["timer"] = boot_timer(dev)
+    return out, (restored[dev][0], restored[dev][1], buf)
+
+
+def state_tensors(state):
+    """Every tensor of a state, in field order."""
+    out = []
+    for v in state:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            out.extend(state_tensors(v))
+    return out
+
+
+def boot_timer(dev):
+    """A CheckpointTimer every 0.5 s on the API phase's engine while one
+    thread serves its traffic mix: each save goes to a file of its own,
+    every file must load and no save may fail."""
+    eng = api_engine(dev)
+    paths, failures = [], []
+
+    def save(engine, _path):
+        path = str(CKPT_DIR / f"timer{len(paths)}.npz")
+        try:
+            st.save_checkpoint(engine, path)
+        except Exception as ex:  # noqa: BLE001 — counted, then re-raised
+            failures.append(repr(ex))
+            raise
+        paths.append(path)
+
+    pools = api_pools()
+    rng = np.random.default_rng(43)
+    timer = st.CheckpointTimer(eng, str(CKPT_DIR / "timer.npz"),
+                               period_s=BOOT_TIMER_PERIOD_S, save=save)
+    pairs = 0
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        # At least the window; on until the timer has written its files
+        # (a slow host's compression can stretch a period).
+        while time.perf_counter() - t0 < BOOT_TIMER_WINDOW_S or (
+                len(paths) < BOOT_TIMER_MIN_FILES
+                and time.perf_counter() - t0 < 4 * BOOT_TIMER_WINDOW_S):
+            _, res, origin, args, error = api_pick(rng, pools, API_MIX)
+            api_pair(res, origin, args, error)
+            pairs += 1
+    finally:
+        timer.stop()
+    window_s = time.perf_counter() - t0
+    for path in paths:
+        _load_npz(path)
+    committer = eng.committer
+    eng.close()
+    if failures or len(paths) < BOOT_TIMER_MIN_FILES:
+        raise AssertionError(f"timer wrote {len(paths)} files, failures "
+                             f"{failures}")
+    if eng.fail_open_count or (committer and committer.failures):
+        raise AssertionError("the timer run failed open")
+    return {"period_s": BOOT_TIMER_PERIOD_S, "window_s": window_s,
+            "pairs": pairs, "files": len(paths), "all_load": True,
+            "failures": 0}
+
+
+def cap_big_acquires(state, rules, batch, now_ms, candidate):
+    """tests/test_spi.py:91's checker: no acquire of more than 3."""
+    return candidate & (batch.count > 3)
+
+
+def two_per_second(state, rules, batch, now_ms, candidate):
+    """tests/test_spi.py:112's checker: 2 PASS a second per cluster row."""
+    from sentinel_tpu_torch.ops import window as W
+
+    used = W.row_totals(state.w1, batch.cluster_row)[:, C.MetricEvent.PASS]
+    return candidate & (used >= 2)
+
+
+def boot_spi_run(dev):
+    """The API phase's engine kind (capacity 8,192 as its parity script)
+    under the frozen clock: ``BOOT_SPI_PAIRS`` pairs 10 ms apart with both
+    checkers registered, then leased pairs after unregistering them."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core import spi
+
+    t0 = time.perf_counter()
+    time_util.freeze_time(NOW0)
+    try:
+        ctx_mod.replace_context(None)
+        ctx_mod.bump_generation()
+        eng = api_engine(dev, capacity=API_PARITY_CAPACITY, register=False)
+        # Five names a class: ~3 pairs a name a second, so the 2-a-second
+        # checker has rows to block.
+        pools = {k: v[:5] for k, v in api_pools().items()}
+        device_calls = []
+        submit = eng._submit_entry
+
+        def counted(*a, **k):
+            device_calls.append(1)
+            return submit(*a, **k)
+
+        eng._submit_entry = counted
+        decisions = []
+        step = eng._entry_step
+
+        def recorded(*a, **k):
+            state, dec = step(*a, **k)
+            decisions.append((dec.reason.cpu().numpy().tolist(),
+                              dec.rule_slot.cpu().numpy().tolist()))
+            return state, dec
+
+        eng._entry_step = recorded
+        spi.register_device_checker(cap_big_acquires, order=-1)
+        spi.register_device_checker(two_per_second, order=1)
+        rng = np.random.default_rng(47)
+        verdicts = []
+        try:
+            for _ in range(BOOT_SPI_PAIRS):
+                time_util.advance_time(BOOT_SPI_STEP_MS)
+                _, res, origin, args, error = api_pick(rng, pools,
+                                                       API_PARITY_MIX)
+                count = int(rng.integers(1, 6))
+                if origin is not None:
+                    st.context_enter("ctx", origin)
+                try:
+                    with st.entry(res, count=count, args=args):
+                        if error:
+                            st.trace(RuntimeError("business error"))
+                    verdicts.append("pass")
+                except st.BlockException as ex:
+                    verdicts.append(type(ex).__name__)
+                finally:
+                    if origin is not None:
+                        st.exit_context()
+        finally:
+            spi.unregister_device_checker(cap_big_acquires)
+            spi.unregister_device_checker(two_per_second)
+        eng._entry_step = step
+        registered_calls = len(device_calls)
+        time_util.advance_time(1000)
+        leased = pools["leased_default_param"] + pools["leased_warm_up"]
+        for res in leased:
+            api_pair(res, None, (0,), False)
+        leased_device_calls = len(device_calls) - registered_calls
+        snapshot = eng.node_snapshot()
+        with eng._lock:
+            state = convert.state_to_numpy(eng.state)
+        out = {"verdicts": verdicts, "decisions": decisions,
+               "registered_device_calls": registered_calls,
+               "leased_pairs": len(leased),
+               "leased_after_unregister": len(leased) - leased_device_calls,
+               "snapshot": snapshot, "state": state,
+               "fail_open": eng.fail_open_count}
+        committer = eng.committer
+        eng.close()
+        out["committer_failures"] = committer.failures if committer else 0
+    finally:
+        time_util.unfreeze_time()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def boot_spi(dev, restored_main):
+    runs = {d: boot_spi_run(d) for d in (dev, "cpu")}
+    card, cpu = runs[dev], runs["cpu"]
+    for k in ("verdicts", "decisions"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"boot SPI: {k} differ between the card "
+                                 "and the CPU")
+    if set(card["snapshot"]) != set(cpu["snapshot"]):
+        raise AssertionError("boot SPI: node_snapshot resources differ")
+    for res, row in card["snapshot"].items():
+        for k, v in row.items():
+            if not math.isclose(v, cpu["snapshot"][res][k],
+                                rel_tol=FLOAT_RTOL, abs_tol=0):
+                raise AssertionError(f"boot SPI: {res}.{k} {v} on the card, "
+                                     f"{cpu['snapshot'][res][k]} on the CPU")
+    compare_states(card["state"], cpu["state"], "boot SPI")
+    for name, run in runs.items():
+        if run["registered_device_calls"] != BOOT_SPI_PAIRS:
+            raise AssertionError(
+                f"boot SPI {name}: {run['registered_device_calls']} device "
+                f"entries for {BOOT_SPI_PAIRS} pairs: a pair took a fast "
+                "path while a checker was registered")
+        if run["leased_after_unregister"] != run["leased_pairs"]:
+            raise AssertionError(f"boot SPI {name}: the lease did not come "
+                                 "back after unregistering")
+        if run["fail_open"] or run["committer_failures"]:
+            raise AssertionError(f"boot SPI {name}: fail-open")
+    custom = int(C.BlockReason.CUSTOM)
+    by_slot = {}
+    for reason, slot in card["decisions"]:
+        for r, s in zip(reason, slot):
+            if r == custom:
+                by_slot[s] = by_slot.get(s, 0) + 1
+    if set(by_slot) != {0, 1}:
+        raise AssertionError(f"CUSTOM blocks by checker index {by_slot}")
+    blocked = card["verdicts"].count("BlockException")
+    # One check_batch at the main path's width with the cap checker, on
+    # the restored card engine: the splice keeps the 4 launches a step.
+    from sentinel_tpu_torch.core import spi
+
+    eng, clock, buf = restored_main
+    spi.register_device_checker(cap_big_acquires)
+    try:
+        buf = dict(buf)
+        buf["count"] = buf["count"].copy()
+        buf["count"][::97] = 4
+        clock.now += 50
+        torch.cuda.synchronize()
+        before = prefix_cuda.launches
+        dec = eng.check_batch(buf)
+        reason = dec.reason.cpu().numpy()
+        launches = prefix_cuda.launches - before
+    finally:
+        spi.unregister_device_checker(cap_big_acquires)
+    eng.close()
+    if launches != 4:
+        raise AssertionError(f"{launches} prefix launches for one entry "
+                             "step with a checker, not 4")
+    if int((reason == custom).sum()) != len(buf["count"][::97]):
+        raise AssertionError("the cap checker did not block its lanes")
+    return {"pairs": BOOT_SPI_PAIRS,
+            "seconds": BOOT_SPI_PAIRS * BOOT_SPI_STEP_MS / 1000,
+            "card_s": card["s"], "cpu_s": cpu["s"],
+            "card_equals_cpu": True,
+            "verdict_counts": {v: card["verdicts"].count(v)
+                               for v in sorted(set(card["verdicts"]))},
+            "custom_by_checker_index": by_slot,
+            "custom_blocked_pairs": blocked,
+            "device_entries_while_registered": card["registered_device_calls"],
+            "leased_after_unregister": card["leased_after_unregister"],
+            "check_batch_width": len(buf["count"]),
+            "check_batch_prefix_launches": launches,
+            "check_batch_custom_lanes": int((reason == custom).sum())}
+
+
+def boot_phase(dev, main, slot_run):
+    t0 = time.perf_counter()
+    mem0 = memory_mark()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    out = {"config": boot_config(dev)}
+    out["config_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["restart"], restored_main = boot_restart(dev, main, slot_run)
+    out["restart_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["spi"] = boot_spi(dev, restored_main)
+    out["spi_s"] = time.perf_counter() - t1
+    if prefix_cuda.launches <= 0 or prefix_cuda.tile_launches:
+        raise AssertionError(f"boot phase prefix launches "
+                             f"{prefix_cuda.launches}, tile walk "
+                             f"{prefix_cuda.tile_launches}")
+    out["prefix_launches"] = prefix_cuda.launches
+    out["prefix_launches_by_shape"] = {
+        f"K={k},N={n},M={m}": c
+        for (k, n, m), c in sorted(prefix_cuda.launches_by_shape.items())}
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"boot": out}), flush=True)
+    if out["phase_s"] > BOOT_PHASE_LIMIT_S:
+        raise AssertionError(f"boot phase took {out['phase_s']:.1f} s, over "
+                             f"{BOOT_PHASE_LIMIT_S} s")
     return out
 
 
@@ -1714,12 +2322,14 @@ def main() -> int:
             print("ptxas:", line.strip(), flush=True)
 
     main_shape, max_err = kernel_phase(dev)
-    _, main_launches = main_path_phase(dev)
+    _, main_launches, main = main_path_phase(dev)
     profile_phase(dev)
     parity_phase()
     api_phase(dev)
     pipeline_phase(dev)
-    slot_phase(dev)
+    _, slot_run = slot_phase(dev)
+    boot_phase(dev, main, slot_run)
+    main["eng"].close()
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)

@@ -52,11 +52,18 @@ from sentinel_tpu_torch.core.exceptions import (
     ParamFlowException,
     SystemBlockException,
 )
+from sentinel_tpu_torch.core.checkpoint import (
+    CheckpointTimer,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from sentinel_tpu_torch.core.spi import (
     EntryInfo,
     ProcessorSlot,
     init_func,
+    register_device_checker,
     register_slot,
+    unregister_device_checker,
     unregister_slot,
 )
 from sentinel_tpu_torch.models.authority import AuthorityRule
@@ -149,6 +156,7 @@ def load_param_flow_rules(rules) -> None:
 
 __all__ = [
     "AuthorityException", "AuthorityRule", "BlockException", "BlockReason",
+    "CheckpointTimer", "restore_checkpoint", "save_checkpoint",
     "DegradeException", "DegradeRule", "DeviceDispatchError", "EntryHandle",
     "EntryInfo", "EntryType", "FlowException", "FlowRule", "MetricEvent",
     "ParamFlowException", "ParamFlowItem", "ParamFlowRule", "ProcessorSlot",
@@ -156,6 +164,6 @@ __all__ = [
     "constants", "context_enter", "entry", "entry_ok", "exit_context",
     "get_context", "get_engine", "init_func", "load_authority_rules",
     "load_degrade_rules", "load_flow_rules", "load_param_flow_rules",
-    "load_system_rules", "register_slot", "reset", "trace",
-    "unregister_slot",
+    "load_system_rules", "register_device_checker", "register_slot",
+    "reset", "trace", "unregister_device_checker", "unregister_slot",
 ]

@@ -9,6 +9,9 @@ ring (``flight``) carries both ways, and stays ``None`` when the dict has
 none (a flattened JAX state drops its ``None`` fields). Fields this
 package does not carry (the JAX state's ``shadow`` lanes) are ignored.
 
+Checkpoints do not travel through this module: both packages write and
+read the same ``.npz`` files (``core/checkpoint.py``).
+
 This module sees only numpy: it imports no JAX.
 """
 

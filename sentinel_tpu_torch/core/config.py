@@ -17,6 +17,13 @@ from typing import Dict, Optional
 # Keys read by this package.
 LOG_DIR = "csp.sentinel.log.dir"
 LEASE_ENABLED = "csp.sentinel.lease.enabled"
+# The instant window's geometry and the prioritized-borrow wait cap, read
+# once at engine construction (reference: IntervalProperty /
+# SampleCountProperty / OccupyTimeoutProperty); runtime retunes go
+# through the engine's push properties.
+STATISTIC_INTERVAL_MS = "csp.sentinel.statistic.interval.ms"
+STATISTIC_SAMPLE_COUNT = "csp.sentinel.statistic.sample.count"
+OCCUPY_TIMEOUT_MS = "csp.sentinel.occupy.timeout.ms"
 # profile.syncEvery: every Nth device dispatch waits for a true step wall
 # (StepTimer sampling cadence; the rest record the enqueue wall only).
 PROFILE_SYNC_EVERY = "csp.sentinel.profile.syncEvery"

@@ -45,8 +45,16 @@ rehydrating columns of the state; cold resources degrade to counted
 host-side passes (host-exact for leaseable rules). Slot mode runs without
 the pipeline, as in the reference.
 
+Boot and restart: the instant window's geometry and the occupy cap are
+seeded from config (``csp.sentinel.statistic.interval.ms`` /
+``.sample.count``, ``csp.sentinel.occupy.timeout.ms``) and retuned through
+``window_geometry_property`` / ``occupy_timeout_property``;
+``core/checkpoint.py`` saves the statistics and restores them into a fresh
+engine. SPI device checkers (``core/spi.py``) ride every entry dispatch,
+read again after each (un)registration.
+
 What it does not have yet (later slices): the cluster token check,
-shadow lanes, SPI device checkers, checkpoints, and the fold's SLO,
+shadow lanes, the pod and cluster checkpoints, and the fold's SLO,
 waterfall, adaptive and stream hooks.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
@@ -78,10 +86,13 @@ from sentinel_tpu_torch.core.batch import (
     make_entry_batch_np, make_exit_batch_np, stage_row, to_device)
 from sentinel_tpu_torch.core.config import (
     DEFAULT_PROFILE_SYNC_EVERY, DEFAULT_TELEMETRY_TIMESERIES_HISTORY,
-    DEFAULT_TELEMETRY_TIMESERIES_SECONDS, PROFILE_SYNC_EVERY,
+    DEFAULT_TELEMETRY_TIMESERIES_SECONDS, OCCUPY_TIMEOUT_MS,
+    PROFILE_SYNC_EVERY, STATISTIC_INTERVAL_MS, STATISTIC_SAMPLE_COUNT,
     TELEMETRY_TIMESERIES_HISTORY, TELEMETRY_TIMESERIES_SECONDS, config)
 from sentinel_tpu_torch.core.exceptions import (
     BlockException, exception_for_reason)
+from sentinel_tpu_torch.core.property import (
+    DynamicSentinelProperty, SimplePropertyListener)
 from sentinel_tpu_torch.core.registry import (
     KIND_CLUSTER, ROOT_ROW, NodeRegistry)
 from sentinel_tpu_torch.log.record_log import log_block, record_log
@@ -99,7 +110,7 @@ from sentinel_tpu_torch.telemetry.timeseries import (
     TimeseriesHistory, compact_second, page_newest_first, second_to_dict)
 from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
 from sentinel_tpu_torch.utils import time_util
-from sentinel_tpu_torch.utils.device import resolve_device
+from sentinel_tpu_torch.utils.device import resolve_device, to_host
 from sentinel_tpu_torch.utils.param_hash import hash_param
 
 # Per-family slot-count floors at construction (the JAX engine's values).
@@ -229,8 +240,7 @@ class SentinelEngine:
         # None = the process clock (time_util, which tests may freeze); a
         # callable = this engine's private timebase.
         self._clock = clock
-        self._spec1 = S.SPEC_1S
-        self._occupy_timeout_ms = C.DEFAULT_OCCUPY_TIMEOUT_MS
+        self._seed_window_config()
         # Global kill switch (reference: Constants.ON). Off => every entry
         # passes unguarded.
         self.enabled = True
@@ -258,6 +268,11 @@ class SentinelEngine:
         self._dirty = {k: False for k in
                        ("flow", "degrade", "authority", "system", "param")}
         self._spi = spi_mod
+        # The SPI device checkers spliced into every entry step, and the
+        # registration version they were read at (-1: read at the first
+        # _ensure_compiled).
+        self._spi_version = -1
+        self._checkers: Tuple = ()
         # The step functions, as attributes so a test can poison one (the
         # reference's ``_entry_jit`` / ``_exit_jit``).
         self._entry_step = S.entry_step
@@ -311,6 +326,43 @@ class SentinelEngine:
                             ("system", self.system_rules),
                             ("param", self.param_rules)):
             mgr.add_listener(lambda f=family: self._mark_dirty(f))
+
+    def _seed_window_config(self) -> None:
+        """Seed the instant-window geometry (reference: ``IntervalProperty``
+        / ``SampleCountProperty``) and the prioritized-borrow wait cap
+        (``OccupyTimeoutProperty``) from config, before any state or lease
+        mirror exists; a bad value warns and falls back, so it cannot brick
+        boot. Both are runtime-tunable through ``set_window_geometry`` /
+        ``set_occupy_timeout`` and their push-property forms::
+
+            engine.window_geometry_property.update_value(
+                {"intervalMs": 2000, "sampleCount": 4})
+            engine.occupy_timeout_property.update_value(250)
+        """
+        interval = config.get_int(STATISTIC_INTERVAL_MS, C.SECOND_WINDOW_MS)
+        samples = config.get_int(STATISTIC_SAMPLE_COUNT, C.SECOND_BUCKETS)
+        if interval <= 0 or samples <= 0 or interval % samples != 0:
+            # The validation set_window_geometry enforces (a sample count
+            # of 0 would divide by zero on the first rotate).
+            record_log.warn("invalid csp.sentinel.statistic geometry "
+                            "%sms/%s; using defaults", interval, samples)
+            interval, samples = C.SECOND_WINDOW_MS, C.SECOND_BUCKETS
+        self._spec1 = W.WindowSpec(interval, samples)
+        self.window_geometry_property = DynamicSentinelProperty()
+        self.window_geometry_property.add_listener(SimplePropertyListener(
+            lambda v: self.set_window_geometry(
+                v.get("intervalMs"), v.get("sampleCount"))))
+        occupy = config.get_int(OCCUPY_TIMEOUT_MS,
+                                C.DEFAULT_OCCUPY_TIMEOUT_MS)
+        if not 0 <= occupy <= interval:
+            record_log.warn(
+                "invalid csp.sentinel.occupy.timeout.ms %s (window %sms); "
+                "using default", occupy, interval)
+            occupy = min(C.DEFAULT_OCCUPY_TIMEOUT_MS, interval)
+        self._occupy_timeout_ms = occupy
+        self.occupy_timeout_property = DynamicSentinelProperty()
+        self.occupy_timeout_property.add_listener(SimplePropertyListener(
+            lambda v: self.set_occupy_timeout(int(v))))
 
     # -- clock / signals -----------------------------------------------------
 
@@ -466,6 +518,12 @@ class SentinelEngine:
         if committer is not None:
             committer.flush()
 
+    def _seed_leases_from_state(self) -> None:
+        """Adopt the device windows into every lease mirror (the
+        checkpoint's warm restart)."""
+        table = self._leases
+        self._seed_leases_into(table, list(table))
+
     def _seed_leases_into(self, table, targets) -> None:
         """Seed ``targets``' mirrors in ``table`` from the device window
         PLUS the un-flushed committer commits. Flushing here would
@@ -514,6 +572,26 @@ class SentinelEngine:
             self._rebuild_leases()
         self._slots_sync_pins()
 
+    def _snapshot_checkers(self) -> None:
+        # Version BEFORE checkers: a registration racing between the two
+        # reads leaves version != snapshot, so the next _ensure_compiled
+        # reads again (the reverse order would pin a stale set forever).
+        self._spi_version = self._spi.device_version()
+        self._checkers = self._spi.device_checkers()
+
+    def reset_slot_floor(self) -> Dict[str, int]:
+        """Drop every family's slot floor back to its initial value and
+        mark every family dirty, so the next dispatch recompiles the rule
+        tensors at the width the CURRENT rules need (one rule rebuild; the
+        port has no trace to redo). Returns the floor in effect before."""
+        with self._config_lock:
+            old = dict(self._slot_floor)
+            self._slot_floor = dict(INITIAL_SLOT_FLOOR)
+            for family in INITIAL_SLOT_FLOOR:
+                self._dirty[family] = True
+            self._rebuild_leases()
+        return old
+
     def _ratchet_slots(self, **tensors) -> None:
         for family, rt in tensors.items():
             self._slot_floor[family] = max(self._slot_floor[family], rt.slots)
@@ -556,6 +634,8 @@ class SentinelEngine:
         state but keeps breaker state, and vice versa; node stats always
         survive. Dirty flags clear before their rules are read, so a push
         landing mid-compile is never lost."""
+        if self._spi_version != self._spi.device_version():
+            self._snapshot_checkers()  # the SPI device checker set changed
         if self._state is None:
             for k in self._dirty:
                 self._dirty[k] = False
@@ -630,7 +710,8 @@ class SentinelEngine:
                     self.step_timer, "entry", batch.size, self._sync,
                     self._entry_step, self._state, self._rules, batch, now,
                     spec1=self._spec1,
-                    occupy_timeout_ms=self._occupy_timeout_ms)
+                    occupy_timeout_ms=self._occupy_timeout_ms,
+                    extra_checkers=self._checkers)
             except Exception as ex:  # noqa: BLE001 — the state may be consumed
                 self._state = None  # restart cold: rules durable, stats not
                 raise DeviceDispatchError(
@@ -1184,6 +1265,32 @@ class SentinelEngine:
             threads = self._state.cur_threads.cpu().numpy()
         scale = np.float32(1000.0 / self._spec1.interval_ms)
         return totals.astype(np.float32) * scale, threads
+
+    def telemetry_counts(self) -> Dict[str, np.ndarray]:
+        """Cumulative device telemetry since engine start, as numpy:
+        ``blockByReason`` int64[NUM_ATTR_REASONS, R] per-(reason family,
+        node row) block attribution, ``rtHist`` int64[NUM_RT_BUCKETS, R]
+        success-RT histogram, ``totals`` int64[NUM_EVENTS, R] event
+        counters, ``blockBySlot`` int64[NUM_ATTR_REASONS, NUM_SLOT_BINS].
+        Queued leased commits are flushed first; the state comes to the
+        host in one copy under the lock, and the live staged second folds
+        in on the host (``ops/step.py:telemetry_view``'s arithmetic), so a
+        read never dispatches a step."""
+        self._flush_committer()
+        with self._lock, self._on_stream():
+            self._ensure_compiled()
+            tele = self._state.telemetry
+            h = to_host({
+                "sec": self._state.sec.counts, "block": tele.block_by_reason,
+                "hist": tele.rt_hist, "totals": tele.totals,
+                "slot": tele.block_by_slot, "stage_attr": tele.stage_attr,
+                "stage_hist": tele.stage_hist, "stage_slot": tele.stage_slot})
+        return {
+            "blockByReason": h["block"] + h["stage_attr"].astype(np.int64),
+            "rtHist": h["hist"] + h["stage_hist"].astype(np.int64),
+            "totals": h["totals"] + h["sec"].astype(np.int64),
+            "blockBySlot": h["slot"] + h["stage_slot"].astype(np.int64),
+        }
 
     def tree_dict(self) -> Dict:
         """Call tree rooted at machine-root (command API ``jsonTree``;

@@ -1,5 +1,5 @@
-"""SPI / extension mechanism, host half (port of
-``sentinel_tpu/core/spi.py``: init funcs and host slots).
+"""SPI / extension mechanism (port of ``sentinel_tpu/core/spi.py``: init
+funcs, host slots and device checkers).
 
 Reference: ``core:init/InitFunc`` + ``@InitOrder`` + ``spi/SpiLoader``.
 
@@ -14,8 +14,13 @@ Reference: ``core:init/InitFunc`` + ``@InitOrder`` + ``spi/SpiLoader``.
     caller. Discovered from the ``sentinel_tpu_torch.slots`` entry-point
     group or registered directly.
 
-Device checkers (a function spliced into the fused step) are not part of
-this package yet: :func:`device_checkers` returns ``()``.
+  * **Device checkers**: ``fn(state, rules, batch, now_ms, candidate) ->
+    bool[N]`` functions on torch tensors, spliced into the fused entry
+    step after param flow and before flow (``ops/step.py``); a lane a
+    checker blocks takes reason ``CUSTOM``. Engines read the registered
+    set again on their next dispatch after a (un)registration. While any
+    checker is registered the host fast paths (leases, the unruled pass)
+    stand down, so every entry reaches the device.
 """
 
 from __future__ import annotations
@@ -181,7 +186,72 @@ def host_slots() -> Tuple[ProcessorSlot, ...]:
     return _slots_cache
 
 
-def device_checkers() -> Tuple[Callable, ...]:
-    """Device checkers spliced into the fused step: none in this package
-    yet, so the fast paths never stand down for one."""
-    return ()
+# ---------------------------------------------------------------------------
+# Device checkers
+# ---------------------------------------------------------------------------
+
+# fn(state, rules, batch, now_ms, candidate) -> blocked bool[N] on the
+# batch's device; it runs inside the fused step, under the engine lock.
+DeviceChecker = Callable
+
+_device_checkers: List[Tuple[int, str, DeviceChecker]] = []
+_device_checkers_cache: Tuple[DeviceChecker, ...] = ()
+_device_version = 0
+
+
+def bump_device_version() -> None:
+    global _device_version
+    _device_version += 1
+
+
+def _rebuild_checker_cache() -> None:
+    global _device_checkers_cache
+    _device_checkers_cache = tuple(fn for _, _, fn in _device_checkers)
+
+
+def register_device_checker(fn: DeviceChecker, order: int = 0,
+                            name: Optional[str] = None) -> None:
+    """Splice a torch verdict into the fused step (before the flow slot,
+    the reference's ParamFlowSlot splice point), ordered by ``order``.
+    Engines pick it up on their next entry dispatch."""
+    with _lock:
+        _device_checkers.append(
+            (order, name or getattr(fn, "__name__", "custom"), fn))
+        _device_checkers.sort(key=lambda t: t[0])
+        _rebuild_checker_cache()
+        bump_device_version()
+
+
+def unregister_device_checker(fn: DeviceChecker) -> None:
+    with _lock:
+        _device_checkers[:] = [t for t in _device_checkers if t[2] is not fn]
+        _rebuild_checker_cache()
+        bump_device_version()
+
+
+def device_checkers() -> Tuple[DeviceChecker, ...]:
+    """The registered checkers in splice order. A lock-free read of a
+    prebuilt tuple: it sits on every entry's fast-path gate; the tuple is
+    swapped whole under ``_lock`` on (un)registration."""
+    return _device_checkers_cache
+
+
+def device_version() -> int:
+    with _lock:
+        return _device_version
+
+
+def reset_spi_for_tests() -> None:
+    """Forget every init func, host slot and device checker, and let the
+    entry-point groups load again."""
+    global _init_done, _slots_loaded
+    with _lock:
+        _init_done = False
+        _init_complete.clear()
+        _init_funcs.clear()
+        _slots.clear()
+        _slots_loaded = False
+        _rebuild_slot_cache()
+        _device_checkers.clear()
+        _rebuild_checker_cache()
+        bump_device_version()

@@ -24,13 +24,14 @@ second's deltas) is written at the once-per-second fold in
 ``_roll_second``. A bare ``make_state`` leaves it ``None`` unless
 ``flight_seconds`` is given; the engine asks for it by default
 (``csp.sentinel.telemetry.timeseries.seconds``, 128), as the reference
-engine does. The staged-rollout shadow lanes are not part of this package
-yet, and the step takes no such arguments.
+engine does. The SPI device checkers ride ``entry_step``'s
+``extra_checkers``. The staged-rollout shadow lanes are not part of this
+package yet, and the step takes no such arguments.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -232,6 +233,22 @@ def _roll_second(w60: W.Window, sec: SecondAccum, telemetry: TelemetryState,
     return w60, sec, telemetry, flight
 
 
+def telemetry_view(state: SentinelState) -> TelemetryState:
+    """Read-side exact telemetry: the cumulative counters plus the live
+    staged second (the staging zeroed in the returned view, since it has
+    been folded in). Allocates new tensors; ``state`` is not changed."""
+    t = state.telemetry
+    return TelemetryState(
+        block_by_reason=t.block_by_reason + t.stage_attr.to(torch.int64),
+        rt_hist=t.rt_hist + t.stage_hist.to(torch.int64),
+        totals=t.totals + state.sec.counts.to(torch.int64),
+        block_by_slot=t.block_by_slot + t.stage_slot.to(torch.int64),
+        stage_attr=torch.zeros_like(t.stage_attr),
+        stage_hist=torch.zeros_like(t.stage_hist),
+        stage_slot=torch.zeros_like(t.stage_slot),
+    )
+
+
 def flush_seconds(state: SentinelState, now_ms: int) -> SentinelState:
     """Host-boundary flush: fold any completed staged second into ``w60``,
     the cumulative telemetry counters and the flight ring (in place)."""
@@ -284,6 +301,20 @@ def _apply_delta(w1: W.Window, sec: SecondAccum, delta: torch.Tensor,
     return w1, sec
 
 
+def _checker_verdict(chk, verdict, cand: torch.Tensor) -> torch.Tensor:
+    """A device checker's verdict, held to bool[N] on the batch's device.
+    Anything else raises, as the reference's trace fails on it: the
+    engine's dispatch then drops the state cold and fails open."""
+    if not isinstance(verdict, torch.Tensor) or verdict.dtype != torch.bool \
+            or verdict.shape != cand.shape or verdict.device != cand.device:
+        got = (f"{verdict.dtype}{list(verdict.shape)} on {verdict.device}"
+               if isinstance(verdict, torch.Tensor) else type(verdict).__name__)
+        raise TypeError(
+            f"device checker {getattr(chk, '__name__', chk)!r} returned "
+            f"{got}; expected torch.bool{list(cand.shape)} on {cand.device}")
+    return verdict
+
+
 def entry_step(
     state: SentinelState,
     rules: RulePack,
@@ -291,8 +322,20 @@ def entry_step(
     now_ms: int,
     spec1: W.WindowSpec = SPEC_1S,
     occupy_timeout_ms: int = C.DEFAULT_OCCUPY_TIMEOUT_MS,
+    extra_checkers: Sequence[Callable] = (),
 ) -> Tuple[SentinelState, Decisions]:
-    """One admission step; consumes ``state``."""
+    """One admission step; consumes ``state``.
+
+    ``extra_checkers``: the SPI device checkers (``core/spi.py``), each
+    ``fn(state, rules, batch, now_ms, candidate) -> bool[N]``, spliced
+    after param flow and before flow (the reference chain's custom-slot
+    position). Each sees the state with the ROTATED ``w1`` and, as its
+    candidate, only the lanes still undecided; a lane it blocks takes
+    reason ``CUSTOM`` with the checker's index as ``rule_slot`` and
+    reaches flow decided. The fold above ran in place, so the checker sees
+    the minute window and the second staging after it (the reference
+    passes them before it): their sum, which a reader combines, is the
+    same either way."""
     now_ms = int(now_ms)
     w1 = W.rotate(state.w1, now_ms, spec1)
     w60, sec, tele, flight = _roll_second(state.w60, state.sec,
@@ -344,6 +387,17 @@ def entry_step(
     rule_slot = torch.where(cand & pv.blocked, pv.slot, rule_slot)
     blocked = blocked | pv.blocked
     decided = decided | blocked
+
+    for chk_idx, chk in enumerate(extra_checkers):
+        cand = valid & (~decided)
+        custom_blocked = cand & _checker_verdict(
+            chk, chk(state._replace(w1=w1), rules, batch, now_ms, cand),
+            cand)
+        reason = torch.where(custom_blocked, int(C.BlockReason.CUSTOM),
+                             reason)
+        rule_slot = torch.where(custom_blocked, chk_idx, rule_slot)
+        blocked = blocked | custom_blocked
+        decided = decided | blocked
 
     fv = F.check_flow(rules.flow, state.flow, w1, state.cur_threads, batch,
                       now_ms, decided, occupied_next=occupied_next,

@@ -10,6 +10,11 @@ Named fault points:
 * ``slots.spill.torn`` -- mutate seam inside the per-victim eviction
   spill: garbage OR error mode tears the spill record, so the victim's
   window state drops on the floor (counted) and it rehydrates cold.
+* ``checkpoint.torn.write`` -- mutate seam inside the atomic checkpoint
+  writer (``core/checkpoint.py``): garbage mode TEARS the temp file before
+  the rename publishes it (a power cut midway through the data blocks),
+  error mode aborts before the rename (a crash before publishing; the
+  previous file survives).
 
 A :class:`FaultInjector` arms specs per point -- ``error`` (raise),
 ``delay`` (sleep), ``garbage`` (replace bytes) -- triggered by a schedule
@@ -36,6 +41,7 @@ from typing import Dict, Optional
 FAULT_POINTS = (
     "slots.evict.storm",
     "slots.spill.torn",
+    "checkpoint.torn.write",
 )
 
 

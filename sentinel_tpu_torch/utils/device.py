@@ -9,10 +9,16 @@ Callers (the tests, the parity phase of ``chip_smoke.py``) pass
 a Python branch on a device bool, which costs one device->host sync on
 CUDA. Every such branch goes through it so ``SYNCS.count`` can report
 the syncs per step.
+
+``to_host`` brings a set of tensors to host numpy in one device-to-host
+copy (the checkpoint's snapshot, the telemetry reader).
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 
 
@@ -41,3 +47,21 @@ def host_bool(t) -> bool:
     """Read a 0-d device bool on the host (one sync on CUDA), counted."""
     SYNCS.count += 1
     return bool(t)
+
+
+def to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Every tensor to host numpy in ONE device-to-host copy: their bytes
+    are packed into one uint8 buffer on the device, int64 parts first so
+    every slice of the host buffer stays 8-byte aligned. The result owns
+    fresh memory on every device (on the CPU too), so later in-place
+    steps never reach it."""
+    items = sorted(tensors.items(), key=lambda kv: -kv[1].element_size())
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for _, t in items])
+    host = flat.cpu().numpy()
+    out, off = {}, 0
+    for name, t in items:
+        n = t.numel() * t.element_size()
+        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+        out[name] = host[off:off + n].view(dtype).reshape(tuple(t.shape))
+        off += n
+    return {name: out[name] for name in tensors}

@@ -7,7 +7,11 @@ launching the kernel at width 1; and pipelined admission on the card: pinned
 staging buffers released only after their cycle's harvest, the same
 verdicts as on the CPU, a clean stop with cycles in flight, the trace pump
 reading verdicts from a CUDA engine, and a retune resetting the window on
-the card.
+the card; and the boot surface: a config-seeded engine, checkpoints
+crossing between the card and the CPU bit for bit, the checkpoint timer
+saving from its own thread while another dispatches, torch device
+checkers deciding as on the CPU (and a verdict on the host refused), and
+no host sync added by the splice.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -17,6 +21,8 @@ On the H100 run them with::
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -622,3 +628,221 @@ def test_telescope_adds_no_dispatch_or_sync_on_cuda(cuda):
     off, on = run(False), run(True)
     assert off[2] == 0 and on[2] == 20
     assert on[0] == off[0] and on[1] == off[1]
+
+
+# -- the boot surface on the card: config seeding, checkpoints, checkers --
+
+
+def test_config_seeded_engine_on_cuda_equals_cpu(cuda):
+    """Built under 2000 ms / 4 buckets / a 250 ms cap, the card's engine
+    seeds what the CPU's does and decides the boot stream as it does."""
+    import chip_smoke as cs
+
+    ops = cs.boot_stream_ops()[:400]
+    card, cpu = cs.boot_config_run(cuda, ops), cs.boot_config_run("cpu", ops)
+    assert card["seeded"] == cpu["seeded"] == (2000, 4, 250)
+    for part in ("first", "second"):
+        assert card[part] == cpu[part]
+        cs.compare_states(card[f"{part}_state"], cpu[f"{part}_state"])
+
+
+def _served_engine(dev, clock):
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.models import flow as F
+
+    # Contexts pooled on this thread hold an earlier engine's rows.
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+
+    eng = SentinelEngine(capacity=512, device=dev, clock=clock)
+    eng.flow_rules.load_rules([F.FlowRule(f"r{i}", count=3)
+                               for i in range(0, 20, 2)])
+    return eng
+
+
+def _serve(eng, clock, n=120, seed=3):
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core import context as ctx_mod
+
+    rng = np.random.default_rng(seed)
+    verdicts = []
+    for _ in range(n):
+        clock.now += int(rng.integers(0, 40))
+        try:
+            eng.entry(f"r{int(rng.integers(20))}",
+                      count=int(rng.integers(1, 3))).exit()
+            verdicts.append("pass")
+        except st.BlockException as ex:
+            verdicts.append(type(ex).__name__)
+    eng._flush_committer()
+    ctx_mod.replace_context(None)
+    return verdicts
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_crosses_devices_bit_equal(cuda, tmp_path, src, dst):
+    import chip_smoke as cs
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core.checkpoint import _state_arrays
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(src, clock)
+    _serve(eng, clock)
+    path = str(tmp_path / "x.npz")
+    st.save_checkpoint(eng, path)
+    with eng._lock:
+        want = {k: v.cpu().numpy() for k, v in _state_arrays(eng.state).items()}
+    eng.close()
+    clock2 = cs.Clock(clock.now)
+    fresh = _served_engine(dst, clock2)
+    st.restore_checkpoint(fresh, path)
+    got = _state_arrays(fresh.state)
+    for k, w in want.items():
+        assert got[k].device.type == dst and tuple(got[k].shape) == w.shape
+        if k == "cur_threads":
+            assert int(got[k].abs().sum()) == 0
+        else:
+            np.testing.assert_array_equal(got[k].cpu().numpy(), w)
+    # The next traffic decides the same as a CPU engine restored likewise.
+    clock3 = cs.Clock(clock.now)
+    ref = _served_engine("cpu", clock3)
+    st.restore_checkpoint(ref, path)
+    assert _serve(fresh, clock2, seed=5) == _serve(ref, clock3, seed=5)
+    fresh.close()
+    ref.close()
+
+
+def test_checkpoint_timer_saves_while_another_thread_dispatches(cuda,
+                                                                tmp_path):
+    """The timer's thread copies the state on the engine's stream while a
+    caller dispatches: every file loads, and the last one restores into a
+    CPU engine with the card's persisted tensors as they were then."""
+    import threading
+
+    import chip_smoke as cs
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core.checkpoint import _load_npz
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(cuda, clock)
+    paths, errors = [], []
+
+    def save(engine, _path):
+        path = str(tmp_path / f"t{len(paths)}.npz")
+        try:
+            st.save_checkpoint(engine, path)
+        except Exception as ex:  # noqa: BLE001
+            errors.append(ex)
+            raise
+        paths.append(path)
+
+    timer = st.CheckpointTimer(eng, str(tmp_path / "t.npz"), period_s=0.05,
+                               save=save).start()
+    stop = threading.Event()
+
+    def caller():
+        while not stop.is_set():
+            _serve(eng, clock, n=10)
+
+    th = threading.Thread(target=caller)
+    th.start()
+    try:
+        deadline = time.time() + 20
+        while len(paths) < 5 and time.time() < deadline:
+            time.sleep(0.05)
+    finally:
+        timer.stop()
+        stop.set()
+        th.join(timeout=30)
+    assert not th.is_alive() and not errors and len(paths) >= 5
+    for path in paths:
+        header, arrays = _load_npz(path)
+        assert int(arrays["w1_counts"].sum()) > 0
+    ref = _served_engine("cpu", cs.Clock(clock.now))
+    st.restore_checkpoint(ref, paths[-1])
+    eng.close()
+    ref.close()
+
+
+def test_torch_checker_on_cuda_equals_cpu(cuda):
+    import chip_smoke as cs
+    from sentinel_tpu_torch.core import spi
+
+    runs = {}
+    for name, dev in (("cuda", cuda), ("cpu", "cpu")):
+        clock = cs.Clock(cs.NOW0)
+        eng = _served_engine(dev, clock)
+        spi.register_device_checker(cs.cap_big_acquires)
+        spi.register_device_checker(cs.two_per_second, order=1)
+        try:
+            verdicts = _serve(eng, clock, n=200, seed=9)
+        finally:
+            spi.unregister_device_checker(cs.cap_big_acquires)
+            spi.unregister_device_checker(cs.two_per_second)
+        with eng._lock:
+            runs[name] = (verdicts, cs.convert.state_to_numpy(eng.state))
+        eng.close()
+    (vc, sc), (vp, sp) = runs["cuda"], runs["cpu"]
+    assert vc == vp and "BlockException" in vc
+    cs.compare_states(sc, sp)
+
+
+def test_no_checker_leaves_host_syncs_per_step_unchanged(cuda):
+    """The splice adds no host sync: the same SYNCS per check_batch with
+    no checker and with one registered."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.core import spi
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np, to_device
+    from sentinel_tpu_torch.utils.device import SYNCS
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(cuda, clock)
+    b = make_entry_batch_np(2048)
+    b["cluster_row"][:] = [eng.registry.cluster_row(f"r{i % 20}")
+                           for i in range(2048)]
+    b["count"][:] = 1
+    batch = to_device(b, cuda)
+
+    def syncs():
+        clock.now += 50
+        before = SYNCS.count
+        eng.check_batch(batch)
+        torch.cuda.synchronize()
+        return SYNCS.count - before
+
+    syncs()
+    plain = syncs()
+    spi.register_device_checker(cs.cap_big_acquires)
+    try:
+        assert syncs() == plain
+    finally:
+        spi.unregister_device_checker(cs.cap_big_acquires)
+    assert syncs() == plain
+    eng.close()
+
+
+def test_checker_returning_a_cpu_tensor_raises_on_cuda(cuda):
+    """A verdict on another device is refused, never moved: the dispatch
+    fails (the state drops cold) and a width-1 entry fails open, counted."""
+    import chip_smoke as cs
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core import spi
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(cuda, clock)
+
+    def on_the_host(state, rules, batch, now_ms, candidate):
+        return candidate.cpu()
+
+    spi.register_device_checker(on_the_host)
+    try:
+        with pytest.raises(st.DeviceDispatchError, match="on_the_host"):
+            eng.check_batch(make_entry_batch_np(8))
+        assert eng.state is None
+        eng.entry("r0").exit()
+        assert eng.fail_open_count == 1
+    finally:
+        spi.unregister_device_checker(on_the_host)
+        eng.close()
