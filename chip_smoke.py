@@ -119,7 +119,36 @@ Phases (any failure raises and exits non-zero; none is caught):
    prefix kernel 4 times. Prints one ``{"boot": ...}`` line with the
    prefix launches by shape (block sort only); the phase must end within
    60 s.
-10. The smoke's wall time, the kernels line, the card line, and the final
+10. Rollout: staged rollout and the metric log, each part on the card and
+   on the CPU with identical injected clocks and seeded streams. (1) The
+   main path's engine kind (capacity 32,768, the headline rules) with a
+   candidate staged through ``rollout.load_candidate``: finite QPS counts
+   on 100 flow-ruled resources (half DEFAULT, half RATE_LIMITER), one
+   param rule, one authority white list; 8 check_batch + complete_batch
+   rounds at width 8192 and 8 at 2048, 130 ms apart. Decisions,
+   ``shadow_counts()`` and the whole state (shadow included) must be
+   equal; a second card engine ENFORCING the merged rules over the same
+   stream must tally, per resource, what the shadow's would-pass and
+   would-block counters hold. Prints entry ms, prefix launches and host
+   syncs per step with the candidate (beside the main path's without),
+   and the shadow's device bytes. Both engines' metric logs are sealed
+   at the stream's end: the files and their ``.idx`` must be byte-equal
+   and a ``MetricSearcher`` reads every line back. (2) A bad candidate
+   (count 0 on the same 100 resources) in canary at 2,500 bps, 4 rounds
+   at 8192 from 64 origins: every lane's verdict is its host
+   ``in_canary`` prediction; then 0 bps governs no lane and 10,000 every
+   lane. (3) The guardrail's ``tick()`` once a simulated second until it
+   aborts; then ``shadow_counts()`` is None, a headline round at 8192 is
+   back to 15.0625 syncs, a ``MetricTimerListener`` thread writes at
+   least 2 seconds, the leases come back (system rule removed), and a
+   promoted candidate's rules are live and equal on card and CPU. (4) The
+   slot phase's oracle engine at budget 8 (it steals and rehydrates) with
+   a datasource-staged candidate, 10 simulated seconds: card = CPU,
+   shadow included, and every surgery leaves the touched shadow columns
+   zero. Prints one ``{"rollout": ...}`` line with each part's seconds
+   and the prefix launches by shape (block sort only); the phase must
+   end within 60 s.
+11. The smoke's wall time, the kernels line, the card line, and the final
    ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
@@ -492,6 +521,59 @@ def ring_bytes(ring) -> int:
     return sum(t.numel() * t.element_size() for t in ring)
 
 
+def headline_rounds(eng, clock, cluster, dn, origin_a, rng, width, dev):
+    """One warm-up round and ROUNDS timed check_batch + complete_batch
+    rounds of the headline stream at ``width`` (50 ms apart: bucket and
+    second boundaries; the middle round with mixed acquire counts).
+    Returns (the result line, admitted tokens)."""
+    admitted_tokens = 0
+
+    def check(batch):
+        return eng.harvest_decisions(eng.check_batch(batch))[0]
+
+    # Batches staged and copied to the card before the timed rounds.
+    bufs = [entry_buf(rng, width, cluster, dn, origin_a,
+                      mixed=(r == ROUNDS // 2)) for r in range(ROUNDS + 1)]
+    batches = [to_device(b, dev) for b in bufs]
+    # Warm-up round (allocations, first load of the kernel).
+    reason, ebuf = check(batches[ROUNDS]), bufs[ROUNDS]
+    admitted_tokens += int(ebuf["count"][reason == 0].sum())
+    eng.complete_batch(to_device(exit_buf(rng, ebuf, reason), dev))
+    torch.cuda.synchronize()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    SYNCS.count = 0
+    entry_s = exit_s = 0.0
+    for r in range(ROUNDS):
+        clock.now += 50  # 32 rounds x 50 ms: bucket + second boundaries
+        t0 = time.perf_counter()
+        reason, ebuf = check(batches[r]), bufs[r]
+        entry_s += time.perf_counter() - t0
+        admitted_tokens += int(ebuf["count"][reason == 0].sum())
+        xb = to_device(exit_buf(rng, ebuf, reason), dev)
+        t0 = time.perf_counter()
+        eng.complete_batch(xb)
+        torch.cuda.synchronize()
+        exit_s += time.perf_counter() - t0
+    launches = prefix_cuda.launches
+    syncs = SYNCS.count
+    if launches <= 0:
+        raise AssertionError("main path never launched the prefix kernel")
+    if prefix_cuda.tile_launches:
+        raise AssertionError(f"main path at width {width} took the tile "
+                             "walk, not the block sort")
+    return {
+        "width": width, "rounds": ROUNDS,
+        "rule_checks_per_s": width * ROUNDS / entry_s,
+        "entry_step_ms": entry_s / ROUNDS * 1e3,
+        "exit_step_ms": exit_s / ROUNDS * 1e3,
+        "prefix_launches": launches,
+        "prefix_launches_per_entry_step": launches / ROUNDS,
+        "prefix_design": "block_radix_sort",
+        "host_syncs_per_round": syncs / ROUNDS,
+    }, admitted_tokens
+
+
 def main_path_phase(dev):
     """Drive the engine at the headline size; returns (per-width results,
     kernel launches during the measured rounds, the engine and its rows,
@@ -502,56 +584,15 @@ def main_path_phase(dev):
     results = {}
     admitted_tokens = 0
     total_launches = 0
-
-    def check(batch):
-        return eng.harvest_decisions(eng.check_batch(batch))[0]
-
     for width in WIDTHS:
-        # Batches staged and copied to the card before the timed rounds.
-        bufs = [entry_buf(rng, width, cluster, dn, origin_a,
-                          mixed=(r == ROUNDS // 2)) for r in range(ROUNDS + 1)]
-        batches = [to_device(b, dev) for b in bufs]
-        # Warm-up round (allocations, first load of the kernel).
-        reason, ebuf = check(batches[ROUNDS]), bufs[ROUNDS]
-        admitted_tokens += int(ebuf["count"][reason == 0].sum())
-        eng.complete_batch(to_device(exit_buf(rng, ebuf, reason), dev))
-        torch.cuda.synchronize()
-        prefix_cuda.launches = 0
-        prefix_cuda.tile_launches = 0
-        SYNCS.count = 0
-        entry_s = exit_s = 0.0
-        for r in range(ROUNDS):
-            clock.now += 50  # 32 rounds x 50 ms: bucket + second boundaries
-            t0 = time.perf_counter()
-            reason, ebuf = check(batches[r]), bufs[r]
-            entry_s += time.perf_counter() - t0
-            admitted_tokens += int(ebuf["count"][reason == 0].sum())
-            xb = to_device(exit_buf(rng, ebuf, reason), dev)
-            t0 = time.perf_counter()
-            eng.complete_batch(xb)
-            torch.cuda.synchronize()
-            exit_s += time.perf_counter() - t0
-        launches = prefix_cuda.launches
-        syncs = SYNCS.count
-        if launches <= 0:
-            raise AssertionError("main path never launched the prefix kernel")
-        if prefix_cuda.tile_launches:
-            raise AssertionError(f"main path at width {width} took the tile "
-                                 "walk, not the block sort")
-        total_launches += launches
-        results[width] = {
-            "width": width, "rounds": ROUNDS,
-            "rule_checks_per_s": width * ROUNDS / entry_s,
-            "entry_step_ms": entry_s / ROUNDS * 1e3,
-            "exit_step_ms": exit_s / ROUNDS * 1e3,
-            "prefix_launches": launches,
-            "prefix_launches_per_entry_step": launches / ROUNDS,
-            "prefix_design": "block_radix_sort",
-            "host_syncs_per_round": syncs / ROUNDS,
-        }
+        results[width], admitted = headline_rounds(
+            eng, clock, cluster, dn, origin_a, rng, width, dev)
+        admitted_tokens += admitted
+        total_launches += results[width]["prefix_launches"]
         print(json.dumps({"main_path": results[width]}), flush=True)
-        if syncs / ROUNDS != HOST_SYNCS_PER_ROUND:
-            raise AssertionError(f"host syncs per round {syncs / ROUNDS} at "
+        syncs = results[width]["host_syncs_per_round"]
+        if syncs != HOST_SYNCS_PER_ROUND:
+            raise AssertionError(f"host syncs per round {syncs} at "
                                  f"width {width}, not {HOST_SYNCS_PER_ROUND}")
     # Output check: every admitted token committed PASS to its DefaultNode
     # and ClusterNode rows, and every admitted entry has exited.
@@ -2299,6 +2340,527 @@ def boot_phase(dev, main, slot_run):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: staged rollout (shadow lanes, canary, guardrail) and the metric log
+# ---------------------------------------------------------------------------
+
+ROLLOUT_RULED = 100        # candidate QPS counts on 100 flow-ruled resources
+ROLLOUT_ROUNDS = 8         # check_batch + complete_batch rounds per width
+ROLLOUT_WIDTHS = (8192, 2048)
+ROLLOUT_STEP_MS = 130      # bucket and second boundaries
+ROLLOUT_PARAM_VALUES = 16
+CANARY_BPS = 2500
+CANARY_ROUNDS = 4
+CANARY_ORIGINS = 64
+TIMER_PERIOD_S = 0.1
+ROLLOUT_PHASE_LIMIT_S = 60.0
+METRIC_LOG_DIR = Path(__file__).resolve().parent / "smoke_logs" / "metric_log"
+
+
+def rollout_candidate():
+    """Finite QPS counts on 100 of the flow-ruled resources (half DEFAULT,
+    half RATE_LIMITER), one param rule and one authority white list."""
+    flow = []
+    for k in range(ROLLOUT_RULED):
+        rule = {"resource": f"res{10 * k}", "count": 2}
+        if k % 2:
+            rule.update(controlBehavior=C.CONTROL_BEHAVIOR_RATE_LIMITER,
+                        maxQueueingTimeMs=100)
+        flow.append(rule)
+    return {"flow": flow,
+            "paramFlow": [{"resource": "res40", "paramIdx": 0, "count": 1}],
+            "authority": [{"resource": "res5", "limitApp": "appB",
+                           "strategy": C.AUTHORITY_WHITE}]}
+
+
+def cut_candidate():
+    """A bad candidate: count 0 on the same 100 resources."""
+    return {"flow": [{"resource": f"res{10 * k}", "count": 0}
+                     for k in range(ROLLOUT_RULED)]}
+
+
+def rollout_buf(rng, width, cluster, dn, origin_a):
+    """The headline stream with a small param space (the candidate's
+    param rule sees repeated values) and a quarter of the lanes on the
+    candidate's 100 resources."""
+    buf = entry_buf(rng, width, cluster, dn, origin_a)
+    pick = rng.integers(0, ROLLOUT_RULED, size=width) * 10
+    hot = rng.random(width) < 0.25
+    buf["cluster_row"][hot] = cluster[pick[hot]]
+    buf["dn_row"][hot] = dn[pick[hot]]
+    buf["param_hash"][:, 0] = rng.integers(1, ROLLOUT_PARAM_VALUES + 1,
+                                           size=width)
+    return buf
+
+
+def rollout_exit_buf(rng, ebuf, reason):
+    """Exits that keep every breaker closed in both worlds (RT 1-50 ms,
+    no business error), so the oracle's enforced completions and the live
+    ones feed the same verdicts."""
+    buf = exit_buf(rng, ebuf, reason)
+    buf["rt_ms"][:] = rng.integers(1, 51, size=len(reason))
+    buf["error"][:] = False
+    return buf
+
+
+def canary_buf(rng, width, cluster, origins):
+    """Lanes on the candidate's 100 resources from 64 distinct origins."""
+    buf = make_entry_batch_np(width)
+    pick = rng.integers(0, ROLLOUT_RULED, size=width) * 10
+    buf["cluster_row"][:] = cluster[pick]
+    buf["count"][:] = 1
+    buf["origin_id"][:] = np.asarray(origins)[
+        rng.integers(0, len(origins), size=width)]
+    return buf
+
+
+def tree_bytes(tree) -> int:
+    """Device bytes of a NamedTuple of tensors (nested)."""
+    total = 0
+    for v in tree:
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, tuple):
+            total += tree_bytes(v)
+    return total
+
+
+def decisions_np(dec):
+    return {f: getattr(dec, f).cpu().numpy() for f in dec._fields}
+
+
+def rollout_shadow(dev, card: bool):
+    """Part 1 on one device: the main path's engine kind with the staged
+    candidate, ROLLOUT_ROUNDS rounds at each width. On the card also the
+    times, launches and syncs per step, the shadow's bytes and the
+    oracle; returns (printed numbers, what card and CPU must share, the
+    engine and its rows)."""
+    from sentinel_tpu_torch.ops import step as S
+
+    eng, clock, cluster, dn, origin_a = make_engine(dev, tight=False)
+    with eng._lock, eng._on_stream():
+        eng._ensure_compiled()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.rollout.load_candidate("rollout-v2", rollout_candidate())
+    with eng._lock, eng._on_stream():
+        eng._ensure_compiled()
+    torch.cuda.synchronize()
+    out = {"shadow_state_bytes": tree_bytes(eng.state.shadow),
+           "shadow_rules_bytes": tree_bytes(eng._shadow_rules),
+           "allocated_by_compile": torch.cuda.memory_allocated() - before}
+    rng = np.random.default_rng(17)
+    stream, decs = [], []
+    for width in ROLLOUT_WIDTHS:
+        bufs = [rollout_buf(rng, width, cluster, dn, origin_a)
+                for _ in range(ROLLOUT_ROUNDS)]
+        batches = [to_device(b, dev) for b in bufs]
+        torch.cuda.synchronize()
+        launches0, syncs0 = prefix_cuda.launches, SYNCS.count
+        entry_s = 0.0
+        for b, batch in zip(bufs, batches):
+            clock.now += ROLLOUT_STEP_MS
+            t0 = time.perf_counter()
+            dec = eng.check_batch(batch)
+            reason = eng.harvest_decisions(dec)[0]
+            entry_s += time.perf_counter() - t0
+            decs.append(decisions_np(dec))
+            eng.complete_batch(to_device(rollout_exit_buf(rng, b, reason),
+                                         dev))
+            stream.append((clock.now, b))
+        torch.cuda.synchronize()
+        out[f"width_{width}"] = {
+            "entry_step_ms": entry_s / ROLLOUT_ROUNDS * 1e3,
+            "prefix_launches_per_entry_step":
+                (prefix_cuda.launches - launches0) / ROLLOUT_ROUNDS,
+            "host_syncs_per_round": (SYNCS.count - syncs0) / ROLLOUT_ROUNDS}
+    counts = eng.shadow_counts()
+    with eng._lock:
+        state = convert.state_to_numpy(eng.state)
+    if "shadow" not in state:
+        raise AssertionError("the candidate's shadow world is missing")
+    would_block = int(counts[S.SH_WOULD_BLOCK].sum())
+    if would_block <= 0 or int(counts[S.SH_LIVE_BLOCK].sum()) != 0:
+        raise AssertionError(f"shadow would-block {would_block}, live block "
+                             f"{int(counts[S.SH_LIVE_BLOCK].sum())}: the "
+                             "candidate must block and the live world not")
+    out["would_block"] = would_block
+    out["would_block_by_family"] = {
+        name: int(counts[ch].sum()) for name, ch in (
+            ("authority", S.SH_WB_AUTHORITY), ("param", S.SH_WB_PARAM),
+            ("flow", S.SH_WB_FLOW))}
+    if card:
+        out["oracle"] = rollout_oracle(dev, eng, stream, counts)
+    share = {"decisions": decs, "shadow_counts": counts, "state": state}
+    return out, share, (eng, clock, cluster, dn, origin_a)
+
+
+def rollout_oracle(dev, eng, stream, counts):
+    """A second card engine ENFORCING the merged rule set over the same
+    stream: its per-resource tallies equal the shadow's would-pass /
+    would-block counters on every cluster row."""
+    from sentinel_tpu_torch.ops import step as S
+
+    spec = eng.rollout.device_spec()
+    oracle, clock, _, _, _ = make_engine(dev, tight=False)
+    try:
+        for fam, attr in (("flow", "flow_rules"), ("degrade", "degrade_rules"),
+                          ("authority", "authority_rules"),
+                          ("system", "system_rules"),
+                          ("param", "param_rules")):
+            getattr(oracle, attr).load_rules(spec[fam])
+        rng = np.random.default_rng(23)
+        n_rows = eng.capacity
+        passed = np.zeros(n_rows, np.int64)
+        blocked = np.zeros(n_rows, np.int64)
+        for now, b in stream:
+            clock.now = now
+            reason = oracle.harvest_decisions(
+                oracle.check_batch(to_device(b, dev)))[0]
+            rows = b["cluster_row"]
+            ok = rows >= 0
+            np.add.at(passed, rows[ok & (reason == 0)],
+                      b["count"][ok & (reason == 0)])
+            np.add.at(blocked, rows[ok & (reason > 0)],
+                      b["count"][ok & (reason > 0)])
+            oracle.complete_batch(to_device(rollout_exit_buf(rng, b, reason),
+                                            dev))
+        cluster_rows = np.array(sorted(eng.registry.resources().values()))
+        for name, want, ch in (("pass", passed, S.SH_WOULD_PASS),
+                               ("block", blocked, S.SH_WOULD_BLOCK)):
+            got = counts[ch][cluster_rows]
+            if not np.array_equal(got, want[cluster_rows]):
+                bad = cluster_rows[np.nonzero(got != want[cluster_rows])[0]]
+                raise AssertionError(
+                    f"shadow would-{name} differs from the enforcing engine "
+                    f"on rows {bad[:8].tolist()}")
+        return {"resources_compared": int(len(cluster_rows)),
+                "enforced_pass": int(passed.sum()),
+                "enforced_block": int(blocked.sum()),
+                "equal_to_shadow": True}
+    finally:
+        oracle.close()
+
+
+def rollout_seal(eng, clock, dev_name):
+    """The metric log of the parity stream's engine: one timer tick at the
+    stream's end into a fresh directory; returns the directory."""
+    import shutil
+
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.metrics.writer import MetricWriter
+
+    d = METRIC_LOG_DIR / dev_name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    writer = MetricWriter(app="rollout", base_dir=str(d))
+    lines = MetricTimerListener(eng, writer).tick(clock.now)
+    writer.close()
+    if lines <= 0:
+        raise AssertionError("the seal wrote no metric line")
+    return d, lines
+
+
+def rollout_canary(dev, run):
+    """Part 2: the bad candidate enforced for a 2,500 bps canary slice,
+    then the 0 and 10,000 bps edges; every lane's verdict is its host
+    prediction. Part 3: the guardrail's ticks until it aborts."""
+    from sentinel_tpu_torch.rollout import canary
+    from sentinel_tpu_torch.rollout.manager import _salt_for
+
+    eng, clock, cluster, _, _ = run
+    eng.rollout.abort("rollout-v2", reason="next part")
+    origins = [eng.registry.origin_id(f"origin{i}")
+               for i in range(CANARY_ORIGINS)]
+    eng.rollout.load_candidate("cut", cut_candidate(), stage="canary",
+                               canary_bps=CANARY_BPS)
+    salt = _salt_for("cut")
+    rng = np.random.default_rng(29)
+    decs, in_slice = [], 0
+    plan = [CANARY_BPS] * CANARY_ROUNDS + [0, 10_000]
+    for bps in plan:
+        if bps != eng.rollout.active_set().canary_bps:
+            eng.rollout.set_stage("cut", "canary", canary_bps=bps)
+        b = canary_buf(rng, 8192, cluster, origins)
+        clock.now += ROLLOUT_STEP_MS
+        dec = eng.check_batch(to_device(b, dev))
+        decs.append(decisions_np(dec))
+        want = np.array([canary.in_canary(int(o), int(c), salt, bps)
+                         for o, c in zip(b["origin_id"], b["context_id"])])
+        got = decs[-1]["reason"] > 0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"canary at {bps} bps: "
+                                 f"{int((got != want).sum())} lanes differ "
+                                 "from the host prediction")
+        if bps == CANARY_BPS:
+            in_slice += int(want.sum())
+        eng.complete_batch(to_device(rollout_exit_buf(
+            rng, b, decs[-1]["reason"]), dev))
+    if decs[-2]["reason"].any() or not (decs[-1]["reason"] > 0).all():
+        raise AssertionError("canary edges: 0 bps must govern no lane and "
+                             "10,000 bps every lane")
+    # Part 3: shadow again, one tick per simulated second until abort.
+    eng.rollout.set_stage("cut", "shadow")
+    ticks = [eng.rollout.tick(now_ms=clock.now)]
+    while ticks[-1].get("status") != "aborted" and len(ticks) < 8:
+        b = canary_buf(rng, 8192, cluster, origins)
+        clock.now += 1000
+        reason = eng.harvest_decisions(eng.check_batch(to_device(b, dev)))[0]
+        eng.complete_batch(to_device(rollout_exit_buf(rng, b, reason), dev))
+        ticks.append(eng.rollout.tick(now_ms=clock.now))
+    if ticks[-1].get("status") != "aborted" \
+            or eng.rollout.active_name is not None \
+            or eng.shadow_counts() is not None:
+        raise AssertionError(f"the guardrail did not abort: {ticks[-1]}")
+    return {"canary_lanes": in_slice,
+            "canary_lanes_of": CANARY_ROUNDS * 8192,
+            "guardrail_windows": len(ticks) - 1,
+            "ended": eng.rollout.candidate("cut").ended_reason}, \
+        {"decisions": decs, "ticks": ticks}
+
+
+def rollout_promote(run):
+    """After the abort: the leases come back once the system rule goes; a
+    second candidate stands them down again, and its promote makes its
+    rules live and brings them back."""
+    eng = run[0]
+    eng.system_rules.load_rules([])
+    leases = len(eng._leases)
+    eng.rollout.load_candidate("v3", {"flow": [{"resource": "res0",
+                                                "count": 5}]})
+    gated = len(eng._leases)
+    eng.rollout.promote("v3")
+    with eng._lock, eng._on_stream():
+        eng._ensure_compiled()
+    live = {r.resource: r.count for r in eng.flow_rules.get_rules()}
+    if leases <= 0 or gated != 0 or len(eng._leases) != leases \
+            or live.get("res0") != 5 or eng.shadow_counts() is not None:
+        raise AssertionError(f"promote: leases {leases} -> {gated} -> "
+                             f"{len(eng._leases)}, res0 count "
+                             f"{live.get('res0')}")
+    with eng._lock:
+        return {"leases_back": leases, "promoted_rule_count": 5}, \
+            convert.state_to_numpy(eng.rules)
+
+
+def rollout_slots(dev):
+    """Part 4: the slot phase's oracle engine (budget 8: it steals and
+    rehydrates) with a datasource-staged candidate; every surgery leaves
+    the touched shadow columns zero."""
+    import random
+
+    from sentinel_tpu_torch.ops.window import MIN_RT_EMPTY
+
+    names = [f"oracle{i}" for i in range(SLOT_ORACLE_NAMES)]
+    live = [(names[i], 3) for i in (0, 5, 10)]
+    run = SlotRun(dev, 8, live)
+    eng = run.eng
+    checked = []
+    execute = eng.slots._execute
+
+    def zeroed(evicts, admits, now_ms):
+        execute(evicts, admits, now_ms)
+        touched = sorted({s for _, s, _ in evicts} | {s for _, s in admits})
+        with eng._lock:
+            sh = eng.state.shadow
+            if sh is None or sh.counts[:, touched].any() \
+                    or sh.w1.counts[:, :, touched].any() \
+                    or (sh.w1.min_rt[:, touched] != MIN_RT_EMPTY).any():
+                raise AssertionError(f"surgery on slots {touched} left "
+                                     "shadow columns")
+        checked.append(len(touched))
+
+    eng.slots._execute = zeroed
+    staged = [F.FlowRule(resource=r, count=c) for r, c in live] + [
+        F.FlowRule(resource=names[0], count=1, candidate_set="slotc"),
+        F.FlowRule(resource=names[3], count=2, candidate_set="slotc")]
+    eng.flow_rules.load_rules(staged)
+    if eng.rollout.active_name != "slotc":
+        raise AssertionError("the tagged rules did not stage a candidate")
+    weights = [1.0 / (i + 1) ** 1.2 for i in range(SLOT_ORACLE_NAMES)]
+    rng = random.Random(1234)
+    verdicts = []
+    for _ in range(SLOT_ORACLE_SECONDS):
+        for _ in range(SLOT_ORACLE_PAIRS):
+            verdicts.append(run.serve(rng.choices(names, weights=weights)[0]))
+        run.second()
+    counts = eng.shadow_counts()
+    out = run.result(verdicts)
+    out["shadow_counts"] = counts
+    out["surgeries_checked"] = len(checked)
+    return out
+
+
+def rollout_timer(eng, clock, dev):
+    """A MetricTimerListener on the card engine's own thread writes the
+    seconds the stream seals while it runs."""
+    import shutil
+
+    from sentinel_tpu_torch.metrics.searcher import MetricSearcher
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.metrics.writer import MetricWriter
+
+    d = METRIC_LOG_DIR / "timer"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cluster = np.array([eng.registry.get_cluster_row(f"res{i}")
+                        for i in range(N_RESOURCES)], np.int32)
+    rng = np.random.default_rng(31)
+    timer = MetricTimerListener(eng, MetricWriter(app="timer",
+                                                  base_dir=str(d)),
+                                period_s=TIMER_PERIOD_S).start()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(3):
+            b = make_entry_batch_np(2048)
+            b["cluster_row"][:] = cluster[rng.integers(0, N_RESOURCES,
+                                                       size=2048)]
+            b["count"][:] = 1
+            eng.check_batch(to_device(b, dev))
+            clock.now += 1000
+            time.sleep(3 * TIMER_PERIOD_S)
+    finally:
+        timer.stop()
+    window = time.perf_counter() - t0
+    seconds = sorted({n.timestamp for n in
+                      MetricSearcher(str(d), "timer").find(0)})
+    if len(seconds) < 2:
+        raise AssertionError(f"the timer wrote {len(seconds)} seconds in "
+                             f"{window:.2f} s")
+    return {"seconds_written": len(seconds), "window_s": window}
+
+
+def rollout_phase(dev, main_results):
+    import gc
+
+    from sentinel_tpu_torch.metrics.searcher import MetricSearcher
+
+    t0 = time.perf_counter()
+    # Earlier phases' closed engines are freed now, not during the phase,
+    # so the peak above the start is this phase's own.
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    out, parts = {}, {}
+    runs, shares = {}, {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        t1 = time.perf_counter()
+        nums, shares[name], runs[name] = rollout_shadow(d, name == "card")
+        if name == "card":
+            out["shadow"] = nums
+            out["shadow"]["without_candidate"] = {
+                f"width_{w}": {k: main_results[w][k] for k in (
+                    "entry_step_ms", "prefix_launches_per_entry_step",
+                    "host_syncs_per_round")} for w in WIDTHS}
+        parts[f"shadow_{name}_s"] = time.perf_counter() - t1
+    a, b = shares["card"], shares["cpu"]
+    for r, (x, y) in enumerate(zip(a["decisions"], b["decisions"])):
+        for f in x:
+            if not np.array_equal(x[f], y[f]):
+                raise AssertionError(f"rollout round {r}: decisions.{f} "
+                                     "differ between the card and the CPU")
+    if not np.array_equal(a["shadow_counts"], b["shadow_counts"]):
+        raise AssertionError("shadow_counts differ between card and CPU")
+    compare_states(a["state"], b["state"], "rollout")
+
+    t1 = time.perf_counter()
+    logs = {n: rollout_seal(runs[n][0], runs[n][1], n) for n in runs}
+    files = {n: {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+             for n, (d, _) in logs.items()}
+    if files["card"] != files["cpu"] or not any(
+            k.endswith(".idx") for k in files["card"]):
+        raise AssertionError("the metric log files differ between the card "
+                             "and the CPU")
+    found = MetricSearcher(str(logs["card"][0]), "rollout").find(
+        0, recommend_lines=logs["card"][1] + 1)
+    if len(found) != logs["card"][1]:
+        raise AssertionError(f"the searcher read {len(found)} of "
+                             f"{logs['card'][1]} lines")
+    out["metric_log"] = {"lines": logs["card"][1],
+                         "seconds": len({n.timestamp for n in found}),
+                         "files": sorted(files["card"]),
+                         "bytes": sum(len(v) for v in files["card"].values()),
+                         "card_equals_cpu": True}
+    parts["metric_log_s"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    canary = {n: rollout_canary(runs[n][0].device, runs[n]) for n in runs}
+    out["canary"] = canary["card"][0]
+    for r, (x, y) in enumerate(zip(canary["card"][1]["decisions"],
+                                   canary["cpu"][1]["decisions"])):
+        for f in x:
+            if not np.array_equal(x[f], y[f]):
+                raise AssertionError(f"canary round {r}: decisions.{f} "
+                                     "differ between the card and the CPU")
+    if canary["card"][1]["ticks"] != canary["cpu"][1]["ticks"]:
+        raise AssertionError("guardrail ticks differ between card and CPU")
+    with runs["card"][0]._lock, runs["cpu"][0]._lock:
+        compare_states(convert.state_to_numpy(runs["card"][0].state),
+                       convert.state_to_numpy(runs["cpu"][0].state),
+                       "canary")
+    parts["canary_guardrail_s"] = time.perf_counter() - t1
+
+    # Teardown: a main-path round on the card is back to its syncs.
+    t1 = time.perf_counter()
+    eng, clock, cluster, dn, origin_a = runs["card"]
+    clock.now += 1000 - clock.now % 1000
+    after, _ = headline_rounds(eng, clock, cluster, dn, origin_a,
+                               np.random.default_rng(7), 8192, dev)
+    out["after_abort"] = {k: after[k] for k in (
+        "entry_step_ms", "prefix_launches_per_entry_step",
+        "host_syncs_per_round")}
+    if after["host_syncs_per_round"] != HOST_SYNCS_PER_ROUND:
+        raise AssertionError(f"host syncs per round {after['host_syncs_per_round']}"
+                             f" after the abort, not {HOST_SYNCS_PER_ROUND}")
+    out["timer"] = rollout_timer(eng, clock, dev)
+    promoted = {n: rollout_promote(runs[n]) for n in runs}
+    out["promote"] = promoted["card"][0]
+    compare_states(promoted["card"][1], promoted["cpu"][1], "promoted_rules")
+    for n in runs:
+        runs[n][0].close()
+    parts["teardown_s"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    slots = {n: rollout_slots(d) for n, d in (("card", dev), ("cpu", "cpu"))}
+    x, y = slots["card"], slots["cpu"]
+    for k in ("verdicts", "status", "events", "view"):
+        if x[k] != y[k]:
+            raise AssertionError(f"rollout slots: {k} differs between the "
+                                 "card and the CPU")
+    compare_states(x["state"], y["state"], "rollout_slots")
+    if not np.array_equal(x["shadow_counts"], y["shadow_counts"]):
+        raise AssertionError("slot-mode shadow_counts differ")
+    if x["status"]["evictionsTotal"] <= 0 or x["surgeries_checked"] <= 0 \
+            or x["fail_open"] or x["committer_failures"]:
+        raise AssertionError(f"rollout slots: {x['status']}")
+    out["slots"] = {"surgeries_checked": x["surgeries_checked"],
+                    "evictions": x["status"]["evictionsTotal"],
+                    "rehydrations": x["status"]["rehydrationsTotal"],
+                    "would_block": int(x["shadow_counts"][1].sum()),
+                    "card_equals_cpu": True}
+    parts["slots_s"] = time.perf_counter() - t1
+
+    if prefix_cuda.launches <= 0 or prefix_cuda.tile_launches:
+        raise AssertionError(f"rollout phase prefix launches "
+                             f"{prefix_cuda.launches}, tile walk "
+                             f"{prefix_cuda.tile_launches}")
+    out["prefix_launches"] = prefix_cuda.launches
+    out["prefix_launches_by_shape"] = {
+        f"K={k},N={n},M={m}": c
+        for (k, n, m), c in sorted(prefix_cuda.launches_by_shape.items())}
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"rollout": out}), flush=True)
+    if out["phase_s"] > ROLLOUT_PHASE_LIMIT_S:
+        raise AssertionError(f"rollout phase took {out['phase_s']:.1f} s, "
+                             f"over {ROLLOUT_PHASE_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2322,7 +2884,7 @@ def main() -> int:
             print("ptxas:", line.strip(), flush=True)
 
     main_shape, max_err = kernel_phase(dev)
-    _, main_launches, main = main_path_phase(dev)
+    main_results, main_launches, main = main_path_phase(dev)
     profile_phase(dev)
     parity_phase()
     api_phase(dev)
@@ -2330,6 +2892,7 @@ def main() -> int:
     _, slot_run = slot_phase(dev)
     boot_phase(dev, main, slot_run)
     main["eng"].close()
+    rollout_phase(dev, main_results)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)

@@ -5,9 +5,10 @@ NamedTuples; flattened to nested dicts of numpy arrays (field name ->
 array or sub-dict) they load into this package's NamedTuples of the same
 field names. uint32 arrays (param value hashes, owner keys) become int64
 holding the same values; every other dtype is kept. The flight-recorder
-ring (``flight``) carries both ways, and stays ``None`` when the dict has
-none (a flattened JAX state drops its ``None`` fields). Fields this
-package does not carry (the JAX state's ``shadow`` lanes) are ignored.
+ring (``flight``) and the staged-rollout shadow world (``shadow``, with
+its window, flow, param and degrade state) carry both ways, and each
+stays ``None`` when the dict has none (a flattened JAX state drops its
+``None`` fields).
 
 Checkpoints do not travel through this module: both packages write and
 read the same ``.npz`` files (``core/checkpoint.py``).
@@ -38,7 +39,9 @@ _NESTED = {
     S.SentinelState: {"w1": W.Window, "w60": W.Window, "flow": F.FlowState,
                       "degrade": D.DegradeState, "param": P.ParamFlowState,
                       "sec": S.SecondAccum, "telemetry": S.TelemetryState,
-                      "flight": S.FlightRecorder},
+                      "shadow": S.ShadowState, "flight": S.FlightRecorder},
+    S.ShadowState: {"w1": W.Window, "flow": F.FlowState,
+                    "param": P.ParamFlowState, "degrade": D.DegradeState},
     D.DegradeState: {"win": W.RowWindow},
 }
 

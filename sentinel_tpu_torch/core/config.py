@@ -16,6 +16,11 @@ from typing import Dict, Optional
 
 # Keys read by this package.
 LOG_DIR = "csp.sentinel.log.dir"
+# The metric log (metrics/writer.py): the file name's app and the roll and
+# trim limits (reference: SentinelConfig's metric file keys).
+APP_NAME = "project.name"
+SINGLE_METRIC_FILE_SIZE = "csp.sentinel.metric.file.single.size"
+TOTAL_METRIC_FILE_COUNT = "csp.sentinel.metric.file.total.count"
 LEASE_ENABLED = "csp.sentinel.lease.enabled"
 # The instant window's geometry and the prioritized-borrow wait cap, read
 # once at engine construction (reference: IntervalProperty /
@@ -81,6 +86,9 @@ SLOTS_SPILL_MAX = "csp.sentinel.slots.spill.max"
 SLOTS_STALE_SECONDS = "csp.sentinel.slots.stale.seconds"
 
 DEFAULT_LEASE_ENABLED = "true"
+DEFAULT_APP_NAME = "sentinel-tpu-app"
+DEFAULT_SINGLE_METRIC_FILE_SIZE = 50 * 1024 * 1024
+DEFAULT_TOTAL_METRIC_FILE_COUNT = 6
 DEFAULT_PROFILE_SYNC_EVERY = 64
 DEFAULT_TELEMETRY_TRACE_SAMPLE_EVERY = 64
 DEFAULT_TELEMETRY_TRACE_CAPACITY = 256
@@ -152,6 +160,17 @@ class SentinelConfig:
         if d:
             return d
         return os.path.join(os.path.expanduser("~"), "logs", "csp")
+
+    def app_name(self) -> str:
+        return self.get(APP_NAME) or DEFAULT_APP_NAME
+
+    def single_metric_file_size(self) -> int:
+        return self.get_int(SINGLE_METRIC_FILE_SIZE,
+                            DEFAULT_SINGLE_METRIC_FILE_SIZE)
+
+    def total_metric_file_count(self) -> int:
+        return self.get_int(TOTAL_METRIC_FILE_COUNT,
+                            DEFAULT_TOTAL_METRIC_FILE_COUNT)
 
     def pipeline_inflight_depth(self) -> int:
         v = self.get_int(PIPELINE_INFLIGHT_DEPTH,

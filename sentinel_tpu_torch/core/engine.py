@@ -53,9 +53,18 @@ seeded from config (``csp.sentinel.statistic.interval.ms`` /
 engine. SPI device checkers (``core/spi.py``) ride every entry dispatch,
 read again after each (un)registration.
 
-What it does not have yet (later slices): the cluster token check,
-shadow lanes, the pod and cluster checkpoints, and the fold's SLO,
-waterfall, adaptive and stream hooks.
+Staged rollout (``rollout/``): ``engine.rollout`` (a ``RolloutManager``)
+stages a candidate ruleset, loaded through it or pushed as rules tagged
+``candidateSet``. While one holds the device, the engine compiles the
+merged candidate pack beside the live one (``_compile_shadow``), the
+state carries its shadow world, every entry dispatch evaluates it (and
+enforces it for the canary slice) and every exit dispatch feeds it; the
+leases and the unruled pass stand down, so every entry reaches the step.
+``shadow_counts()`` reads its counters.
+
+What it does not have yet (later slices): the cluster token check, the
+pod and cluster checkpoints, and the fold's SLO, waterfall, adaptive and
+stream hooks.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -265,8 +274,8 @@ class SentinelEngine:
         self._rules: Optional[S.RulePack] = None
         self._named_origins: Dict[str, set] = {}
         self._slot_floor = dict(INITIAL_SLOT_FLOOR)
-        self._dirty = {k: False for k in
-                       ("flow", "degrade", "authority", "system", "param")}
+        self._dirty = {k: False for k in ("flow", "degrade", "authority",
+                                          "system", "param", "rollout")}
         self._spi = spi_mod
         # The SPI device checkers spliced into every entry step, and the
         # registration version they were read at (-1: read at the first
@@ -326,6 +335,16 @@ class SentinelEngine:
                             ("system", self.system_rules),
                             ("param", self.param_rules)):
             mgr.add_listener(lambda f=family: self._mark_dirty(f))
+        # Staged rollout: the compiled candidate pack and the canary
+        # scalars live here; the manager owns the lifecycle and the
+        # guardrail. Built after the rule managers (it reads their staged
+        # partitions).
+        from sentinel_tpu_torch.rollout.manager import RolloutManager
+
+        self._shadow_rules: Optional[S.RulePack] = None
+        self._canary_bps: Optional[int] = None
+        self._canary_salt = 0
+        self.rollout = RolloutManager(self)
 
     def _seed_window_config(self) -> None:
         """Seed the instant-window geometry (reference: ``IntervalProperty``
@@ -565,12 +584,29 @@ class SentinelEngine:
         # dispatch, and the lease rebuild must not queue behind a step.
         with self._config_lock:
             self._dirty[family] = True
+            # Tagged rules stage (or update, or end) a candidate before the
+            # leases rebuild, so the fast path sees the rollout's gate.
+            self._sync_rollout_sources()
             if family == "flow":
                 # entry() reads the named-origin map before any compile.
                 self._named_origins = F.named_origin_map(
                     self.flow_rules.get_rules(), self.registry)
             self._rebuild_leases()
         self._slots_sync_pins()
+
+    def _sync_rollout_sources(self) -> None:
+        """A rule push may carry staged (candidate-tagged) rules, and the
+        active candidate's MERGED view depends on the live rules: both make
+        the compiled shadow pack stale. Caller holds the config lock."""
+        self.rollout.refresh_staged()
+        if self.rollout.device_active():
+            self._dirty["rollout"] = True
+
+    def _set_canary(self, bps: Optional[int], salt: int) -> None:
+        """The canary scalars every entry dispatch passes to the step
+        (``None`` = no canary: the shadow lanes only count)."""
+        self._canary_bps = None if bps is None else int(bps)
+        self._canary_salt = int(salt)
 
     def _snapshot_checkers(self) -> None:
         # Version BEFORE checkers: a registration racing between the two
@@ -656,6 +692,7 @@ class SentinelEngine:
                 spec1=self._spec1, device=self.device,
                 flight_seconds=self.flight_seconds)
             self._maybe_start_system_listener()
+            self._compile_shadow()
             return
         if not any(self._dirty.values()):
             return
@@ -687,6 +724,61 @@ class SentinelEngine:
             self._rules = self._rules._replace(param=pt)
             self._state = self._state._replace(
                 param=P.make_param_state(pt.num_rules, device=self.device))
+        if self._dirty["rollout"]:
+            self._compile_shadow()
+
+    def _compile_shadow(self) -> None:
+        """(Re)build the candidate pack and a FRESH shadow world, or tear
+        both down when no candidate holds the device.
+
+        The candidate compiles from the merged view (live rules plus the
+        candidate's per-resource overrides, ``rollout/manager.py``) through
+        the same registry view as the live pack (the slot table's in slot
+        mode) and with the live slot floors, which it does not ratchet.
+        Like a live rule load, a candidate edit re-creates controller
+        state: the shadow world and its counters restart cold, and the
+        guardrail re-baselines on its next tick. Runs under the engine lock
+        on the engine's stream (``_ensure_compiled``)."""
+        self._dirty["rollout"] = False
+        spec = self.rollout.device_spec()
+        if spec is None:
+            self._shadow_rules = None
+            if self._state is not None and self._state.shadow is not None:
+                self._state = self._state._replace(shadow=None)
+            return
+        reg, dev = self._rule_registry(), self.device
+        ft, _ = F.compile_flow_rules(
+            spec["flow"], reg, self.capacity,
+            min_slots=self._slot_floor["flow"], device=dev)
+        dt, di = D.compile_degrade_rules(
+            spec["degrade"], reg, self.capacity,
+            min_slots=self._slot_floor["degrade"], device=dev)
+        at = A.compile_authority_rules(
+            spec["authority"], reg, self.capacity,
+            min_slots=self._slot_floor["authority"], device=dev)
+        pt = P.compile_param_rules(
+            spec["param"], reg, self.capacity,
+            min_slots=self._slot_floor["param"], device=dev)
+        self._shadow_rules = S.RulePack(
+            flow=ft, degrade=dt, authority=at,
+            system=Y.compile_system_rules(spec["system"], device=dev),
+            param=pt)
+        if self._state is not None:
+            self._state = self._state._replace(shadow=S.make_shadow_state(
+                self.capacity, self._shadow_rules, D.make_degrade_state(dt, di),
+                spec1=self._spec1, device=dev))
+
+    def shadow_counts(self) -> Optional[np.ndarray]:
+        """Cumulative rollout counters since the candidate was installed:
+        ``np.int64[S.NUM_SHADOW_COUNTERS, R]`` (would-pass / would-block
+        per family beside the live outcome of the same lanes), or None when
+        no candidate holds the device. One copy under the engine lock."""
+        with self._lock, self._on_stream():
+            self._ensure_compiled()
+            state = self._state
+            if state is None or state.shadow is None:
+                return None
+            return state.shadow.counts.cpu().numpy().copy()
 
     # -- device steps --------------------------------------------------------
 
@@ -711,7 +803,10 @@ class SentinelEngine:
                     self._entry_step, self._state, self._rules, batch, now,
                     spec1=self._spec1,
                     occupy_timeout_ms=self._occupy_timeout_ms,
-                    extra_checkers=self._checkers)
+                    extra_checkers=self._checkers,
+                    shadow_rules=self._shadow_rules,
+                    canary_bps=self._canary_bps,
+                    canary_salt=self._canary_salt)
             except Exception as ex:  # noqa: BLE001 — the state may be consumed
                 self._state = None  # restart cold: rules durable, stats not
                 raise DeviceDispatchError(
@@ -737,7 +832,7 @@ class SentinelEngine:
                 self._state = timed_call(
                     self.step_timer, "exit", batch.size, self._sync,
                     self._exit_step, self._state, self._rules, batch, now,
-                    spec1=self._spec1)
+                    spec1=self._spec1, shadow_rules=self._shadow_rules)
             except Exception as ex:  # noqa: BLE001
                 self._state = None
                 raise DeviceDispatchError(
@@ -886,6 +981,10 @@ class SentinelEngine:
                             device=self.device),
                         occupied_stamp=torch.tensor(
                             -1, dtype=torch.int64, device=self.device))
+            # The shadow world's window has the OLD geometry: it is rebuilt
+            # under the new spec at the next compile (its statistics reset
+            # with the live window's).
+            self._dirty["rollout"] = True
             self._rebuild_leases()
 
     # -- pipelined mode ------------------------------------------------------
@@ -1742,9 +1841,10 @@ class SentinelEngine:
         return self.registry if slots is None else slots.rule_registry_view()
 
     def _slot_pinned_resources(self) -> set:
-        """Resources the compiled rules target: PINNED hot, since the rule
-        tensors hold their slot indices. A staged rollout candidate's
-        rules would pin too; this package has no rollout yet."""
+        """Resources the compiled rules target, live and the rollout
+        candidate's: PINNED hot, since the rule tensors hold their slot
+        indices (evicting one would apply its rule to the slot's
+        successor)."""
         if self.slots is None:
             return set()
         pinned: set = set()

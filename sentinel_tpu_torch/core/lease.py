@@ -482,6 +482,13 @@ def build_lease_table(engine):
         return {}, set(), False
     if engine._spi.host_slots() or engine._spi.device_checkers():
         return {}, set(), False
+    rollout = getattr(engine, "rollout", None)
+    if rollout is not None and rollout.device_active():
+        # A staged candidate (shadow / canary) needs EVERY entry on the
+        # device path: host-leased admissions would be invisible to its
+        # would-verdict counters and unenforceable for canary lanes. The
+        # fast path stands down until promote or abort.
+        return {}, set(), False
     flow_rules = engine.flow_rules.get_rules()
     ruled = {}
     for r in flow_rules:

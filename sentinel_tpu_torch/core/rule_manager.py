@@ -4,11 +4,12 @@ SURVEY.md §1 "Rules are data, managers are registries").
 Every family keeps a list rebuilt wholesale on load (§3.2 swap semantics),
 filters invalid rules, and fans out to engine listeners for tensor rebuild.
 
-Staged sources: a rule carrying ``candidate_set`` is part of a named
-CANDIDATE ruleset — it lands in a per-set staged partition instead of the
-live list, so a tagged rule can never leak into enforcement. This package
-has no rollout manager yet; :meth:`get_staged` keeps the partition
-readable for the slice that adds one.
+Staged sources (``rollout/``): a rule carrying ``candidate_set`` is part
+of a named CANDIDATE ruleset — it rides the same wholesale load, but lands
+in a per-set staged partition instead of the live list, so a tagged rule
+can never leak into enforcement. The rollout manager reads the staged
+partitions through :meth:`get_staged` on every push and stages them as a
+candidate (``RolloutManager.refresh_staged``).
 """
 
 from __future__ import annotations

@@ -21,9 +21,9 @@ resources into it dynamically:
   unenforced behind a counter; unruled cold resources pass behind a
   counter. Cold pass / block / exit tallies fold back into the device
   totals at rehydration (exact counter conservation).
-* **pins**: resources named by any compiled rule are PINNED hot (the
-  compiled rule tensors target slot indices). Only unruled resources
-  churn.
+* **pins**: resources named by any compiled rule, live or of the staged
+  rollout candidate, are PINNED hot (the compiled rule tensors target
+  slot indices). Only unruled resources churn.
 
 Steal / admit decisions ride the once-per-second spill fold
 (:meth:`SlotTable.on_spill`), fed by the telescope's top-k, behind the
@@ -36,9 +36,10 @@ touched slots' columns of every per-row tensor into one int32 buffer
 (int64 tensors reinterpreted as int32 pairs), moves it to the host in
 ONE device-to-host copy, runs the reference's spill and graft arithmetic
 on those columns in numpy, and writes them back with ONE host-to-device
-copy and ``index_copy_``; the flight ring's touched columns are zeroed
-on the device. The result is the reference's full-array surgery, bit
-for bit, at the cost of the touched columns only
+copy and ``index_copy_``; the flight ring's and the rollout shadow
+world's touched columns are zeroed on the device (``index_fill_``). The
+result is the reference's full-array surgery, bit for bit, at the cost of
+the touched columns only
 (``surgery_d2h_bytes_total`` / ``surgery_h2d_bytes_total``).
 
 Concurrency protocol:
@@ -645,8 +646,14 @@ class SlotTable:
                 grafted.append(info)
 
             h2d = _scatter_columns(state, idx, h["cols"])
-            # Flight ring: zeroed, never grafted: a ring slot must not
+            # Shadow lanes and flight ring: zeroed, never grafted. The
+            # rollout guardrail re-baselines, and a ring slot must not
             # carry a prior tenancy's second into the next spill.
+            shadow = state.shadow
+            if shadow is not None:
+                shadow.counts.index_fill_(1, idx, 0)
+                shadow.w1.counts.index_fill_(2, idx, 0)
+                shadow.w1.min_rt.index_fill_(1, idx, W.MIN_RT_EMPTY)
             flight = state.flight
             if flight is not None:
                 for t in (flight.events, flight.attr, flight.hist):

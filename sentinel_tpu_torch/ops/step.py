@@ -25,8 +25,18 @@ second's deltas) is written at the once-per-second fold in
 ``flight_seconds`` is given; the engine asks for it by default
 (``csp.sentinel.telemetry.timeseries.seconds``, 128), as the reference
 engine does. The SPI device checkers ride ``entry_step``'s
-``extra_checkers``. The staged-rollout shadow lanes are not part of this
-package yet, and the step takes no such arguments.
+``extra_checkers``.
+
+The staged-rollout shadow world (``state.shadow``, a ``ShadowState``)
+is present while a candidate ruleset holds the device (``rollout/``):
+``entry_step(shadow_rules=...)`` runs the candidate's cascade in
+non-enforcing lanes of the same step, commits its would-verdicts through
+the live commit's one bincount, and with ``canary_bps`` set lets the
+candidate's verdict govern a hash-selected slice of lanes;
+``exit_step(shadow_rules=...)`` feeds live completions to the candidate's
+breakers and THREAD-grade param gauges. The pod arguments of the
+reference (``shadow_extra_pass`` / ``shadow_extra_cms``) wait for the pod
+reduction.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from sentinel_tpu_torch.models import system as Y
 from sentinel_tpu_torch.ops import segment as seg
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops.window import add_at, in_range, min_at
+from sentinel_tpu_torch.rollout.canary import device_in_canary
 from sentinel_tpu_torch.telemetry.attribution import (
     NUM_ATTR_REASONS,
     NUM_RT_BUCKETS,
@@ -58,6 +69,21 @@ from sentinel_tpu_torch.utils.device import SYNCS, resolve_device
 
 SPEC_1S = W.WindowSpec(C.SECOND_WINDOW_MS, C.SECOND_BUCKETS)
 SPEC_60S = W.WindowSpec(C.MINUTE_WINDOW_MS, C.MINUTE_BUCKETS)
+
+# Shadow-lane counter channels (rollout/): cumulative per node row since
+# the candidate set was installed. WOULD_* are the candidate ("shadow
+# world") verdicts; LIVE_* mirror the live commit, so a rollout guardrail
+# diffs the two worlds from ONE tensor read.
+SH_WOULD_PASS = 0
+SH_WOULD_BLOCK = 1
+SH_WB_AUTHORITY = 2
+SH_WB_SYSTEM = 3
+SH_WB_PARAM = 4
+SH_WB_FLOW = 5
+SH_WB_DEGRADE = 6
+SH_LIVE_PASS = 7
+SH_LIVE_BLOCK = 8
+NUM_SHADOW_COUNTERS = 9
 
 
 class SecondAccum(NamedTuple):
@@ -93,6 +119,24 @@ def make_telemetry_state(num_rows: int, device) -> TelemetryState:
         stage_hist=z((NUM_RT_BUCKETS, num_rows), torch.int32),
         stage_slot=z((NUM_ATTR_REASONS, NUM_SLOT_BINS), torch.int32),
     )
+
+
+class ShadowState(NamedTuple):
+    """The candidate ruleset's parallel world (``rollout/``).
+
+    The shadow flow and param checks admit against what the candidate
+    WOULD have passed, so the shadow world carries its own instant window
+    and controller state for every stateful family. Thread gauges, RT and
+    exception outcomes and the host OS signals come from the live tensors
+    (which requests ran is decided by the live world). Every tensor here
+    is the shadow's own: no live write reaches it and no shadow write
+    reaches the live state."""
+
+    w1: W.Window             # shadow instant window (candidate-passed)
+    flow: F.FlowState        # candidate warm-up / leaky-bucket state
+    param: P.ParamFlowState
+    degrade: D.DegradeState  # candidate breakers, fed by LIVE completions
+    counts: torch.Tensor     # int64[NUM_SHADOW_COUNTERS, R] cumulative
 
 
 class FlightRecorder(NamedTuple):
@@ -140,6 +184,9 @@ class SentinelState(NamedTuple):
     occupied_next: torch.Tensor   # int32[R] pending occupy borrows per row
     occupied_stamp: torch.Tensor  # int64[] w1 bucket-start of the grants
     telemetry: TelemetryState
+    # The staged-rollout shadow world, present only while a candidate
+    # ruleset holds the device.
+    shadow: Optional[ShadowState] = None
     # The per-second flight-recorder ring, or None when recording is off
     # (the default of a bare make_state). Written only at the fold.
     flight: Optional[FlightRecorder] = None
@@ -188,6 +235,25 @@ def make_state(num_rows: int, flow_rules: int, now_ms: int,
         telemetry=make_telemetry_state(num_rows, device),
         flight=(make_flight_recorder(num_rows, flight_seconds, device)
                 if flight_seconds > 0 else None),
+    )
+
+
+def make_shadow_state(num_rows: int, shadow_rules: RulePack,
+                      degrade_state: D.DegradeState,
+                      spec1: W.WindowSpec = SPEC_1S,
+                      device=None) -> ShadowState:
+    """A fresh shadow world for a just-installed candidate ruleset: cold
+    controller state, as a live rule load makes, an empty window, zero
+    counters. ``degrade_state`` must be the candidate's own breakers
+    (``D.make_degrade_state`` of its compiled degrade rules)."""
+    device = resolve_device(device)
+    return ShadowState(
+        w1=W.make_window(num_rows, spec1, device),
+        flow=F.make_flow_state(shadow_rules.flow.num_rules, 0, device=device),
+        param=P.make_param_state(shadow_rules.param.num_rules, device=device),
+        degrade=degrade_state,
+        counts=torch.zeros((NUM_SHADOW_COUNTERS, num_rows), dtype=torch.int64,
+                           device=device),
     )
 
 
@@ -315,6 +381,75 @@ def _checker_verdict(chk, verdict, cand: torch.Tensor) -> torch.Tensor:
     return verdict
 
 
+def _shadow_entry_eval(state: SentinelState, shadow_rules: RulePack,
+                       batch: EntryBatch, now_ms: int, w1_live: W.Window,
+                       w60_live: W.Window, sec_counts: torch.Tensor,
+                       spec1: W.WindowSpec, occupy_timeout_ms: int):
+    """The candidate ruleset's cascade in non-enforcing lanes: authority
+    -> system -> param -> flow -> degrade, as the live chain. Every real
+    lane counts, pre-decided or not. Flow and param admit against the
+    shadow world (its rotated window and its controller state, updated in
+    place where the live checks update theirs); the system check reads
+    the live rotated window and the ROLLED minute window and second
+    staging (the same tensors the live check reads); thread gauges and OS
+    signals are live. Occupy borrows are not simulated: a prioritized
+    request the candidate rejects counts as would-block.
+
+    Returns ``(blocked, reason, wait_us, (flow, param, degrade) states,
+    rotated shadow w1, per-family block masks, rule_slot)``."""
+    sh = state.shadow
+    lanes = batch.cluster_row >= 0
+    sh_w1 = W.rotate(sh.w1, now_ms, spec1)
+
+    s_reason = torch.where(lanes, int(C.BlockReason.PASS), -1).to(torch.int32)
+    s_slot = torch.full_like(s_reason, -1)
+    s_av = A.check_authority(shadow_rules.authority, batch, lanes)
+    s_auth = s_av.blocked
+    s_reason = torch.where(lanes & s_auth, int(C.BlockReason.AUTHORITY),
+                           s_reason)
+    s_slot = torch.where(lanes & s_auth, s_av.slot, s_slot)
+    s_blocked = s_auth
+
+    cand = lanes & (~s_blocked)
+    s_sys = Y.check_system(shadow_rules.system, state.sys_signals, w1_live,
+                           w60_live, sec_counts, state.cur_threads, batch,
+                           cand, now_ms, spec1=spec1)
+    s_reason = torch.where(cand & s_sys, int(C.BlockReason.SYSTEM), s_reason)
+    s_slot = torch.where(cand & s_sys, 0, s_slot)
+    s_blocked = s_blocked | s_sys
+
+    cand = lanes & (~s_blocked)
+    s_pv = P.check_param_flow(shadow_rules.param, sh.param, batch, now_ms,
+                              cand)
+    s_reason = torch.where(cand & s_pv.blocked,
+                           int(C.BlockReason.PARAM_FLOW), s_reason)
+    s_slot = torch.where(cand & s_pv.blocked, s_pv.slot, s_slot)
+    s_blocked = s_blocked | s_pv.blocked
+
+    s_fv = F.check_flow(shadow_rules.flow, sh.flow, sh_w1, state.cur_threads,
+                        batch, now_ms, s_blocked | (~lanes), spec=spec1,
+                        occupy_timeout_ms=occupy_timeout_ms)
+    s_flow = lanes & (~s_blocked) & s_fv.blocked
+    s_reason = torch.where(s_flow, int(C.BlockReason.FLOW), s_reason)
+    s_slot = torch.where(s_flow, s_fv.slot, s_slot)
+    s_blocked = s_blocked | s_fv.blocked
+
+    cand = lanes & (~s_blocked)
+    s_dv = D.check_degrade(shadow_rules.degrade, sh.degrade, batch, now_ms,
+                           cand)
+    s_degr = cand & s_dv.blocked
+    s_reason = torch.where(s_degr, int(C.BlockReason.DEGRADE), s_reason)
+    s_slot = torch.where(s_degr, s_dv.slot, s_slot)
+    s_blocked = s_blocked | s_dv.blocked
+
+    s_wait_us = torch.where(lanes & (~s_blocked),
+                            torch.maximum(s_fv.wait_us, s_pv.wait_us), 0)
+    fam_blocks = (s_auth & lanes, s_sys, s_pv.blocked & lanes, s_flow,
+                  s_degr)
+    return (s_blocked & lanes, s_reason, s_wait_us,
+            (s_fv.state, s_pv.state, s_dv.state), sh_w1, fam_blocks, s_slot)
+
+
 def entry_step(
     state: SentinelState,
     rules: RulePack,
@@ -323,6 +458,9 @@ def entry_step(
     spec1: W.WindowSpec = SPEC_1S,
     occupy_timeout_ms: int = C.DEFAULT_OCCUPY_TIMEOUT_MS,
     extra_checkers: Sequence[Callable] = (),
+    shadow_rules: Optional[RulePack] = None,
+    canary_bps: Optional[int] = None,
+    canary_salt: Optional[int] = None,
 ) -> Tuple[SentinelState, Decisions]:
     """One admission step; consumes ``state``.
 
@@ -335,7 +473,16 @@ def entry_step(
     reaches flow decided. The fold above ran in place, so the checker sees
     the minute window and the second staging after it (the reference
     passes them before it): their sum, which a reader combines, is the
-    same either way."""
+    same either way.
+
+    ``shadow_rules`` (with ``state.shadow`` present) evaluates a staged
+    candidate ruleset in non-enforcing lanes: its would-verdicts
+    accumulate in ``state.shadow.counts`` with no effect on live
+    decisions, unless ``canary_bps`` is set; then the lanes whose
+    (origin, context) hash falls inside the canary slice take the
+    candidate's verdict instead of the live one, before the stat commit.
+    ``canary_bps`` and ``canary_salt`` are host ints: the mix reads
+    nothing back from the device."""
     now_ms = int(now_ms)
     w1 = W.rotate(state.w1, now_ms, spec1)
     w60, sec, tele, flight = _roll_second(state.w60, state.sec,
@@ -417,7 +564,31 @@ def entry_step(
     rule_slot = torch.where(hit, dv.slot, rule_slot)
     blocked = blocked | dv.blocked
 
+    # --- shadow lanes (rollout/) ----------------------------------------
+    # The candidate's verdicts ride the same step; canary lanes swap their
+    # ENFORCED verdict to the candidate's BEFORE the stat commit, so the
+    # live windows record what actually happened to them.
+    s_eval = None
     wait_pick = torch.maximum(fv.wait_us, pv.wait_us)
+    if shadow_rules is not None and state.shadow is not None:
+        s_eval = _shadow_entry_eval(state, shadow_rules, batch, now_ms, w1,
+                                    w60, sec.counts, spec1,
+                                    occupy_timeout_ms)
+        (s_blocked, s_reason, s_wait_us, s_states, sh_w1, s_fam,
+         s_slot) = s_eval
+        if canary_bps is not None:
+            # Pre-decided lanes (remote verdicts, lease commits) and
+            # occupy-granted lanes stay live-governed: their decision was
+            # made elsewhere.
+            mix = (valid & (~batch.pre_blocked) & (~batch.pre_passed)
+                   & (~granted)
+                   & device_in_canary(batch.origin_id, batch.context_id,
+                                      0 if canary_salt is None
+                                      else canary_salt, canary_bps))
+            blocked = torch.where(mix, s_blocked, blocked)
+            reason = torch.where(mix, s_reason, reason)
+            rule_slot = torch.where(mix, s_slot, rule_slot)
+            wait_pick = torch.where(mix, s_wait_us, wait_pick)
 
     # --- StatisticSlot commit --------------------------------------------
     rows4 = _target_rows(batch.cluster_row, batch.dn_row, batch.origin_row,
@@ -431,10 +602,21 @@ def entry_step(
     pass4 = pass_counts[:, None].expand(rows4.shape)
     block4 = block_counts[:, None].expand(rows4.shape)
     thread_inc = torch.where(admit, 1, 0)[:, None].expand(rows4.shape)
+    extra_cols = [thread_inc]
+    if s_eval is not None:
+        # The shadow window's PASS and every would-verdict channel ride
+        # the live commit's bincount as extra value columns: still one
+        # bincount. The LIVE channels need no column: they are exactly
+        # delta[PASS] / delta[BLOCK].
+        s_pass = torch.where(valid & (~s_blocked), batch.count, 0)
+        s_block = torch.where(valid & s_blocked, batch.count, 0)
+        for col in (s_pass, s_block,
+                    *(torch.where(m, batch.count, 0) for m in s_fam)):
+            extra_cols.append(col[:, None].expand(rows4.shape))
     delta, extras = _event_delta(
         rows4, [(C.MetricEvent.PASS, pass4, False),
                 (C.MetricEvent.BLOCK, block4, False)], w1.num_rows,
-        extra_cols=[thread_inc])
+        extra_cols=extra_cols)
     w1, sec = _apply_delta(w1, sec, delta, now_ms, spec1)
     occupied_next = occupied_next + fv.occ_add
     occupied_stamp = torch.full((), cur_start, dtype=torch.int64,
@@ -455,6 +637,19 @@ def entry_step(
     add_at(tele.stage_slot, (ch0, slot_bin_index(rule_slot)), batch.count,
            attr_on)
 
+    # The shadow commit (in place on the shadow's own tensors): the
+    # would-pass into its window's current bucket, the seven would-verdict
+    # channels, then the live PASS / BLOCK of the same rows.
+    shadow = state.shadow
+    if s_eval is not None:
+        sh_w1.counts[idx1, C.MetricEvent.PASS] += extras[1]
+        counts = shadow.counts
+        counts[SH_WOULD_PASS:SH_LIVE_PASS] += extras[1:8].to(torch.int64)
+        counts[SH_LIVE_PASS] += delta[C.MetricEvent.PASS].to(torch.int64)
+        counts[SH_LIVE_BLOCK] += delta[C.MetricEvent.BLOCK].to(torch.int64)
+        shadow = ShadowState(w1=sh_w1, flow=s_states[0], param=s_states[1],
+                             degrade=s_states[2], counts=counts)
+
     wait_us = torch.where(admit, wait_pick, 0)
 
     new_state = SentinelState(w1=w1, w60=w60, cur_threads=cur_threads,
@@ -462,7 +657,7 @@ def entry_step(
                               sys_signals=state.sys_signals, sec=sec,
                               occupied_next=occupied_next,
                               occupied_stamp=occupied_stamp,
-                              telemetry=tele, flight=flight)
+                              telemetry=tele, shadow=shadow, flight=flight)
     return new_state, Decisions(reason=reason, wait_us=wait_us,
                                 rule_slot=rule_slot)
 
@@ -473,10 +668,14 @@ def exit_step(
     batch: ExitBatch,
     now_ms: int,
     spec1: W.WindowSpec = SPEC_1S,
+    shadow_rules: Optional[RulePack] = None,
 ) -> SentinelState:
     """Completion commit: RT + success/exception, thread decrement, min-RT,
     RT histogram, breaker feed and THREAD-grade param gauges. Consumes
-    ``state``."""
+    ``state``. With a candidate installed (``shadow_rules`` and
+    ``state.shadow``), live completions also feed the candidate's breakers
+    and THREAD-grade param gauges: which requests completed, and how, is
+    decided by what actually ran."""
     now_ms = int(now_ms)
     w1 = W.rotate(state.w1, now_ms, spec1)
     w60, sec, tele, flight = _roll_second(state.w60, state.sec,
@@ -524,6 +723,13 @@ def exit_step(
     degrade = D.feed_degrade(rules.degrade, state.degrade, batch, now_ms)
     param = P.feed_param_exit(rules.param, state.param, batch)
 
+    shadow = state.shadow
+    if shadow_rules is not None and shadow is not None:
+        shadow = shadow._replace(
+            degrade=D.feed_degrade(shadow_rules.degrade, shadow.degrade,
+                                   batch, now_ms),
+            param=P.feed_param_exit(shadow_rules.param, shadow.param, batch))
+
     return state._replace(w1=w1, w60=w60, cur_threads=cur_threads,
                           degrade=degrade, param=param, sec=sec,
-                          telemetry=tele, flight=flight)
+                          telemetry=tele, shadow=shadow, flight=flight)

@@ -214,7 +214,11 @@ API_MODULES = (
     "sentinel_tpu_torch.core.spi", "sentinel_tpu_torch.core.lease",
     "sentinel_tpu_torch.log.record_log", "sentinel_tpu_torch.native",
     "sentinel_tpu_torch.metrics.metric_node",
-    "sentinel_tpu_torch.utils.time_util")
+    "sentinel_tpu_torch.utils.time_util",
+    "sentinel_tpu_torch.rollout.canary", "sentinel_tpu_torch.rollout.manager",
+    "sentinel_tpu_torch.datasource.converters",
+    "sentinel_tpu_torch.metrics.writer", "sentinel_tpu_torch.metrics.searcher",
+    "sentinel_tpu_torch.metrics.timer")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

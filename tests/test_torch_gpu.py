@@ -11,7 +11,10 @@ the card; and the boot surface: a config-seeded engine, checkpoints
 crossing between the card and the CPU bit for bit, the checkpoint timer
 saving from its own thread while another dispatches, torch device
 checkers deciding as on the CPU (and a verdict on the host refused), and
-no host sync added by the splice.
+no host sync added by the splice; and staged rollout: an engine with a
+candidate in shadow and in canary deciding as on the CPU (the shadow world
+included), the canary hash on the card over the int32 edges, the host
+syncs unchanged with no candidate, and the kernel's launches with one.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -846,3 +849,110 @@ def test_checker_returning_a_cpu_tensor_raises_on_cuda(cuda):
     finally:
         spi.unregister_device_checker(on_the_host)
         eng.close()
+
+
+# -- staged rollout ----------------------------------------------------------
+
+
+def _rollout_run(dev, stage):
+    """The smoke's rollout stream at a small size: the candidate staged
+    (then its stage set), 6 rounds at width 512 with exits."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.core.batch import to_device
+
+    cs.CAPACITY, cs.N_RESOURCES = 4096, 1000
+    eng, clock, cluster, dn, origin_a = cs.make_engine(dev, tight=False)
+    eng.rollout.load_candidate("v", cs.rollout_candidate())
+    if stage == "canary":
+        eng.rollout.set_stage("v", "canary", canary_bps=2500)
+    rng = np.random.default_rng(5)
+    decs = []
+    for _ in range(6):
+        clock.now += cs.ROLLOUT_STEP_MS
+        b = cs.rollout_buf(rng, 512, cluster, dn, origin_a)
+        dec = eng.check_batch(to_device(b, dev))
+        decs.append(cs.decisions_np(dec))
+        eng.complete_batch(to_device(
+            cs.rollout_exit_buf(rng, b, decs[-1]["reason"]), dev))
+    counts = eng.shadow_counts()
+    with eng._lock:
+        state = cs.convert.state_to_numpy(eng.state)
+    eng.close()
+    return decs, counts, state
+
+
+@pytest.mark.parametrize("stage", ["shadow", "canary"])
+def test_rollout_on_cuda_equals_cpu(cuda, stage, monkeypatch):
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "CAPACITY", cs.CAPACITY)
+    monkeypatch.setattr(cs, "N_RESOURCES", cs.N_RESOURCES)
+    card, cpu = _rollout_run(cuda, stage), _rollout_run("cpu", stage)
+    for x, y in zip(card[0], cpu[0]):
+        for f in x:
+            np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+    np.testing.assert_array_equal(card[1], cpu[1])
+    assert "shadow" in card[2] and card[1][1].sum() > 0
+    cs.compare_states(card[2], cpu[2])
+
+
+def test_canary_hash_on_cuda_equals_the_host(cuda):
+    from sentinel_tpu_torch.rollout import canary
+
+    edges = [-2**31, -2**31 + 1, -3, -1, 0, 1, 255, 2**16, 2**31 - 2,
+             2**31 - 1]
+    o = np.array([a for a in edges for _ in edges], np.int32)
+    c = np.array([b for _ in edges for b in edges], np.int32)
+    for salt in (0, 1, 0x7FFFFFFF, 0x5BD1E995 & 0x7FFFFFFF):
+        for bps in (0, 1, 2500, 9999, 10_000):
+            got = canary.device_in_canary(
+                torch.from_numpy(o).to(cuda), torch.from_numpy(c).to(cuda),
+                salt, bps).cpu().numpy()
+            want = [canary.in_canary(int(a), int(b), salt, bps)
+                    for a, b in zip(o, c)]
+            np.testing.assert_array_equal(got, want)
+
+
+def _syncs_and_launches(eng, clock, batch):
+    from sentinel_tpu_torch.ops import prefix_cuda
+    from sentinel_tpu_torch.utils.device import SYNCS
+
+    clock.now += 50
+    eng.check_batch(batch)  # compile and fold outside the count
+    torch.cuda.synchronize()
+    clock.now += 50
+    s0, l0, t0 = SYNCS.count, prefix_cuda.launches, prefix_cuda.tile_launches
+    eng.check_batch(batch)
+    torch.cuda.synchronize()
+    assert prefix_cuda.tile_launches == t0
+    return SYNCS.count - s0, prefix_cuda.launches - l0
+
+
+def test_candidate_adds_launches_and_leaves_syncs_once_gone(cuda):
+    """No candidate: the step's syncs and kernel launches are what they
+    were before one was staged and after it ended; with one, the shadow's
+    flow and param sweeps launch the block sort beside the live ones."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np, to_device
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(cuda, clock)
+    b = make_entry_batch_np(2048)
+    b["cluster_row"][:] = [eng.registry.cluster_row(f"r{i % 20}")
+                           for i in range(2048)]
+    b["count"][:] = 1
+    batch = to_device(b, cuda)
+    plain = _syncs_and_launches(eng, clock, batch)
+    eng.rollout.load_candidate("v", {"flow": [{"resource": "r0",
+                                               "count": 1}],
+                                     "paramFlow": [{"resource": "r2",
+                                                    "paramIdx": 0,
+                                                    "count": 1}]})
+    shadowed = _syncs_and_launches(eng, clock, batch)
+    eng.rollout.abort("v")
+    assert _syncs_and_launches(eng, clock, batch) == plain
+    assert shadowed[0] > plain[0]
+    # Live: the two flow sweeps (no live param rule). The candidate adds
+    # its own two flow sweeps and its param rule's two sweeps.
+    assert plain[1] == 2 and shadowed[1] == 6
+    eng.close()
