@@ -9,8 +9,9 @@ Phases (any failure raises and exits non-zero; none is caught):
 1. Device: CUDA must be available; prints the card, the count and
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles ``sentinel_tpu_torch/csrc/segmented_prefix.cu`` (and
-   the headers it includes) with nvcc for sm_90a and prints the
-   ``-Xptxas -v`` register / shared-memory lines.
+   the headers it includes) and ``csrc/cluster_acquire.cu``, one nvcc for
+   each, both started together, for sm_90a, and prints the ``-Xptxas -v``
+   register / shared-memory lines.
 3. Kernel vs plain: the segmented-prefix kernel against the plain sort +
    cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000,
    2048, 8192}, K in {1, 3}, M in {1, 2}, with the 256 and near-2^24 value
@@ -148,8 +149,35 @@ Phases (any failure raises and exits non-zero; none is caught):
    zero. Prints one ``{"rollout": ...}`` line with each part's seconds
    and the prefix launches by shape (block sort only); the phase must
    end within 60 s.
-11. The smoke's wall time, the kernels line, the card line, and the final
-   ``{"ok": true, ...}``.
+11. Cluster: the cluster token path on the card (BASELINE config #4,
+   the 64-node mesh). (1) The acquire kernel (``csrc/cluster_acquire.cu``)
+   against its plain form at N in {1, 8, 64, 256, 1024, 4096} over 64
+   flows, on seeded lanes that hit every status with unknown and
+   out-of-range slots: ``ok``, ``can_wait`` and ``passed`` bit-equal;
+   kernel ms (CUDA-graph replay), call ms, plain ms and the bound (bytes,
+   operations, or the longest same-slot run as a dependent chain, with
+   its derivation). (2) ``DefaultTokenService`` on the card and on the
+   CPU over one seeded stream on a frozen clock (bench.py:231's 64 flows
+   and batches of 512, GLOBAL and AVG_LOCAL, a prioritized share, a rule
+   push halfway, param tokens): every TokenResult, the window state and
+   ``metrics_snapshot`` equal. (3) The wire mesh of bench.py:1106: 64
+   GLOBAL flows, the limiter lifted, the reactor on the card, 8 threads x
+   8 connections with 64 requests in flight each, a 5 s settle and two 4
+   s windows; every reply OK, the server's OK verdicts equal the replies,
+   and after the window empties one burst's replies equal the server's
+   window total; acquires/s, ``wire_stats()``, host ms per fused batch
+   and the device share of one profiled batch. (4) The API phase's
+   engine kind as the client of a port server in this process: 64
+   cluster-mode rules (GLOBAL, 2 a second, local fallback), every entry
+   sampled, 4 threads of pairs for 10 s: pair p50/p99, no flow admitted
+   over 2 in any second, the engine's passes equal the server's OK
+   verdicts, three stitched spans per entry; then the server stops
+   answering and 8 entries fall back inside the entry budget until the
+   breaker opens, and after the server stops the check is local. Counts
+   are zeroed before (3) and read after (4). The phase must end within
+   60 s. Prints one ``{"cluster": ...}`` line.
+12. The smoke's wall time, the kernels line (both kernels), the card
+   line, and the final ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -179,6 +207,7 @@ import torch
 # before it prints anything.
 import sentinel_tpu_torch as st
 from sentinel_tpu_torch import convert
+from sentinel_tpu_torch.cluster import codec as ccodec
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
     H2D, make_entry_batch_np, make_exit_batch_np, to_device)
@@ -2861,6 +2890,670 @@ def rollout_phase(dev, main_results):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: the cluster token path
+# ---------------------------------------------------------------------------
+
+CLUSTER_PHASE_LIMIT_S = 60.0
+ACQUIRE_WIDTHS = (1, 8, 64, 256, 1024, 4096)
+ACQUIRE_FLOWS = 64
+ACQUIRE_INTERVALS = (1000, 700, 7000, 3000)
+# The acquire scan's bound: one same-slot run is a dependent chain; each
+# step waits on an add, a fused multiply-add, a compare-select and an add,
+# at 4 cycles apiece, at the H100 SXM's 1,980 MHz boost clock.
+CHAIN_CYCLES_PER_STEP = 16
+SM_CLOCK_HZ = 1.98e9
+ACQUIRE_BYTES_PER_LANE = 4 * 6 + 2 + 1 + 1 + 4  # 6 x 4 B + 2 bools in; out
+ACQUIRE_FLOPS_PER_LANE = 8
+SERVICE_BATCHES = 24
+SERVICE_WIDTH = 512           # bench.py:231 bench_token_service
+SERVICE_FLOW0 = 1000
+MESH_FLOW0 = 6000             # bench.py:1106 bench_wire_mesh
+MESH_THREADS, MESH_CONNS, MESH_BURST = 8, 8, 64
+MESH_SETTLE_S, MESH_WINDOW_S = 5.0, 4.0
+CLIENT_FLOW0 = 7000
+CLIENT_FLOWS = 64
+CLIENT_COUNT = 2              # per flow per second: blocks within a second
+CLIENT_THREADS = 4
+CLIENT_WINDOW_S = 10.0
+CLIENT_FALLBACK_PAIRS = 8
+
+
+def acquire_case(rng, n: int, dev):
+    """Seeded lanes for the acquire scan at width ``n`` over 64 flows:
+    thresholds with fractions, intervals that do not divide 1000 (so the
+    rounding pins matter), usage near the thresholds, 30% prioritized
+    lanes with a backlog, 5% unknown (-1) and 5% out-of-range slots."""
+    slots = rng.integers(0, ACQUIRE_FLOWS, size=n)
+    r = rng.random(n)
+    slots[r < 0.05] = -1
+    oob = (r >= 0.05) & (r < 0.10)
+    slots[oob] = rng.integers(ACQUIRE_FLOWS, ACQUIRE_FLOWS + 8,
+                              size=int(oob.sum()))
+    if n >= 8:  # at least one lane of each kind, whatever the draw
+        slots[-2:] = (-1, ACQUIRE_FLOWS + 3)
+    thr_tab = (rng.integers(1, 60, ACQUIRE_FLOWS)
+               / rng.choice([1, 3, 7], ACQUIRE_FLOWS)).astype(np.float32)
+    iv_tab = rng.choice(ACQUIRE_INTERVALS, ACQUIRE_FLOWS)
+    idx = np.where(slots >= 0, slots % ACQUIRE_FLOWS, 0)
+    thr = thr_tab[idx]
+    interval = iv_tab[idx].astype(np.float32)
+    base = np.floor(rng.random(n) * thr * interval / 1000.0 * 1.1)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        slots=slots.astype(np.int32),
+        counts=rng.integers(1, 4, n).astype(np.float32),
+        base=base.astype(np.float32), thr=thr,
+        interval=interval,
+        prioritized=rng.random(n) < 0.3,
+        waiting=rng.integers(0, 3, n).astype(np.float32)).items()}
+    iv = t.pop("interval")
+    t["qps_scale"] = torch.full_like(iv, 1000.0) / iv  # the service's form
+    t["known"] = t["slots"] >= 0
+    return t
+
+
+def acquire_args(t):
+    return (t["slots"], t["counts"], t["base"], t["thr"], t["qps_scale"],
+            t["known"], t["prioritized"], t["waiting"], ACQUIRE_FLOWS, 0.8)
+
+
+def acquire_bound(slots: np.ndarray):
+    """Least time for the scan on these lanes, the larger of: its bytes
+    (each input read once, each output written once) over the HBM rate;
+    its float operations over the fp32 rate; and its longest same-slot
+    run as a dependent chain (each step a few dependent float operations,
+    CHAIN_CYCLES_PER_STEP cycles at the boost clock)."""
+    n = slots.shape[0]
+    inside = slots[(slots >= 0) & (slots < ACQUIRE_FLOWS)]
+    run = int(np.bincount(inside).max()) if inside.size else 1
+    run = max(run, 1)
+    t_bytes = n * ACQUIRE_BYTES_PER_LANE / HBM_BYTES_PER_S * 1e3
+    t_ops = n * ACQUIRE_FLOPS_PER_LANE / FP32_OPS_PER_S * 1e3
+    t_chain = run * CHAIN_CYCLES_PER_STEP / SM_CLOCK_HZ * 1e3
+    bound = max(t_bytes, t_ops, t_chain)
+    derivation = (f"max(bytes {n} x {ACQUIRE_BYTES_PER_LANE} B / 3.35e12 B/s"
+                  f" = {t_bytes:.3g} ms, ops {n} x {ACQUIRE_FLOPS_PER_LANE}"
+                  f" / 67e12 = {t_ops:.3g} ms, chain {run} steps x "
+                  f"{CHAIN_CYCLES_PER_STEP} cycles / 1.98 GHz = "
+                  f"{t_chain:.3g} ms)")
+    return bound, ("bytes" if bound == t_bytes else "operations"), run, \
+        derivation
+
+
+def zero_cluster_counts():
+    """Every kernel count of the cluster path to 0: just before a run of
+    the path that the kernels line reports."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    CA.launches = 0
+    CA.launches_by_width.clear()
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+
+
+def read_cluster_counts():
+    """The counts since :func:`zero_cluster_counts`, just after the run."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    return {"acquire": CA.launches,
+            "acquire_by_width": dict(CA.launches_by_width),
+            "prefix": prefix_cuda.launches,
+            "prefix_by_shape": dict(prefix_cuda.launches_by_shape)}
+
+
+def cluster_kernel(dev):
+    """The acquire kernel against its plain form on the card at every
+    width of the pad ladder the wire path takes, bit for bit."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    rng = np.random.default_rng(20261018)
+    rows = {}
+    for n in ACQUIRE_WIDTHS:
+        t = acquire_case(rng, n, dev)
+        args = acquire_args(t)
+        ok, cw, passed = CA.acquire_scan_cuda(*args)
+        torch.cuda.synchronize()
+        want = CA.acquire_scan_plain(*args)
+        if not (torch.equal(ok, want[0]) and torch.equal(cw, want[1])
+                and torch.equal(passed.view(torch.int32),
+                                want[2].view(torch.int32))):
+            raise AssertionError(f"acquire kernel != plain at N={n}")
+        known = t["known"]
+        statuses = {"ok": int(ok.sum()), "should_wait": int(cw.sum()),
+                    "blocked": int((known & ~ok & ~cw).sum()),
+                    "no_rule": int((~known).sum()),
+                    "out_of_range": int((t["slots"] >= ACQUIRE_FLOWS).sum())}
+        if n >= 64 and min(statuses.values()) == 0:
+            raise AssertionError(f"N={n} misses a status: {statuses}")
+        reps = 200 if n <= 256 else 50
+        bound, bound_by, run, derivation = acquire_bound(
+            t["slots"].cpu().numpy())
+        rows[n] = {
+            "shape": {"N": n, "flows": ACQUIRE_FLOWS}, "bit_equal": True,
+            "max_abs_err": float((passed - want[2]).abs().max()),
+            "statuses": statuses,
+            "kernel_ms": device_ms(lambda: CA.acquire_scan_cuda(*args), reps),
+            "call_ms": time_ms(lambda: CA.acquire_scan_cuda(*args), reps),
+            "plain_ms": time_ms(lambda: CA.acquire_scan_plain(*args),
+                                max(3, reps // 20)),
+            "bound_ms": bound, "bound_by": bound_by, "longest_run": run,
+            "bound_derivation": derivation}
+        print(json.dumps({"acquire_kernel": rows[n]}), flush=True)
+    return rows
+
+
+def service_stream(seed: int = 23):
+    """A seeded stream for ``DefaultTokenService`` at bench.py:231's
+    configuration: 64 flows, batches of 512, GLOBAL and AVG_LOCAL rules,
+    a prioritized share, unknown flows, a rule push halfway (counts,
+    geometry, one flow gone, one new) and param tokens with duplicate
+    values. -> (rules, pushed rules, ops)."""
+    rng = np.random.default_rng(seed)
+
+    def rule(i, count, ttype, interval):
+        return F.FlowRule(resource=f"clus{i}", count=count, cluster_mode=True,
+                          cluster_config={"flowId": SERVICE_FLOW0 + i,
+                                          "thresholdType": ttype,
+                                          "windowIntervalMs": interval})
+
+    spec = [(float(rng.integers(20, 200)), int(i % 2),
+             int(rng.choice([1000, 2000]))) for i in range(64)]
+    rules = [rule(i, *spec[i]) for i in range(64)]
+    pushed = [rule(i, c * (0.5 if i % 3 == 0 else 1.0), t,
+                   3000 if i % 7 == 0 else iv)
+              for i, (c, t, iv) in enumerate(spec) if i != 5]
+    pushed.append(rule(64, 50.0, 1, 1000))
+    ops = []
+    for b in range(SERVICE_BATCHES):
+        fids = SERVICE_FLOW0 + (rng.zipf(1.3, SERVICE_WIDTH) - 1) % 66
+        batch = [(int(f), int(rng.integers(1, 4)), bool(rng.random() < 0.2))
+                 for f in fids]
+        params = [(SERVICE_FLOW0 + int(rng.integers(0, 8)),
+                   int(rng.integers(1, 3)),
+                   [int(v) for v in rng.integers(0, 4, 3)]) for _ in range(8)]
+        ops.append((int(rng.integers(0, 300)), batch, params))
+    return rules, pushed, ops
+
+
+def run_service(dev, rules, pushed, ops):
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+
+    time_util.freeze_time(NOW0)
+    try:
+        svc = DefaultTokenService(device=dev)
+        svc.rules.load_rules("default", rules)
+        for _ in range(3):
+            svc.connections.connect("default")
+        results, walls = [], []
+        for b, (dt, batch, params) in enumerate(ops):
+            if b == len(ops) // 2:
+                svc.rules.load_rules("default", pushed)
+            time_util.advance_time(dt)
+            t0 = time.perf_counter()
+            results.append(svc.request_tokens(batch))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            results.append([svc.request_param_token(f, c, v)
+                            for f, c, v in params])
+        state = convert.state_to_numpy(svc._state)
+        return results, state, svc.metrics_snapshot(), walls
+    finally:
+        time_util.unfreeze_time()
+
+
+def cluster_service(dev):
+    """``DefaultTokenService`` on the card and on the CPU over one seeded
+    stream on a frozen clock: every TokenResult, the window state and
+    ``metrics_snapshot`` equal."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    stream = service_stream()
+    before = CA.launches
+    card = run_service(dev, *stream)
+    launches = CA.launches - before
+    cpu = run_service("cpu", *stream)
+    if card[0] != cpu[0]:
+        raise AssertionError("token service card != cpu results")
+    for k in card[1]["win"]:
+        if not np.array_equal(card[1]["win"][k], cpu[1]["win"][k]):
+            raise AssertionError(f"token service window {k}: card != cpu")
+    if card[2] != cpu[2]:
+        raise AssertionError("metrics_snapshot card != cpu")
+    flat = [r for batch in card[0] for r in batch]
+    statuses = {}
+    for r in flat:
+        statuses[int(r.status)] = statuses.get(int(r.status), 0) + 1
+    if not {0, 1, 2, 3} <= set(statuses):
+        raise AssertionError(f"service stream misses a status: {statuses}")
+    return {"batches": SERVICE_BATCHES, "width": SERVICE_WIDTH,
+            "results": len(flat), "statuses": statuses,
+            "card_equals_cpu": True, "acquire_launches": launches,
+            "batch_ms_p50": {"card": pct(card[3], 50), "cpu": pct(cpu[3], 50)}}
+
+
+class ServiceTally:
+    """Server-side accounting around a token service's dispatch / harvest
+    split: the host ms of each fused batch (its dispatch plus its
+    harvest), and every OK verdict by flowId and by second."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.lock = threading.Lock()
+        self.host_ms = []
+        self.ok = {}
+        self.ok_by_second = {}
+        self._dispatch_ms = {}
+        dispatch, harvest = svc.dispatch_tokens, svc.harvest_tokens
+
+        def timed_dispatch(requests, now_ms=None):
+            t0 = time.perf_counter()
+            ticket = dispatch(requests, now_ms)
+            with self.lock:
+                self._dispatch_ms[id(ticket)] = \
+                    (time.perf_counter() - t0) * 1e3
+            return ticket
+
+        def counted_harvest(ticket):
+            t0 = time.perf_counter()
+            out = harvest(ticket)
+            sec = ticket.now_ms // 1000
+            with self.lock:
+                self.host_ms.append((time.perf_counter() - t0) * 1e3
+                                    + self._dispatch_ms.pop(id(ticket), 0.0))
+                for req, r in zip(ticket.requests, out):
+                    if r.status == 0 and req[0] is not None:
+                        f = int(req[0])
+                        self.ok[f] = self.ok.get(f, 0) + 1
+                        key = (f, sec)
+                        self.ok_by_second[key] = \
+                            self.ok_by_second.get(key, 0) + 1
+            return out
+
+        svc.dispatch_tokens = timed_dispatch
+        svc.harvest_tokens = counted_harvest
+
+    def detach(self):
+        del self.svc.dispatch_tokens, self.svc.harvest_tokens
+
+
+def mesh_burst(conns, frames):
+    """One burst on every connection; -> (replies, ok replies)."""
+    replies = ok = 0
+    for s, _ in conns:
+        s.sendall(frames)
+    for s, reader in conns:
+        got = 0
+        while got < MESH_BURST:
+            data = s.recv(65536)
+            if not data:
+                raise AssertionError("mesh connection closed")
+            for body in reader.feed(data):
+                resp = ccodec.decode_response(body)
+                got += 1
+                replies += 1
+                ok += resp.status == 0
+    return replies, ok
+
+
+def cluster_mesh(dev):
+    """bench.py:1106 bench_wire_mesh: 64 GLOBAL flows (count 1e9), the
+    limiter lifted, the reactor on the card, 8 threads x 8 connections
+    with a 64-request burst in flight each, a settle and two windows."""
+    import socket as _socket
+
+    from sentinel_tpu_torch.cluster.constants import MSG_FLOW
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer, pad_width
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+
+    svc = DefaultTokenService(device=dev, max_allowed_qps=1e12)
+    svc.rules.load_rules("default", [
+        F.FlowRule(resource=f"wm{i}", count=1e9, cluster_mode=True,
+                   cluster_config={"flowId": MESH_FLOW0 + i,
+                                   "thresholdType": 1})
+        for i in range(64)])
+    for w in (MESH_BURST, 256, 1024, 4096):  # warm the allocator
+        svc.request_tokens([(MESH_FLOW0, 1, False)] * w)
+    # The mesh's traffic is the run the kernels line reports: its counts
+    # start here and are read once the server stops, before the replay.
+    zero_cluster_counts()
+    tally = ServiceTally(svc)
+    server = ClusterTokenServer(svc, host="127.0.0.1", port=0).start()
+    stop = threading.Event()
+    replies = [0] * MESH_THREADS
+    ok = [0] * MESH_THREADS
+    errors = []
+    barrier = threading.Barrier(MESH_THREADS + 1)
+    conns_all = [None] * MESH_THREADS
+
+    def frames_of(tid):
+        return b"".join(ccodec.encode_request(
+            xid + 1, MSG_FLOW, ccodec.encode_flow_request(
+                MESH_FLOW0 + (tid * MESH_CONNS + xid) % 64, 1, False))
+            for xid in range(MESH_BURST))
+
+    def worker(tid):
+        try:
+            conns = []
+            for _ in range(MESH_CONNS):
+                s = _socket.create_connection(
+                    ("127.0.0.1", server.bound_port), timeout=10)
+                s.settimeout(10)
+                s.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+                conns.append((s, ccodec.FrameReader()))
+            conns_all[tid] = conns
+            frames = frames_of(tid)
+            barrier.wait()
+            while not stop.is_set():
+                r, o = mesh_burst(conns, frames)
+                replies[tid] += r
+                ok[tid] += o
+        except Exception as ex:  # noqa: BLE001 -- reported below
+            errors.append(repr(ex))
+            barrier.abort()
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(MESH_THREADS)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    time.sleep(MESH_SETTLE_S)
+    rates = []
+    for _ in range(2):
+        r0, o0 = sum(replies), sum(ok)
+        t0 = time.perf_counter()
+        time.sleep(MESH_WINDOW_S)
+        dt = time.perf_counter() - t0
+        rates.append({"acquires_per_s": (sum(replies) - r0) / dt,
+                      "ok_per_s": (sum(ok) - o0) / dt})
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"mesh workers failed: {errors}")
+    total_replies, total_ok = sum(replies), sum(ok)
+    if total_ok != total_replies:
+        raise AssertionError(f"mesh: {total_replies - total_ok} replies "
+                             "not OK")
+    # The window empties; one burst on one thread's connections (well
+    # inside a window), then the server's own window total must equal the
+    # replies the clients counted.
+    time.sleep(1.1)
+    final_r, final_ok = mesh_burst(conns_all[0], frames_of(0))
+    snap = svc.metrics_snapshot()
+    window_pass = int(sum(v["pass"] for v in snap.values()))
+    if not final_ok == final_r == window_pass:
+        raise AssertionError(f"mesh final burst: {final_r} replies, "
+                             f"{final_ok} OK, server window {window_pass}")
+    served_ok = sum(tally.ok.values())
+    if served_ok != total_replies + final_r:
+        raise AssertionError(f"server OK verdicts {served_ok} != replies "
+                             f"{total_replies + final_r}")
+    for conns in conns_all:
+        for s, _ in conns:
+            s.close()
+    wire = server.wire_stats() or {}
+    server.stop()
+    counts = read_cluster_counts()
+    tally.detach()
+    # Device share of a fused batch: one replay at the mesh's p50 width.
+    from torch.profiler import ProfilerActivity, profile
+
+    width = pad_width(max(1, int(wire.get("coalescedBatchP50", 1))))
+    batch = [(MESH_FLOW0 + i % 64, 1, False) for i in range(width)]
+    svc.request_tokens(batch)
+    reps = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            svc.request_tokens(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return {
+        "windows": rates, "connections": MESH_THREADS * MESH_CONNS,
+        "pipelined_per_conn": MESH_BURST, "replies": total_replies,
+        "all_ok": True, "final_burst": final_r,
+        "server_window_pass": window_pass,
+        "rtt_ms": {"p50": wire.get("rttP50Ms"), "p99": wire.get("rttP99Ms")},
+        "coalesced_batch": {"p50": wire.get("coalescedBatchP50"),
+                            "max": wire.get("coalescedBatchMax")},
+        "fused_batches": wire.get("fusedBatches"),
+        "queue_wait_p50_ms": wire.get("queueWaitP50Ms"),
+        "coalesce_wait_p50_ms": wire.get("coalesceWaitP50Ms"),
+        "host_ms_per_fused_batch": {"p50": pct(tally.host_ms, 50),
+                                    "p99": pct(tally.host_ms, 99),
+                                    "batches": len(tally.host_ms)},
+        "profiled_batch": {"width": width, "wall_ms": wall_ms,
+                           "device_ms": dev_ms,
+                           "device_share": dev_ms / wall_ms,
+                           "device_ops": sum(e.count for e in kernels) / reps},
+        "counts": counts}
+
+
+def cluster_client(dev):
+    """The API phase's engine kind on the card as the token client of a
+    port server in this process: 64 cluster-mode flow rules on 64 of its
+    unruled resources (GLOBAL, CLIENT_COUNT a second, local fallback),
+    every entry sampled for spans, a few threads of ``with st.entry``
+    pairs on the real clock; then the server stops answering (the
+    half-open seam) and the entries fall back inside the entry budget
+    until the breaker opens; then the server stops."""
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.resilience import faults
+    from sentinel_tpu_torch.telemetry.spans import SpanCollector
+
+    flows = [F.FlowRule(resource=res, count=CLIENT_COUNT, cluster_mode=True,
+                        cluster_config={"flowId": CLIENT_FLOW0 + i,
+                                        "thresholdType": 1,
+                                        "fallbackToLocalWhenFail": True})
+             for i, res in enumerate(api_pools()["unruled"][:CLIENT_FLOWS])]
+    svc = DefaultTokenService(device=dev)
+    svc.rules.load_rules("default", [
+        F.FlowRule(resource=r.resource, count=r.count, cluster_mode=True,
+                   cluster_config={"flowId": r.cluster_config["flowId"],
+                                   "thresholdType": 1}) for r in flows])
+    tally = ServiceTally(svc)
+    server = ClusterTokenServer(svc, host="127.0.0.1", port=0).start()
+    eng = api_engine(dev, capacity=API_PARITY_CAPACITY, register=False)
+    eng.flow_rules.load_rules(eng.flow_rules.get_rules() + flows)
+    eng.spans = SpanCollector(sample_every=1, capacity=1 << 16)
+    eng.cluster.set_to_client("127.0.0.1", server.bound_port,
+                              request_timeout_s=2.0)
+    if eng.cluster.client_if_active() is None:
+        raise AssertionError("engine client did not connect")
+    names = [r.resource for r in flows]
+    zero_cluster_counts()  # the entries from here on are the client's run
+    for res in names[:4]:  # first steps of each kind, untimed
+        api_pair(res, None, (), False)
+    base_entries = len(names[:4])
+    lat, verdicts = [], []
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + CLIENT_WINDOW_S
+
+    def worker(tid):
+        rng = np.random.default_rng(100 + tid)
+        while time.perf_counter() < stop_at:
+            # 70% of the traffic on 8 hot flows: they block every second.
+            i = int(rng.integers(8)) if rng.random() < 0.7 \
+                else int(rng.integers(CLIENT_FLOWS))
+            t0 = time.perf_counter()
+            v = api_pair(names[i], None, (), False)
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+                verdicts.append(v)
+
+    prefix_before = prefix_cuda.launches
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(CLIENT_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLIENT_WINDOW_S + 30)
+    entries = len(verdicts)
+    prefix_launches = prefix_cuda.launches - prefix_before
+    if eng.cluster_fallback_count or eng.fail_open_count:
+        raise AssertionError(f"fallbacks {eng.cluster_fallback_count}, "
+                             f"fail-open {eng.fail_open_count} under load")
+    over = {k: v for k, v in tally.ok_by_second.items() if v > CLIENT_COUNT}
+    if over:
+        raise AssertionError(f"admitted over the threshold: {over}")
+    tele = eng.telemetry_snapshot()["resources"]
+    engine_pass = sum(tele.get(r, {}).get("passTotal", 0) for r in names)
+    server_pass = sum(tally.ok.values())
+    if engine_pass != server_pass:
+        raise AssertionError(f"engine cluster passes {engine_pass} != "
+                             f"server OK verdicts {server_pass}")
+    traces = eng.spans.traces()
+    shapes = set()
+    for tr in traces:
+        by_id = {sp["spanId"]: sp for sp in tr["spans"]}
+        shapes.add(tuple(sorted(
+            (sp["name"], by_id[sp["parentSpanId"]]["name"]
+             if sp["parentSpanId"] in by_id else "")
+            for sp in tr["spans"])))
+    want_shape = (("cluster.token_request", "sentinel.entry"),
+                  ("cluster.token_service", "cluster.token_request"),
+                  ("sentinel.entry", ""))
+    if shapes != {want_shape} or len(traces) != entries + base_entries:
+        raise AssertionError(f"span trees {shapes}, {len(traces)} traces "
+                             f"for {entries + base_entries} entries")
+    # The server stops answering: every acquire times out inside the
+    # entry's budget and falls back; three failures open the breaker.
+    fb_lat = []
+    with faults.FaultInjector(seed=5) as inj:
+        inj.arm("cluster.ha.halfopen", "garbage", garbage=b"")
+        for k in range(CLIENT_FALLBACK_PAIRS):
+            t0 = time.perf_counter()
+            api_pair(names[8 + k], None, (), False)
+            fb_lat.append((time.perf_counter() - t0) * 1e3)
+    stats = eng.resilience_stats()
+    budget = eng.cluster_entry_budget_ms
+    if (stats["clusterFallbackCount"] != CLIENT_FALLBACK_PAIRS
+            or stats["tokenClientBreaker"]["state"] != "OPEN"
+            or max(fb_lat) > budget + 250):
+        raise AssertionError(f"fallback: {stats['clusterFallbackCount']}, "
+                             f"breaker {stats['tokenClientBreaker']}, "
+                             f"latency {fb_lat} ms against {budget} ms")
+    server.stop()
+    deadline = time.monotonic() + 10
+    while eng.cluster.client_if_active() is not None:
+        if time.monotonic() > deadline:
+            raise AssertionError("client still active after server stop")
+        time.sleep(0.02)
+    if api_pair(names[20], None, (), False) != "pass":
+        raise AssertionError("local check after the server stopped")
+    counts = read_cluster_counts()
+    eng.close()
+    blocked = sum(v != "pass" for v in verdicts)
+    return {
+        "threads": CLIENT_THREADS, "window_s": CLIENT_WINDOW_S,
+        "entries": entries, "entries_per_s": entries / CLIENT_WINDOW_S,
+        "blocked_share": blocked / max(entries, 1),
+        "pair_ms": {"p50": pct(lat, 50), "p99": pct(lat, 99)},
+        "server_ok": server_pass, "engine_cluster_passes": engine_pass,
+        "max_ok_per_flow_second": max(tally.ok_by_second.values()),
+        "prefix_launches_per_entry_step": prefix_launches / max(entries, 1),
+        "spans_per_sampled_entry": 3, "traces": len(traces),
+        "fallback": {"pairs": CLIENT_FALLBACK_PAIRS,
+                     "pair_ms": {"p50": pct(fb_lat, 50), "max": max(fb_lat)},
+                     "budget_ms": budget,
+                     "cluster_fallback_count": stats["clusterFallbackCount"],
+                     "breaker": stats["tokenClientBreaker"]["state"],
+                     "rejected": stats["tokenClientBreaker"]["rejectedCount"]},
+        "counts": counts}
+
+
+def cluster_phase(dev):
+    """The cluster token path on the card: the acquire kernel at every
+    width, the service card against CPU, the 64-connection wire mesh, and
+    an engine as the token client. Prints one ``{"cluster": ...}`` line."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    out, parts = {}, {}
+    t1 = time.perf_counter()
+    out["kernel"] = cluster_kernel(dev)
+    parts["kernel_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["service"] = cluster_service(dev)
+    parts["service_s"] = time.perf_counter() - t1
+    # The path's two runs, the wire mesh and the engine client: each zeroes
+    # the counts just before its traffic and reads them just after.
+    t1 = time.perf_counter()
+    out["mesh"] = cluster_mesh(dev)
+    parts["mesh_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["client"] = cluster_client(dev)
+    parts["client_s"] = time.perf_counter() - t1
+    runs = {"mesh": out["mesh"].pop("counts"),
+            "client": out["client"].pop("counts")}
+    for run, c in runs.items():
+        if c["acquire"] <= 0 or (run == "client" and c["prefix"] <= 0):
+            raise AssertionError(f"cluster {run} run launched acquire "
+                                 f"{c['acquire']}, prefix {c['prefix']} "
+                                 "times")
+    by_width, by_shape = {}, {}
+    for c in runs.values():
+        for w, k in c["acquire_by_width"].items():
+            by_width[w] = by_width.get(w, 0) + k
+        for sh, k in c["prefix_by_shape"].items():
+            by_shape[sh] = by_shape.get(sh, 0) + k
+    out["acquire_launches"] = sum(c["acquire"] for c in runs.values())
+    out["acquire_launches_by_run"] = {
+        run: {str(w): k for w, k in sorted(c["acquire_by_width"].items())}
+        for run, c in runs.items()}
+    out["acquire_launches_by_width"] = {
+        str(w): k for w, k in sorted(by_width.items())}
+    out["prefix_launches"] = sum(c["prefix"] for c in runs.values())
+    out["prefix_launches_by_shape"] = {
+        f"K={k},N={n},M={m}": c
+        for (k, n, m), c in sorted(by_shape.items())}
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"cluster": out}), flush=True)
+    if out["phase_s"] > CLUSTER_PHASE_LIMIT_S:
+        raise AssertionError(f"cluster phase took {out['phase_s']:.1f} s, "
+                             f"over {CLUSTER_PHASE_LIMIT_S} s")
+    return out
+
+
+def acquire_kernel_entry(cluster):
+    """The acquire kernel's entry of the kernels line, at the width its
+    main run (the wire mesh and the engine client) launched most."""
+    by_width = {int(w): c
+                for w, c in cluster["acquire_launches_by_width"].items()}
+    width = max((w for w in ACQUIRE_WIDTHS),
+                key=lambda w: (by_width.get(w, 0), w))
+    row = cluster["kernel"][width]
+    return {
+        "name": "cluster_acquire",
+        "route": "cuda",
+        "source": "sentinel_tpu_torch/csrc/cluster_acquire.cu",
+        "replaces": "sentinel_tpu/cluster/token_service.py:136",
+        "replaces_function": "acquire_step",
+        "replaces_kind": "xla_scan",
+        "launches": cluster["acquire_launches"],
+        "launches_by_width": cluster["acquire_launches_by_width"],
+        "bit_equal": True,
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in cluster["kernel"].values()),
+        "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "bound_derivation": row["bound_derivation"],
+        "call_ms": row["call_ms"],
+        "library_ms": None,
+        "shape": row["shape"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2875,13 +3568,22 @@ def main() -> int:
           flush=True)
     print(card, flush=True)
 
+    # Both kernels' libraries, one nvcc for each source, started together.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sentinel_tpu_torch.ops import cluster_acquire
+
     t0 = time.perf_counter()
-    path, log = prefix_cuda.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(m.build) for m in (prefix_cuda,
+                                                 cluster_acquire)]
+        built = [b.result() for b in builds]
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "library": str(path.name)}), flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+                      "libraries": [p.name for p, _ in built]}), flush=True)
+    for _, log in built:
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print("ptxas:", line.strip(), flush=True)
 
     main_shape, max_err = kernel_phase(dev)
     main_results, main_launches, main = main_path_phase(dev)
@@ -2893,6 +3595,7 @@ def main() -> int:
     boot_phase(dev, main, slot_run)
     main["eng"].close()
     rollout_phase(dev, main_results)
+    cluster = cluster_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -2915,7 +3618,8 @@ def main() -> int:
         "call_ms": main_shape["call_ms"],
         "library_ms": None,
         "shape": main_shape["shape"],
-    }]}), flush=True)
+        "cluster_path_launches": cluster["prefix_launches"],
+    }, acquire_kernel_entry(cluster)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -13,8 +13,8 @@ Quick start::
         fallback()
 
 Layout mirrors the JAX package module for module (``core/``, ``ops/``,
-``models/``, ``log/``, ``metrics/``, ``telemetry/``); each port module
-names its counterpart. The JAX package stays the reference: the
+``models/``, ``log/``, ``metrics/``, ``telemetry/``, ``cluster/``,
+``resilience/``); each port module names its counterpart. The JAX package stays the reference: the
 ``tests/test_torch_*.py`` parity tests feed both packages the same inputs.
 
 Device policy: every entry point runs on ``cuda`` unless the caller passes
@@ -22,8 +22,14 @@ Device policy: every entry point runs on ``cuda`` unless the caller passes
 "cpu")``). With no CUDA device and no explicit device, the engine raises
 (``utils/device.py``): it never quietly runs on the CPU. On a CUDA tensor
 the segmented prefix launches the hand-written kernel
-(``csrc/segmented_prefix.cu``); on a CPU tensor it runs the plain torch
-version of the same function.
+(``csrc/segmented_prefix.cu``), and the token service's serial admission
+its own (``csrc/cluster_acquire.cu``); on a CPU tensor each runs the
+plain torch version of the same function.
+
+The cluster token path (``cluster/``): ``engine.cluster`` makes the
+engine a token client or an embedded token server, and entries on
+cluster-mode rules ask the server first; ``resilience`` holds the retry,
+breaker and deadline-budget layer those remote calls run under.
 
 This package imports ``torch`` and ``numpy`` only: never ``jax`` and
 nothing of ``sentinel_tpu``.
@@ -71,6 +77,7 @@ from sentinel_tpu_torch.models.degrade import DegradeRule
 from sentinel_tpu_torch.models.flow import FlowRule
 from sentinel_tpu_torch.models.param_flow import ParamFlowItem, ParamFlowRule
 from sentinel_tpu_torch.models.system import SystemRule
+from sentinel_tpu_torch import resilience
 
 __version__ = "0.1.0"
 
@@ -165,5 +172,6 @@ __all__ = [
     "get_context", "get_engine", "init_func", "load_authority_rules",
     "load_degrade_rules", "load_flow_rules", "load_param_flow_rules",
     "load_system_rules", "register_device_checker", "register_slot",
-    "reset", "trace", "unregister_device_checker", "unregister_slot",
+    "reset", "resilience", "trace", "unregister_device_checker",
+    "unregister_slot",
 ]

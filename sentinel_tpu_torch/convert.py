@@ -10,6 +10,11 @@ its window, flow, param and degrade state) carry both ways, and each
 stays ``None`` when the dict has none (a flattened JAX state drops its
 ``None`` fields).
 
+A token service's compiled rule tensors (``ClusterRuleTensors``) and its
+window state (``ClusterMetricState``) carry the same way, so a test can
+hand the JAX service's state to the port (:func:`cluster_from_numpy`)
+and compare the two after each batch (:func:`state_to_numpy`).
+
 Checkpoints do not travel through this module: both packages write and
 read the same ``.npz`` files (``core/checkpoint.py``).
 
@@ -23,6 +28,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from sentinel_tpu_torch.cluster.rules import (
+    ClusterMetricState, ClusterRuleTensors)
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
 from sentinel_tpu_torch.models import flow as F
@@ -43,6 +50,7 @@ _NESTED = {
     S.ShadowState: {"w1": W.Window, "flow": F.FlowState,
                     "param": P.ParamFlowState, "degrade": D.DegradeState},
     D.DegradeState: {"win": W.RowWindow},
+    ClusterMetricState: {"win": W.RowWindow},
 }
 
 
@@ -78,6 +86,14 @@ def state_from_numpy(d: Dict[str, Any], device) -> S.SentinelState:
     """Nested numpy dict of a JAX ``SentinelState`` -> this package's
     state."""
     return tree_from_numpy(S.SentinelState, d, device)
+
+
+def cluster_from_numpy(rules: Dict[str, Any], state: Dict[str, Any],
+                       device):
+    """Nested numpy dicts of a JAX token service's ``ClusterRuleTensors``
+    and ``ClusterMetricState`` -> this package's, on ``device``."""
+    return (tree_from_numpy(ClusterRuleTensors, rules, device),
+            tree_from_numpy(ClusterMetricState, state, device))
 
 
 def state_to_numpy(state) -> Dict[str, Any]:

@@ -84,6 +84,43 @@ SLOTS_MAX_STEALS = "csp.sentinel.slots.max.steals"
 SLOTS_HYSTERESIS_PCT = "csp.sentinel.slots.hysteresis.pct"
 SLOTS_SPILL_MAX = "csp.sentinel.slots.spill.max"
 SLOTS_STALE_SECONDS = "csp.sentinel.slots.stale.seconds"
+# Resilience of the remote touchpoints (resilience/): the seed every retry
+# policy of the process draws from, the token client's breaker, and the
+# aggregate remote-wait budget of one entry()'s cluster token check.
+RESILIENCE_SEED = "csp.sentinel.resilience.seed"
+RESILIENCE_BREAKER_FAILURES = "csp.sentinel.resilience.breaker.failure.threshold"
+RESILIENCE_BREAKER_OPEN_MS = "csp.sentinel.resilience.breaker.open.ms"
+RESILIENCE_BREAKER_PROBES = "csp.sentinel.resilience.breaker.half.open.probes"
+RESILIENCE_ENTRY_BUDGET_MS = "csp.sentinel.resilience.cluster.entry.budget.ms"
+# spans.sampleEvery: every Nth cluster-checked entry carries a W3C-style
+# trace context across the token-server wire (0 disables); spans.capacity
+# bounds the host-side span ring.
+TELEMETRY_SPANS_SAMPLE_EVERY = "csp.sentinel.telemetry.spans.sampleEvery"
+TELEMETRY_SPANS_CAPACITY = "csp.sentinel.telemetry.spans.capacity"
+# The token server's admission queue (cluster/server.py): its bound in
+# groups, the watermark past which submissions shed OVERLOADED, the
+# deadline a queued group may wait, the retry-after hint of a shed, the
+# per-connection burst cap and the idle-connection reap.
+OVERLOAD_QUEUE_MAX_GROUPS = "csp.sentinel.overload.queue.max.groups"
+OVERLOAD_QUEUE_WATERMARK_PCT = "csp.sentinel.overload.queue.watermark.pct"
+OVERLOAD_DEADLINE_MS = "csp.sentinel.overload.deadline.ms"
+OVERLOAD_RETRY_AFTER_MS = "csp.sentinel.overload.retry.after.ms"
+OVERLOAD_CONN_MAX_BURST = "csp.sentinel.overload.conn.max.burst"
+OVERLOAD_IDLE_TIMEOUT_S = "csp.sentinel.overload.idle.timeout.s"
+# The token server's wire path (cluster/reactor.py). reactor.enabled: the
+# selectors-based multiplexing frontend (false = the thread-per-connection
+# socketserver); coalesce.max.batch: max requests folded into one group;
+# inflight.depth: fused wire batches in flight on the device at once;
+# outbuf.max.bytes: per-connection reply backlog bound (past it reads
+# pause and parsed requests shed OVERLOADED); read.chunk.bytes: recv size
+# per readable socket per loop cycle; workers: the pool for non-FLOW
+# frames.
+WIRE_REACTOR_ENABLED = "csp.sentinel.wire.reactor.enabled"
+WIRE_COALESCE_MAX_BATCH = "csp.sentinel.wire.coalesce.max.batch"
+WIRE_INFLIGHT_DEPTH = "csp.sentinel.wire.inflight.depth"
+WIRE_OUTBUF_MAX_BYTES = "csp.sentinel.wire.outbuf.max.bytes"
+WIRE_READ_CHUNK_BYTES = "csp.sentinel.wire.read.chunk.bytes"
+WIRE_WORKERS = "csp.sentinel.wire.workers"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_APP_NAME = "sentinel-tpu-app"
@@ -112,6 +149,26 @@ DEFAULT_SLOTS_MAX_STEALS = 8
 DEFAULT_SLOTS_HYSTERESIS_PCT = 20.0
 DEFAULT_SLOTS_SPILL_MAX = 4096
 DEFAULT_SLOTS_STALE_SECONDS = 30
+DEFAULT_RESILIENCE_BREAKER_FAILURES = 3
+DEFAULT_RESILIENCE_BREAKER_OPEN_MS = 5_000
+DEFAULT_RESILIENCE_BREAKER_PROBES = 1
+# Well under the client's 2 s request timeout: a degraded token server
+# costs one entry a bounded, configured wait, never a socket timeout per
+# cluster rule.
+DEFAULT_RESILIENCE_ENTRY_BUDGET_MS = 500
+DEFAULT_TELEMETRY_SPANS_SAMPLE_EVERY = 64
+DEFAULT_TELEMETRY_SPANS_CAPACITY = 256
+DEFAULT_OVERLOAD_QUEUE_MAX_GROUPS = 512
+DEFAULT_OVERLOAD_QUEUE_WATERMARK_PCT = 80
+DEFAULT_OVERLOAD_DEADLINE_MS = 2_000
+DEFAULT_OVERLOAD_RETRY_AFTER_MS = 100
+DEFAULT_OVERLOAD_CONN_MAX_BURST = 1024
+DEFAULT_OVERLOAD_IDLE_TIMEOUT_S = 300
+DEFAULT_WIRE_COALESCE_MAX_BATCH = 1024
+DEFAULT_WIRE_INFLIGHT_DEPTH = 2
+DEFAULT_WIRE_OUTBUF_MAX_BYTES = 1_048_576
+DEFAULT_WIRE_READ_CHUNK_BYTES = 131_072
+DEFAULT_WIRE_WORKERS = 4
 
 
 def _env_key(key: str) -> str:
@@ -273,6 +330,67 @@ class SentinelConfig:
     def slots_stale_seconds(self) -> int:
         v = self.get_int(SLOTS_STALE_SECONDS, DEFAULT_SLOTS_STALE_SECONDS)
         return v if v > 0 else DEFAULT_SLOTS_STALE_SECONDS
+
+    # The token server's admission queue (cluster/server.py): the only
+    # readers of the csp.sentinel.overload.* keys.
+
+    def overload_queue_max_groups(self) -> int:
+        v = self.get_int(OVERLOAD_QUEUE_MAX_GROUPS,
+                         DEFAULT_OVERLOAD_QUEUE_MAX_GROUPS)
+        return v if v > 0 else DEFAULT_OVERLOAD_QUEUE_MAX_GROUPS
+
+    def overload_queue_watermark_pct(self) -> int:
+        v = self.get_int(OVERLOAD_QUEUE_WATERMARK_PCT,
+                         DEFAULT_OVERLOAD_QUEUE_WATERMARK_PCT)
+        return min(v, 100) if v > 0 else DEFAULT_OVERLOAD_QUEUE_WATERMARK_PCT
+
+    def overload_deadline_ms(self) -> int:
+        v = self.get_int(OVERLOAD_DEADLINE_MS, DEFAULT_OVERLOAD_DEADLINE_MS)
+        return v if v > 0 else DEFAULT_OVERLOAD_DEADLINE_MS
+
+    def overload_retry_after_ms(self) -> int:
+        v = self.get_int(OVERLOAD_RETRY_AFTER_MS,
+                         DEFAULT_OVERLOAD_RETRY_AFTER_MS)
+        return v if v > 0 else DEFAULT_OVERLOAD_RETRY_AFTER_MS
+
+    def overload_conn_max_burst(self) -> int:
+        v = self.get_int(OVERLOAD_CONN_MAX_BURST,
+                         DEFAULT_OVERLOAD_CONN_MAX_BURST)
+        return v if v > 0 else DEFAULT_OVERLOAD_CONN_MAX_BURST
+
+    def overload_idle_timeout_s(self) -> int:
+        v = self.get_int(OVERLOAD_IDLE_TIMEOUT_S,
+                         DEFAULT_OVERLOAD_IDLE_TIMEOUT_S)
+        return v if v > 0 else DEFAULT_OVERLOAD_IDLE_TIMEOUT_S
+
+    # The wire path (cluster/reactor.py): the only readers of the
+    # csp.sentinel.wire.* keys.
+
+    def wire_reactor_enabled(self) -> bool:
+        return (self.get(WIRE_REACTOR_ENABLED) or "true").lower() != "false"
+
+    def wire_coalesce_max_batch(self) -> int:
+        v = self.get_int(WIRE_COALESCE_MAX_BATCH,
+                         DEFAULT_WIRE_COALESCE_MAX_BATCH)
+        return v if v > 0 else DEFAULT_WIRE_COALESCE_MAX_BATCH
+
+    def wire_inflight_depth(self) -> int:
+        v = self.get_int(WIRE_INFLIGHT_DEPTH, DEFAULT_WIRE_INFLIGHT_DEPTH)
+        return v if v > 0 else DEFAULT_WIRE_INFLIGHT_DEPTH
+
+    def wire_outbuf_max_bytes(self) -> int:
+        v = self.get_int(WIRE_OUTBUF_MAX_BYTES,
+                         DEFAULT_WIRE_OUTBUF_MAX_BYTES)
+        return v if v > 0 else DEFAULT_WIRE_OUTBUF_MAX_BYTES
+
+    def wire_read_chunk_bytes(self) -> int:
+        v = self.get_int(WIRE_READ_CHUNK_BYTES,
+                         DEFAULT_WIRE_READ_CHUNK_BYTES)
+        return v if v > 0 else DEFAULT_WIRE_READ_CHUNK_BYTES
+
+    def wire_workers(self) -> int:
+        v = self.get_int(WIRE_WORKERS, DEFAULT_WIRE_WORKERS)
+        return v if v > 0 else DEFAULT_WIRE_WORKERS
 
     def reset_for_tests(self) -> None:
         with self._lock:

@@ -62,9 +62,19 @@ enforces it for the canary slice) and every exit dispatch feeds it; the
 leases and the unruled pass stand down, so every entry reaches the step.
 ``shadow_counts()`` reads its counters.
 
-What it does not have yet (later slices): the cluster token check, the
-pod and cluster checkpoints, and the fold's SLO, waterfall, adaptive and
-stream hooks.
+The cluster token check: ``engine.cluster`` (a ``ClusterStateManager``)
+makes the engine a token client or an embedded token server
+(``cluster/``). Entries on resources with cluster-mode rules ask the
+token server first (``_cluster_token_check``), under one deadline budget
+per entry (``csp.sentinel.resilience.cluster.entry.budget.ms``); its
+verdict masks the cluster rules out of the local check or pre-blocks the
+entry, and a failed or shed acquire falls back to the local check where
+the rule asks for it, counted in ``resilience_stats()``. Every Nth such
+entry carries a trace context over the wire, and its stitched spans land
+in ``engine.spans``.
+
+What it does not have yet (later slices): the pod and cluster
+checkpoints, and the fold's SLO, waterfall, adaptive and stream hooks.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -94,10 +104,12 @@ from sentinel_tpu_torch.core.batch import (
     BATCH_WIDTHS, MAX_PARAMS, Decisions, EntryBatch, ExitBatch,
     make_entry_batch_np, make_exit_batch_np, stage_row, to_device)
 from sentinel_tpu_torch.core.config import (
-    DEFAULT_PROFILE_SYNC_EVERY, DEFAULT_TELEMETRY_TIMESERIES_HISTORY,
+    DEFAULT_PROFILE_SYNC_EVERY, DEFAULT_RESILIENCE_ENTRY_BUDGET_MS,
+    DEFAULT_TELEMETRY_TIMESERIES_HISTORY,
     DEFAULT_TELEMETRY_TIMESERIES_SECONDS, OCCUPY_TIMEOUT_MS,
-    PROFILE_SYNC_EVERY, STATISTIC_INTERVAL_MS, STATISTIC_SAMPLE_COUNT,
-    TELEMETRY_TIMESERIES_HISTORY, TELEMETRY_TIMESERIES_SECONDS, config)
+    PROFILE_SYNC_EVERY, RESILIENCE_ENTRY_BUDGET_MS, STATISTIC_INTERVAL_MS,
+    STATISTIC_SAMPLE_COUNT, TELEMETRY_TIMESERIES_HISTORY,
+    TELEMETRY_TIMESERIES_SECONDS, config)
 from sentinel_tpu_torch.core.exceptions import (
     BlockException, exception_for_reason)
 from sentinel_tpu_torch.core.property import (
@@ -114,7 +126,9 @@ from sentinel_tpu_torch.models import system as Y
 from sentinel_tpu_torch.native import load_lease_ext
 from sentinel_tpu_torch.ops import step as S
 from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.resilience.budget import DeadlineBudget
 from sentinel_tpu_torch.telemetry.population import PopulationTracker
+from sentinel_tpu_torch.telemetry.spans import Span, SpanCollector
 from sentinel_tpu_torch.telemetry.timeseries import (
     TimeseriesHistory, compact_second, page_newest_first, second_to_dict)
 from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
@@ -324,6 +338,37 @@ class SentinelEngine:
         # lock: stats reads must not wait behind a dispatch.
         self._pipeline_stats_lock = threading.Lock()
         self._retiring_pipeline = None
+        # Cluster role (client / embedded server); servers it starts serve
+        # THIS engine's bridge and run on its device. Host-side maps from
+        # resource to its cluster-mode rules' (flowId, fallbackToLocal
+        # [, paramIdx]), and flowId -> (threshold, windowIntervalMs) of
+        # the local copies (the degraded-quota share base), replaced
+        # wholesale on every flow / param load.
+        from sentinel_tpu_torch.cluster.state import ClusterStateManager
+
+        self.cluster = ClusterStateManager()
+        self.cluster.engine = self
+        self._cluster_flow_info: Dict[str, list] = {}
+        self._cluster_param_info: Dict[str, list] = {}
+        self._cluster_thresholds: Dict[int, tuple] = {}
+        # How often cluster-mode rules degraded to their local fallback,
+        # how often the per-entry budget ran out, and the acquires the
+        # token server shed (OVERLOADED) or mis-routed (WRONG_SLICE).
+        self.cluster_fallback_count = 0
+        self.cluster_budget_exhausted_count = 0
+        self.cluster_overload_count = 0
+        self.cluster_wrong_slice_count = 0
+        self.cluster_entry_budget_ms = config.get_int(
+            RESILIENCE_ENTRY_BUDGET_MS, DEFAULT_RESILIENCE_ENTRY_BUDGET_MS)
+        if self.cluster_entry_budget_ms <= 0:
+            record_log.warn("invalid %s=%s; using default %dms",
+                            RESILIENCE_ENTRY_BUDGET_MS,
+                            self.cluster_entry_budget_ms,
+                            DEFAULT_RESILIENCE_ENTRY_BUDGET_MS)
+            self.cluster_entry_budget_ms = DEFAULT_RESILIENCE_ENTRY_BUDGET_MS
+        # Cross-process spans: every Nth cluster-checked entry carries a
+        # trace context over the token-server wire.
+        self.spans = SpanCollector()
         self.flow_rules = F.FlowRuleManager()
         self.degrade_rules = D.DegradeRuleManager()
         self.authority_rules = A.AuthorityRuleManager()
@@ -588,9 +633,15 @@ class SentinelEngine:
             # leases rebuild, so the fast path sees the rollout's gate.
             self._sync_rollout_sources()
             if family == "flow":
-                # entry() reads the named-origin map before any compile.
-                self._named_origins = F.named_origin_map(
-                    self.flow_rules.get_rules(), self.registry)
+                rules = self.flow_rules.get_rules()
+                # entry() reads the named-origin map before any compile,
+                # and the cluster maps lock-free.
+                self._named_origins = F.named_origin_map(rules, self.registry)
+                self._cluster_flow_info = self._cluster_info(rules)
+                self._cluster_thresholds = self._cluster_threshold_map(rules)
+            elif family == "param":
+                self._cluster_param_info = self._cluster_info(
+                    self.param_rules.get_rules(), with_param_idx=True)
             self._rebuild_leases()
         self._slots_sync_pins()
 
@@ -920,6 +971,7 @@ class SentinelEngine:
             committer.stop()
         self.stop_pipeline()
         self.system_status.stop()
+        self.cluster.stop()
         self.traces.stop()
 
     # -- runtime retuning ----------------------------------------------------
@@ -1171,9 +1223,30 @@ class SentinelEngine:
             # device check sees them, and mirror the verdict below so the
             # lease never drifts from the device window.
             self._flush_committer()
+        # Cross-process spans: only entries with cluster-mode rules can
+        # cross the wire, so only those are sampled; the root span records
+        # the final verdict, the cluster check hangs token_request and the
+        # server's span under it.
+        trace_ctx = root_span = None
+        if self._cluster_flow_info.get(resource) \
+                or self._cluster_param_info.get(resource):
+            trace_ctx = self.spans.sample()
+        if trace_ctx is not None:
+            root_span = Span("sentinel.entry", trace_ctx,
+                             attrs={"resource": resource,
+                                    "origin": ctx.origin})
+        skip_cluster, pre_blocked = self._cluster_token_check(
+            resource, count, prioritized, args, trace=trace_ctx)
         reason, wait_us = self._submit_entry(
             resource, cluster_row, dn_row, origin_row, origin_id,
-            reg.context_id(ctx.name), count, prioritized, entry_in, params)
+            reg.context_id(ctx.name), count, prioritized, entry_in, params,
+            skip_cluster=skip_cluster, pre_blocked=pre_blocked)
+        if root_span is not None:
+            root_span.attrs.update(
+                reason=int(reason),
+                blocked=bool(reason > 0 and reason != C.BlockReason.WAIT),
+                preBlocked=bool(pre_blocked))
+            self.spans.record(root_span.finish())
         if reason > 0 and reason != C.BlockReason.WAIT:
             # Drop an auto-entered context with no live entries so a fresh
             # context_enter on this thread isn't shadowed by it.
@@ -1195,7 +1268,8 @@ class SentinelEngine:
 
     def _submit_entry(self, resource, cluster_row, dn_row, origin_row,
                       origin_id, context_id, count, prioritized, entry_in,
-                      params, pre_blocked=False) -> Tuple[int, int]:
+                      params, skip_cluster=False,
+                      pre_blocked=False) -> Tuple[int, int]:
         """One entry's device verdict, (reason, wait_us): a ticket of the
         pipeline's when it runs, else one width-1 step. A failed step or
         cycle fails open, counted."""
@@ -1204,8 +1278,8 @@ class SentinelEngine:
             origin_id=origin_id,
             origin_named=origin_id in self._named_origins.get(resource, ()),
             context_id=context_id, count=count, prioritized=prioritized,
-            entry_in=entry_in, skip_cluster=False, pre_blocked=pre_blocked,
-            params=params)
+            entry_in=entry_in, skip_cluster=skip_cluster,
+            pre_blocked=pre_blocked, params=params)
         pipeline = self._pipeline
         if pipeline is not None:
             ticket = pipeline.submit_entry(fields)
@@ -1243,6 +1317,178 @@ class SentinelEngine:
             logging.getLogger("sentinel_tpu_torch").warning(
                 "entry passed UNGUARDED (%s); fail_open_count=%d",
                 why, self.fail_open_count)
+
+    # -- the cluster token check ---------------------------------------------
+
+    @staticmethod
+    def _cluster_info(rules, with_param_idx: bool = False) -> Dict[str, list]:
+        """resource -> [(flowId, fallback[, paramIdx])] for remote-enforced
+        (cluster mode + flowId) rules. Pod-psum cluster rules (no flowId)
+        stay out: they are enforced by the local/pod check."""
+        info: Dict[str, list] = {}
+        for r in rules:
+            cc = getattr(r, "cluster_config", None) or {}
+            if getattr(r, "cluster_mode", False) and cc.get("flowId") is not None:
+                entry = (int(cc["flowId"]),
+                         bool(cc.get("fallbackToLocalWhenFail", True)))
+                if with_param_idx:
+                    entry += (int(r.param_idx),)
+                info.setdefault(r.resource, []).append(entry)
+        return info
+
+    @staticmethod
+    def _cluster_threshold_map(rules) -> Dict[int, tuple]:
+        """flowId -> (threshold, windowIntervalMs) from the local copies
+        of cluster-mode flow rules (the degraded-quota share base) — the
+        same derivation standalone HA seats use, so every client computes
+        the same share."""
+        from sentinel_tpu_torch.cluster.rules import cluster_thresholds
+
+        return cluster_thresholds(
+            r for r in rules if getattr(r, "cluster_mode", False))
+
+    def cluster_degraded_thresholds(self) -> Dict[int, tuple]:
+        """Current flowId -> (threshold, intervalMs) map for the HA
+        client's degraded quota (lock-free: replaced wholesale on load)."""
+        return self._cluster_thresholds
+
+    def _note_cluster_fallback(self, budget_exhausted: bool = False) -> None:
+        """A cluster-mode rule degraded to its local fallback this entry."""
+        self.cluster_fallback_count += 1
+        if budget_exhausted:
+            self.cluster_budget_exhausted_count += 1
+
+    def _cluster_token_check(self, resource, count, prioritized, args,
+                             trace=None) -> Tuple[bool, bool]:
+        """Remote token acquire for cluster-mode rules (``passClusterCheck``).
+
+        Returns (skip_cluster, pre_blocked): with a healthy token client,
+        OK/SHOULD_WAIT verdicts mask the cluster rules out of the local
+        check; BLOCKED pre-decides the entry; FAIL-class statuses keep the
+        local check live when the rule's fallbackToLocalWhenFail is set
+        (= ``fallbackToLocalOrPass``). No client / no cluster rules ->
+        local enforcement as-is.
+
+        Bounded latency: ALL remote work for one entry — request waits
+        AND server-hinted SHOULD_WAIT sleeps, across every cluster rule —
+        shares one ``cluster_entry_budget_ms`` deadline budget; rules the
+        budget can't reach degrade to the local check. Once the client's
+        breaker is OPEN, requests fail fast without touching the wire.
+        """
+        # Lock-free fast path: the info dicts are replaced wholesale on
+        # rule load.
+        flow_info = self._cluster_flow_info.get(resource, ())
+        param_info = self._cluster_param_info.get(resource, ())
+        if not flow_info and not param_info:
+            return False, False
+        client = self.cluster.client_if_active()
+        if client is None:
+            return False, False
+        from sentinel_tpu_torch.cluster.constants import TokenResultStatus
+
+        def traced_call(kind, flow_id, fn):
+            """Run one remote acquire under a child span when tracing;
+            the server-side span (shipped in the response TLV) joins the
+            local collector so the stitched trace reads in one place."""
+            if trace is None:
+                return fn(None)
+            from sentinel_tpu_torch.telemetry.spans import TraceContext
+
+            child = trace.child()
+            sp = Span("cluster.token_request", child,
+                      parent_span_id=trace.span_id,
+                      attrs={"flowId": flow_id, "kind": kind})
+            tr = fn(child)
+            sp.finish()
+            sp.attrs["status"] = int(tr.status)
+            self.spans.record(sp)
+            if tr.server_span is not None:
+                srv = tr.server_span
+                self.spans.record_remote(
+                    TraceContext(trace.trace_id, srv["spanId"]),
+                    "cluster.token_service", child.span_id,
+                    srv["startMs"], srv["durationUs"],
+                    attrs={"flowId": flow_id})
+            return tr
+
+        budget = DeadlineBudget(self.cluster_entry_budget_ms)
+        # A request launched with less than half the configured budget
+        # left is breaker-NEUTRAL on timeout: a healthy server can miss a
+        # starved deadline, and such misses must not trip the gate.
+        neutral_below_ms = self.cluster_entry_budget_ms / 2
+        all_ok = True
+        for flow_id, fallback in flow_info:
+            remaining_ms = budget.remaining_ms()
+            if remaining_ms <= 0:
+                if fallback:
+                    all_ok = False
+                self._note_cluster_fallback(budget_exhausted=True)
+                continue
+            tr = traced_call("flow", flow_id, lambda t: client.request_token(
+                flow_id, count, prioritized, timeout_s=remaining_ms / 1000.0,
+                gate_neutral=remaining_ms < neutral_below_ms, trace=t))
+            if tr.status == TokenResultStatus.OK:
+                continue
+            if tr.status == TokenResultStatus.SHOULD_WAIT:
+                wait_ms = budget.clamp_wait_ms(tr.wait_ms)
+                if wait_ms > 0:
+                    time.sleep(wait_ms / 1000.0)
+                continue
+            if tr.status == TokenResultStatus.BLOCKED:
+                return False, True
+            if tr.status == TokenResultStatus.OVERLOADED:
+                # Shed before admission: degrade to the local path at
+                # once — no retry, no sleep.
+                self.cluster_overload_count += 1
+                if fallback:
+                    all_ok = False
+                    self._note_cluster_fallback()
+                continue
+            if tr.status == TokenResultStatus.WRONG_SLICE:
+                # A sharded leader that no longer owns the flow's slice:
+                # not a verdict, degrade like a FAIL, counted apart.
+                self.cluster_wrong_slice_count += 1
+                if fallback:
+                    all_ok = False
+                    self._note_cluster_fallback()
+                continue
+            if fallback:  # FAIL / NO_RULE / TOO_MANY_REQUEST -> local check
+                all_ok = False
+                self._note_cluster_fallback()
+        for flow_id, fallback, param_idx in param_info:
+            if param_idx >= len(args):
+                continue  # no such argument: the rule does not apply
+            remaining_ms = budget.remaining_ms()
+            if remaining_ms <= 0:
+                if fallback:
+                    all_ok = False
+                self._note_cluster_fallback(budget_exhausted=True)
+                continue
+            tr = traced_call(
+                "param", flow_id, lambda t: client.request_param_token(
+                    flow_id, count, [args[param_idx]],
+                    timeout_s=remaining_ms / 1000.0,
+                    gate_neutral=remaining_ms < neutral_below_ms, trace=t))
+            if tr.status == TokenResultStatus.OK:
+                continue
+            if tr.status == TokenResultStatus.BLOCKED:
+                return False, True
+            if tr.status == TokenResultStatus.OVERLOADED:
+                self.cluster_overload_count += 1
+                if fallback:
+                    all_ok = False
+                    self._note_cluster_fallback()
+                continue
+            if tr.status == TokenResultStatus.WRONG_SLICE:
+                self.cluster_wrong_slice_count += 1
+                if fallback:
+                    all_ok = False
+                    self._note_cluster_fallback()
+                continue
+            if fallback:
+                all_ok = False
+                self._note_cluster_fallback()
+        return all_ok, False
 
     def _do_exit(self, handle: EntryHandle, count: int) -> None:
         ctx = handle.context
@@ -1390,6 +1636,101 @@ class SentinelEngine:
             "totals": h["totals"] + h["sec"].astype(np.int64),
             "blockBySlot": h["slot"] + h["stage_slot"].astype(np.int64),
         }
+
+    def telemetry_snapshot(self) -> Dict:
+        """JSON-shaped telemetry view (the reference's ``telemetry`` ops
+        command): per-resource cumulative counters, block attribution by
+        reason family, RT percentiles estimated from the device
+        histogram, the degradation counters and the sampling rings."""
+        from sentinel_tpu_torch.telemetry.attribution import (
+            ATTR_REASON_NAMES, histogram_quantile, slot_bins_to_dict)
+
+        counts = self.telemetry_counts()
+        totals = counts["totals"]
+        by_reason = counts["blockByReason"]
+        rt_hist = counts["rtHist"]
+        active = totals.any(axis=0) | by_reason.any(axis=0)
+        resources: Dict[str, Dict] = {}
+        for row, meta in enumerate(self._device_metas()):
+            if meta.kind != KIND_CLUSTER or row >= active.shape[0] \
+                    or not active[row]:
+                continue
+            hist = rt_hist[:, row]
+            reasons = {name: int(by_reason[ch, row])
+                       for ch, name in enumerate(ATTR_REASON_NAMES)
+                       if by_reason[ch, row]}
+            resources[meta.resource] = {
+                "passTotal": int(totals[C.MetricEvent.PASS, row]),
+                "blockTotal": int(totals[C.MetricEvent.BLOCK, row]),
+                "successTotal": int(totals[C.MetricEvent.SUCCESS, row]),
+                "exceptionTotal": int(totals[C.MetricEvent.EXCEPTION, row]),
+                "rtSumMs": int(totals[C.MetricEvent.RT, row]),
+                "blockByReason": reasons,
+                "rtP50Ms": round(histogram_quantile(hist, 0.50), 2),
+                "rtP95Ms": round(histogram_quantile(hist, 0.95), 2),
+                "rtP99Ms": round(histogram_quantile(hist, 0.99), 2),
+            }
+        return {
+            "resources": resources,
+            "counters": {
+                "failOpenCount": self.fail_open_count,
+                "clusterFallbackCount": self.cluster_fallback_count,
+                "clusterBudgetExhaustedCount":
+                    self.cluster_budget_exhausted_count,
+            },
+            "blockBySlot": slot_bins_to_dict(counts["blockBySlot"]),
+            "stepTimer": self.step_timer.snapshot(),
+            "pipeline": self.pipeline_stats(),
+            # snapshot(limit=0): the counter fields without the entries.
+            "traceSampling": {
+                k: v for k, v in self.traces.snapshot(limit=0).items()
+                if k != "traces"
+            },
+            "spanSampling": {
+                k: v for k, v in self.spans.snapshot(limit=0).items()
+                if k != "spans"
+            },
+        }
+
+    def resilience_stats(self) -> Dict:
+        """One ops view of every degradation channel: fail-open passes,
+        cluster-rule local fallbacks, the token client's breaker, the
+        embedded server's overload and wire snapshots, the rollout
+        guardrail, the cluster role, and the registered health probes
+        with last-success ages. Lock-free: plain counter and snapshot
+        reads.
+
+        ``adaptive`` is None: the closed-loop adaptive limiter
+        (``sentinel_tpu/adaptive/``) is not ported yet."""
+        from sentinel_tpu_torch import resilience
+
+        now = self.now_ms()
+        out: Dict = {
+            "failOpenCount": self.fail_open_count,
+            "clusterFallbackCount": self.cluster_fallback_count,
+            "clusterBudgetExhaustedCount": self.cluster_budget_exhausted_count,
+            "clusterOverloadCount": self.cluster_overload_count,
+            "clusterWrongSliceCount": self.cluster_wrong_slice_count,
+            "clusterEntryBudgetMs": self.cluster_entry_budget_ms,
+            "tokenClientBreaker": None,
+            "overload": self.cluster.overload_stats(),
+            "wire": self.cluster.wire_stats(),
+            "rollout": self.rollout.guardrail_state(),
+            "clusterHA": self.cluster.ha_stats(),
+            "adaptive": None,
+            "probes": {},
+        }
+        client = self.cluster.token_client
+        gate = getattr(client, "health_gate", None)
+        if gate is not None:
+            out["tokenClientBreaker"] = gate.snapshot()
+        for name, snap in resilience.health_snapshot().items():
+            for key in ("lastSuccessMs", "lastCheckMs"):
+                v = snap.get(key)
+                if isinstance(v, (int, float)) and v > 0:
+                    snap[key.replace("Ms", "AgeMs")] = max(0, now - int(v))
+            out["probes"][name] = snap
+        return out
 
     def tree_dict(self) -> Dict:
         """Call tree rooted at machine-root (command API ``jsonTree``;
@@ -1702,14 +2043,16 @@ class SentinelEngine:
         if lease is not None:
             # Pending leased commits must land before the device check.
             self._flush_committer()
+        skip_cluster, cluster_blocked = self._cluster_token_check(
+            resource, count, prioritized, args)
         oid = self.registry.origin_id(ctx.origin)
-        # No cluster token check in this package yet: every lane is local.
         fields = dict(
             cluster_row=-1, dn_row=-1, origin_row=-1, origin_id=oid,
             origin_named=oid in self._named_origins.get(resource, ()),
             context_id=self.registry.context_id(ctx.name), count=count,
-            prioritized=prioritized, entry_in=entry_in, skip_cluster=False,
-            pre_blocked=pre_blocked, params=params)
+            prioritized=prioritized, entry_in=entry_in,
+            skip_cluster=skip_cluster,
+            pre_blocked=pre_blocked or cluster_blocked, params=params)
         reason, wait_us, cur2 = self._slot_submit(resource, fields)
         if custom_ex is not None:
             ctx_mod.auto_exit_context()

@@ -4,7 +4,8 @@
 ``csrc/segmented_prefix.cu`` (which includes ``csrc/*.cuh``) is compiled
 with ``nvcc`` for ``sm_90a`` at the first CUDA call into a shared library
 with plain C launchers, cached under ``sentinel_tpu_torch/_build/`` by a
-hash of every source file in ``csrc/`` and the flags, and loaded with
+hash of its source and headers (``csrc/segmented_prefix*``) and the
+flags (``ops/nvcc_build.py``, which builds both kernels), and loaded with
 ``ctypes``. Importing this module needs neither ``nvcc`` nor a card.
 
 :func:`segmented_prefix_cuda` is the wrapper the models reach: one launch
@@ -25,22 +26,15 @@ and the oracle, never a rescue for a failed build or launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
+from sentinel_tpu_torch.ops.nvcc_build import CSRC, build_library, library_file
+
 SOURCE = CSRC / "segmented_prefix.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches since import (or since a caller reset them to 0), how
 # many of them went to the tile walk, and all of them by (K, N, M).
@@ -51,67 +45,35 @@ launches_by_shape: Dict[Tuple[int, int, int], int] = {}
 # Column counts M the launcher instantiates: the models' sweeps use 1 and 2.
 COLUMNS = (1, 2)
 
-_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_load_lock = threading.Lock()
 
 # What sp_segmented_prefix reports through its last argument when it ran
 # the tile walk (0 for the block sort).
 PATH_TILE_WALK = 1
 
 
-def _find_nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the segmented-prefix "
-                       "kernel is built from source at first use")
-
-
 def sources():
     """Every file the build reads: the compiled source and its headers."""
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")
+                  and p.name.startswith("segmented_prefix"))
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
-        h.update(path.name.encode() + b"\0" + path.read_bytes())
-    key = h.hexdigest()[:16]
-    return BUILD_DIR / f"segmented_prefix_{key}.so"
+    return library_file("segmented_prefix", sources())
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the kernel if this source has not been built yet.
-
-    Returns ``(library path, compiler log)``; the log holds the
-    ``-Xptxas -v`` register and shared-memory lines of the build that
-    produced the library.
-    """
-    out = library_path()
-    log = out.with_suffix(".log")
-    with _lock:
-        if out.exists() and log.exists():
-            return out, log.read_text()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        log.write_text(proc.stdout + proc.stderr)
-        return out, log.read_text()
+    """Compile the kernel if this source has not been built yet; see
+    ``ops/nvcc_build.py:build_library``."""
+    return build_library("segmented_prefix", SOURCE, sources())
 
 
 def _load() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
+    with _load_lock:
+        if _lib is not None:
+            return _lib
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

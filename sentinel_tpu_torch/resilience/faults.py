@@ -4,6 +4,21 @@ the seams of the modules this package has).
 
 Named fault points:
 
+* ``cluster.client.send`` -- token client, before each frame write.
+* ``cluster.server.frame`` -- token server, every reply write (the bytes
+  pass through :func:`mutate`, so garbage mode can corrupt the stream).
+* ``cluster.ha.leader.crash`` -- fired by the token server's batcher
+  before each device step; an armed error hard-kills the server
+  (listener and connections closed, no drain).
+* ``cluster.ha.halfopen`` -- mutate seam on every server reply write;
+  ``garbage=b""`` swallows replies while the connection stays up (a
+  half-open socket the client must time out of).
+* ``cluster.ha.stale.epoch`` -- mutate seam on the epoch-TLV payload of
+  each response, so a test can replay a deposed leader's epoch.
+* ``cluster.reactor.conn.drop`` / ``cluster.reactor.conn.stall`` --
+  fired per connection read in the wire reactor (``cluster/reactor.py``):
+  an armed error drops that connection mid-stream, delay mode stalls the
+  read.
 * ``slots.evict.storm`` -- fired at the top of every slot-table rebalance
   tick (``core/slots.py``, ABOVE the freeze gate); an armed error evicts
   EVERY unpinned occupant that cycle.
@@ -39,6 +54,13 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 FAULT_POINTS = (
+    "cluster.client.send",
+    "cluster.server.frame",
+    "cluster.ha.leader.crash",
+    "cluster.ha.halfopen",
+    "cluster.ha.stale.epoch",
+    "cluster.reactor.conn.drop",
+    "cluster.reactor.conn.stall",
     "slots.evict.storm",
     "slots.spill.torn",
     "checkpoint.torn.write",

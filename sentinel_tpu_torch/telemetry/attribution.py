@@ -11,7 +11,7 @@ is +Inf).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,3 +105,35 @@ def rt_bucket_index(rt_ms: torch.Tensor) -> torch.Tensor:
     edges = torch.tensor(RT_BUCKET_EDGES_MS, dtype=torch.int32,
                          device=rt_ms.device)
     return (rt_ms[:, None] > edges[None, :]).sum(dim=1).to(torch.int32)
+
+
+def histogram_quantile_edges(counts: Sequence[float], q: float,
+                             edges: Sequence[float]) -> float:
+    """Estimate the q-quantile (0..1) from per-bucket counts over an
+    arbitrary edge ladder (``counts`` = len(edges) buckets + overflow).
+
+    Linear interpolation within the winning bucket (Prometheus
+    ``histogram_quantile`` convention); the overflow bucket reports its
+    lower edge. Returns 0.0 on an empty histogram.
+    """
+    total = float(sum(counts))
+    if total <= 0:
+        return 0.0
+    target = q * total
+    cum = 0.0
+    for b, cnt in enumerate(counts):
+        prev = cum
+        cum += float(cnt)
+        if cum >= target and cnt > 0:
+            if b >= len(edges):  # overflow: no upper edge
+                return float(edges[-1])
+            lo = 0.0 if b == 0 else float(edges[b - 1])
+            hi = float(edges[b])
+            return lo + (hi - lo) * (target - prev) / float(cnt)
+    return float(edges[-1])
+
+
+def histogram_quantile(counts: Sequence[float], q: float) -> float:
+    """Estimate the q-quantile (0..1) from per-bucket counts indexed like
+    :data:`RT_BUCKET_EDGES_MS` plus the overflow bucket."""
+    return histogram_quantile_edges(counts, q, RT_BUCKET_EDGES_MS)

@@ -14,7 +14,11 @@ checkers deciding as on the CPU (and a verdict on the host refused), and
 no host sync added by the splice; and staged rollout: an engine with a
 candidate in shadow and in canary deciding as on the CPU (the shadow world
 included), the canary hash on the card over the int32 edges, the host
-syncs unchanged with no candidate, and the kernel's launches with one.
+syncs unchanged with no candidate, and the kernel's launches with one; and
+the cluster token path: the acquire kernel bit-equal to its plain form at
+every width and status, the wrapper's refusals, a raised error (never a
+fallback) when the build or a launch fails, and a port server on the card
+answering a client as one on the CPU does.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -956,3 +960,197 @@ def test_candidate_adds_launches_and_leaves_syncs_once_gone(cuda):
     # its own two flow sweeps and its param rule's two sweeps.
     assert plain[1] == 2 and shadowed[1] == 6
     eng.close()
+
+
+# -- the cluster token path ---------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 8, 64, 256, 1024, 4096, 5000])
+def test_acquire_kernel_bit_equal_to_plain(cuda, n):
+    """The acquire kernel against its plain form on the card (the smoke's
+    seeded lanes: every status, unknown and out-of-range slots), all three
+    outputs bit for bit, and one launch counted under its width."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    t = cs.acquire_case(np.random.default_rng(n), n, cuda)
+    args = cs.acquire_args(t)
+    before = CA.launches_by_width.get(n, 0)
+    ok, cw, passed = CA.acquire_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert CA.launches_by_width[n] == before + 1
+    want = CA.acquire_scan_plain(*args)
+    assert torch.equal(ok, want[0]) and torch.equal(cw, want[1])
+    assert torch.equal(passed.view(torch.int32), want[2].view(torch.int32))
+    if n >= 64:
+        known = t["known"]
+        assert bool(ok.any()) and bool(cw.any())
+        assert bool((known & ~ok & ~cw).any()) and bool((~known).any())
+
+
+def test_acquire_kernel_one_long_run(cuda):
+    """Every lane on one slot: the whole batch is one dependent chain."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    n = 3000
+    args = (torch.zeros(n, dtype=torch.int32, device=cuda),
+            torch.ones(n, device=cuda), torch.zeros(n, device=cuda),
+            torch.full((n,), 1000.0, device=cuda),
+            torch.full((n,), 0.7, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda),
+            torch.zeros(n, device=cuda), 8, 0.5)
+    got = CA.acquire_scan_cuda(*args)
+    want = CA.acquire_scan_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,num_slots", [(4096, 3000), (5000, 10000)])
+def test_acquire_kernel_many_slots(cuda, n, num_slots):
+    """More slots than the block's 1024 threads (each thread walks several
+    slots' runs, the scan takes several chunks), and more than fit in
+    shared memory (the cursors in the scratch): bit-equal to the plain
+    form, with unknown and out-of-range lanes mixed in."""
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    rng = np.random.default_rng(num_slots)
+    slots = rng.integers(-1, num_slots + 8, n).astype(np.int32)
+    slots[: n // 4] = rng.integers(0, 16, n // 4)  # a few long runs too
+    thr = rng.integers(1, 6, n).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda)
+
+    args = (dev(slots), dev(rng.integers(1, 3, n).astype(np.float32)),
+            dev(np.floor(rng.random(n) * thr).astype(np.float32)), dev(thr),
+            dev(np.float32(1000.0) / rng.choice(
+                [1000, 700, 7000], n).astype(np.float32)),
+            dev(slots >= 0), dev(rng.random(n) < 0.3),
+            dev(rng.integers(0, 3, n).astype(np.float32)), num_slots, 0.8)
+    got = CA.acquire_scan_cuda(*args)
+    want = CA.acquire_scan_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+    assert bool(got[0].any()) and bool(got[1].any())
+
+
+def test_acquire_wrapper_refuses_bad_inputs(cuda):
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    n = 16
+
+    def args(**over):
+        a = dict(slots=torch.zeros(n, dtype=torch.int32, device=cuda),
+                 counts=torch.ones(n, device=cuda),
+                 base=torch.zeros(n, device=cuda),
+                 thr=torch.ones(n, device=cuda),
+                 qps_scale=torch.ones(n, device=cuda),
+                 known=torch.ones(n, dtype=torch.bool, device=cuda),
+                 prioritized=torch.zeros(n, dtype=torch.bool, device=cuda),
+                 waiting=torch.zeros(n, device=cuda))
+        a.update(over)
+        return list(a.values()) + [8, 1.0]
+
+    with pytest.raises(ValueError, match="CUDA"):
+        CA.acquire_scan_cuda(*args(base=torch.zeros(n)))
+    with pytest.raises(TypeError):
+        CA.acquire_scan_cuda(*args(counts=torch.ones(n, dtype=torch.float64,
+                                                     device=cuda)))
+    with pytest.raises(TypeError):
+        CA.acquire_scan_cuda(*args(slots=torch.zeros(n, dtype=torch.int64,
+                                                     device=cuda)))
+    with pytest.raises(ValueError, match="contiguous"):
+        CA.acquire_scan_cuda(*args(thr=torch.ones(2 * n, device=cuda)[::2]))
+    with pytest.raises(ValueError, match="length"):
+        CA.acquire_scan_cuda(*args(waiting=torch.zeros(n + 1, device=cuda)))
+
+
+def test_failed_build_or_launch_raises_and_drops_the_service_state(
+        cuda, monkeypatch):
+    """No fallback to the plain form: a build that fails, or a launch the
+    C function reports as failed, raises; the service drops its window
+    state cold and serves again once the kernel works."""
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.models.flow import FlowRule
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    svc = DefaultTokenService(device=cuda)
+    svc.rules.load_rules("default", [FlowRule(
+        resource="r", count=5, cluster_mode=True,
+        cluster_config={"flowId": 1, "thresholdType": 1})])
+    assert svc.request_token(1, 1, now_ms=1_700_000_000_000).status == 0
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(CA, "_lib", None)
+    monkeypatch.setattr(CA, "build", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        svc.request_token(1, 1, now_ms=1_700_000_000_000)
+    assert svc._state is None and svc._compiled_version == -1
+
+    class Refused:
+        @staticmethod
+        def ca_acquire(*a):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(CA, "_lib", Refused())
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        svc.request_token(1, 1, now_ms=1_700_000_000_000)
+    assert svc._state is None
+    monkeypatch.undo()
+    r = svc.request_token(1, 1, now_ms=1_700_000_000_000)
+    assert (r.status, r.remaining) == (0, 4)
+
+
+def test_server_and_client_on_cuda_agree_with_cpu(cuda):
+    """A port server whose service runs on the card and one on the CPU,
+    each answering a port client over loopback, one seeded stream on the
+    port's frozen clock: the same verdict sequence."""
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.models.flow import FlowRule
+    from sentinel_tpu_torch.utils import time_util
+
+    rules = [FlowRule(resource=f"w{i}", count=3 + i % 4, cluster_mode=True,
+                      cluster_config={"flowId": 500 + i,
+                                      "thresholdType": i % 2})
+             for i in range(16)]
+
+    def run(dev):
+        rng = np.random.default_rng(8)
+        svc = DefaultTokenService(device=dev)
+        svc.rules.load_rules("default", rules)
+        server = ClusterTokenServer(svc, host="127.0.0.1", port=0).start()
+        client = ClusterTokenClient("127.0.0.1", server.bound_port,
+                                    request_timeout_s=10.0).start()
+        deadline = time.monotonic() + 10
+        while not client.is_connected() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out = []
+        try:
+            for _ in range(12):
+                reqs = [(500 + int(rng.integers(0, 18)),
+                         int(rng.integers(1, 3)), bool(rng.random() < 0.3))
+                        for _ in range(int(rng.integers(1, 70)))]
+                out += [tuple(r[:3]) for r in
+                        client.request_tokens_pipelined(reqs)]
+                out.append(tuple(client.request_param_token(
+                    500 + int(rng.integers(0, 4)), 1, ["k", 1])[:3]))
+                time_util.advance_time(int(rng.integers(0, 400)))
+            return out
+        finally:
+            client.stop()
+            server.stop()
+
+    time_util.freeze_time(1_700_000_000_000)
+    try:
+        card = run(cuda)
+        time_util.freeze_time(1_700_000_000_000)
+        cpu = run("cpu")
+    finally:
+        time_util.unfreeze_time()
+    assert card == cpu
+    assert {s for s, _, _ in card} >= {0, 1, 2, 3}
