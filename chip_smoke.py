@@ -13,7 +13,7 @@ Phases (any failure raises and exits non-zero; none is caught):
    each, both started together, for sm_90a, and prints the ``-Xptxas -v``
    register / shared-memory lines.
 3. Kernel vs plain: the segmented-prefix kernel against the plain sort +
-   cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000,
+   cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000, 1024,
    2048, 8192}, K in {1, 3}, M in {1, 2}, with the 256 and near-2^24 value
    edges, the id patterns a radix sort gets wrong (``full_int32``,
    ``all_distinct``, ``all_equal``), and N in {16384, 65536}, above the
@@ -176,8 +176,32 @@ Phases (any failure raises and exits non-zero; none is caught):
    breaker opens, and after the server stops the check is local. Counts
    are zeroed before (3) and read after (4). The phase must end within
    60 s. Prints one ``{"cluster": ...}`` line.
-12. The smoke's wall time, the kernels line (both kernels), the card
-   line, and the final ``{"ok": true, ...}``.
+12. Pod: the pod path (``parallel/cluster.py``, ``parallel/namespaces.py``)
+   on the card. (a) Eight shards of the main path's configuration
+   (capacity 32,768, the 10,000 resources, the 128-second ring each), the
+   flow rules on every 10th resource cluster-mode at 5 a second and the
+   param rules on every 40th cluster-mode at 3, half the lanes on those
+   resources; a pod batch of 8,192 (1,024 a shard) for 16 rounds 50 ms
+   apart on a frozen clock, with exits. Per cluster rule and second the
+   pod admits at most the threshold plus (D - 1) x its largest per-shard
+   admission in one step, and no rule admits in the step after its pod
+   total reached the threshold; 4 x D prefix launches a step, host syncs
+   a step at most D x 15.0625; entry ms per step and per shard, pod
+   rule-checks/s, the reduction's ms and bytes. (b) The same kind of
+   stream at the cut size (4 shards, capacity 8,192, 2,000 resources, 256
+   lanes a shard, 6 rounds) on the card and the CPU: every decision and
+   every leaf equal. (c) A 2 x 4 pod with a global-scope and a pod-scope
+   rule: the bounds of ``tests/test_namespaces.py:80-135``. (d) NCCL at
+   world size 1 (a FileStore): the distributed drivers equal the
+   one-process drivers at D = 1, and the all_reduce's ms. (e) At the cut
+   size a candidate staged pod-wide: its summed shadow counters equal the
+   counts of a pod enforcing it; the pod checkpoint saved and restored on
+   the card; the global reads equal the sums of the shards' reads. Counts
+   are zeroed before (a)'s rounds and read after them. The phase must end
+   within 60 s. Prints one ``{"pod": ...}`` line.
+13. The smoke's wall time, the kernels line (both kernels, with the pod
+   path's prefix launches), the card line, and the final
+   ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -382,7 +406,9 @@ def kernel_phase(dev):
     rng = np.random.default_rng(20261017)
     max_err = 0.0
     main_shape = None
-    cases = [(n, k, m, "random") for n in (1, 8, 64, 512, 1000, 2048, 8192)
+    # N = 1024: the pod path's width a shard.
+    cases = [(n, k, m, "random")
+             for n in (1, 8, 64, 512, 1000, 1024, 2048, 8192)
              for k in (1, 3) for m in (1, 2)]
     cases += [(2048, 3, 2, "256"), (8192, 1, 2, "256"), (64, 1, 1, "2^24"),
               (1000, 3, 2, "2^24")]
@@ -3554,6 +3580,540 @@ def acquire_kernel_entry(cluster):
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the pod
+# ---------------------------------------------------------------------------
+
+POD_SHARDS = 8
+POD_PER_SHARD = 1_024          # a pod batch of 8,192
+POD_ROUNDS = 16
+POD_STEP_MS = 50
+POD_START_MS = 400             # the rounds cross a second boundary
+POD_FLOW_COUNT = 5             # cluster flow rules on every 10th resource
+POD_PARAM_COUNT = 3            # cluster param rules on every 40th
+POD_HOT_SHARE = 0.5            # lanes on the cluster-ruled resources
+POD_PARAM_VALUES = 8
+# The cut of parts (b) and (e): shards, capacity, resources (cluster and
+# default rows must fit the capacity), lanes a shard, rounds.
+POD_CUT = {"shards": 4, "capacity": 8_192, "resources": 2_000,
+           "per_shard": 256, "rounds": 6}
+POD_DCN = (2, 4)
+POD_DCN_PER_SHARD = 8
+POD_NCCL_ROUNDS = 4
+POD_PHASE_LIMIT_S = 60.0
+POD_CKPT = CKPT_DIR / "pod.npz"
+
+
+def pod_world(dev, capacity=CAPACITY, n_resources=N_RESOURCES,
+              flight_seconds=128, flow_count=POD_FLOW_COUNT,
+              param_count=POD_PARAM_COUNT, degrade=True, flow=None):
+    """The main path's configuration as one shard of a pod: the bench's
+    resources with DefaultNode rows, its degrade rules (every 20th) and
+    system rule, and its flow (every 10th) and param (every 40th) rules
+    made cluster-mode with finite counts, so admission binds pod-wide.
+    ``flow`` replaces the flow rules. Returns (rows, rule pack, a fresh
+    shard state)."""
+    from sentinel_tpu_torch.core.registry import NodeRegistry
+    from sentinel_tpu_torch.ops import step as S
+
+    reg = NodeRegistry(capacity)
+    ent = reg.entrance_row(CTX)
+    names = [f"res{i}" for i in range(n_resources)]
+    rows = {"cluster": np.array([reg.cluster_row(n) for n in names],
+                                np.int32),
+            "dn": np.array([reg.default_row(CTX, n, ent) for n in names],
+                           np.int32),
+            "ruled": np.arange(0, n_resources, 10),
+            "param_ruled": np.arange(0, n_resources, 40)}
+    if flow is None:
+        flow = [F.FlowRule(resource=f"res{i}", count=flow_count,
+                           cluster_mode=True)
+                for i in range(0, n_resources, 10)]
+    param = [P.ParamFlowRule(f"res{i}", param_idx=0, count=param_count,
+                             cluster_mode=True)
+             for i in range(0, n_resources, 40)]
+    deg = ([D.DegradeRule(resource=f"res{i}", count=100, grade=i % 3,
+                          time_window=10, min_request_amount=5)
+            for i in range(0, n_resources, 20)] if degrade else [])
+    ft, _ = F.compile_flow_rules(flow, reg, capacity, device=dev)
+    dt, di = D.compile_degrade_rules(deg, reg, capacity, device=dev)
+    pt = P.compile_param_rules(param, reg, capacity, device=dev)
+    pack = S.RulePack(
+        flow=ft, degrade=dt,
+        authority=A.compile_authority_rules([], reg, capacity, device=dev),
+        system=Y.compile_system_rules([Y.SystemRule(qps=1e12)], device=dev),
+        param=pt)
+    one = S.make_state(capacity, ft.num_rules, NOW0,
+                       degrade=D.make_degrade_state(dt, di),
+                       param=P.make_param_state(pt.num_rules, device=dev),
+                       device=dev, flight_seconds=flight_seconds)
+    return rows, pack, one
+
+
+def pod_stream(rows, n_shards, per_shard, rounds, seed):
+    """Seeded pod batches: half the lanes on the cluster-ruled resources,
+    the rest over every resource, one of POD_PARAM_VALUES values at
+    param index 0, acquire count 1."""
+    rng = np.random.default_rng(seed)
+    n_res = rows["cluster"].shape[0]
+    out = []
+    for _ in range(rounds):
+        width = n_shards * per_shard
+        buf = make_entry_batch_np(width)
+        hot = rng.random(width) < POD_HOT_SHARE
+        pick = np.where(hot, rng.choice(rows["ruled"], size=width),
+                        rng.integers(0, n_res, size=width))
+        buf["cluster_row"][:] = rows["cluster"][pick]
+        buf["dn_row"][:] = rows["dn"][pick]
+        buf["count"][:] = 1
+        buf["param_hash"][:, 0] = rng.integers(1, POD_PARAM_VALUES + 1,
+                                               size=width)
+        buf["param_present"][:, 0] = True
+        out.append(buf)
+    return out
+
+
+def pod_exit_buf(ebuf, reason, seed):
+    """Completions of the admitted lanes, from a per-round seed (so card
+    and CPU runs given equal verdicts get equal exits)."""
+    return exit_buf(np.random.default_rng(seed), ebuf, reason)
+
+
+def pod_drive(dev, rows, pack, one, stream, n_shards, start_ms=NOW0,
+              step_ms=POD_STEP_MS, on_step=None, shadow_rules=None):
+    """The one-process pod over a stream with exits; returns (the decisions
+    of every round as numpy, the pod). ``on_step(k, now, pod)`` runs
+    before each entry step (outside any timing)."""
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    if shadow_rules is not None and one.shadow is None:
+        raise AssertionError("a candidate needs a shard state with a shadow")
+    pod = PPC.make_pod_state(n_shards, one)
+    entry, exit_ = PPC.make_pod_steps(dev, shadow_rules=shadow_rules)
+    decs, now = [], start_ms
+    for k, ebuf in enumerate(stream):
+        now += step_ms
+        if on_step is not None:
+            on_step(k, now, pod)
+        pod, dec = entry(pod, pack, to_device(ebuf, dev), now)
+        decs.append(decisions_np(dec))
+        pod = exit_(pod, pack, to_device(pod_exit_buf(
+            ebuf, decs[-1]["reason"], 1000 + k), dev), now + 10)
+    return decs, pod
+
+
+def pod_window_pass(pod, now):
+    """int64[R]: the pod-global PASS in the window at ``now`` (before a
+    step): each shard's rotated window summed over the shards."""
+    from sentinel_tpu_torch.ops import step as S
+    from sentinel_tpu_torch.ops import window as W
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    n = pod.cur_threads.shape[0]
+    return sum(PPC.pass_counts(W.rotate(PPC.shard(pod.w1, d), now,
+                                        S.SPEC_1S)).to(torch.int64)
+               for d in range(n)).cpu().numpy()
+
+
+def pod_full(dev):
+    """Part (a): D = 8 shards of the main path's configuration, a pod
+    batch of 8,192 for 16 rounds 50 ms apart with exits. The written
+    contracts per cluster rule and second; launches, syncs, times."""
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    rows, pack, one = pod_world(dev)
+    stream = pod_stream(rows, POD_SHARDS, POD_PER_SHARD, POD_ROUNDS + 1, 5)
+    n, b = POD_SHARDS, POD_PER_SHARD
+    ruled_rows = rows["cluster"][rows["ruled"]]
+    pre = {}  # round -> the pod-global PASS of each ruled row before it
+    # Warm-up round on its own pod (allocations, the kernel's first load).
+    pod_drive(dev, rows, pack, one, stream[POD_ROUNDS:], n)
+    torch.cuda.synchronize()
+    pod = PPC.make_pod_state(n, one)
+    entry, exit_ = PPC.make_pod_steps(dev)
+    batches = [to_device(e, dev) for e in stream[:POD_ROUNDS]]
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    SYNCS.count = 0
+    entry_s = exit_s = 0.0
+    now = NOW0 + POD_START_MS
+    decs, times = [], []
+    for k in range(POD_ROUNDS):
+        now += POD_STEP_MS
+        if k > 0:
+            pre[k] = pod_window_pass(pod, now)[ruled_rows]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pod, dec = entry(pod, pack, batches[k], now)
+        reason = dec.reason.cpu().numpy()
+        entry_s += time.perf_counter() - t0
+        decs.append(reason)
+        times.append(now)
+        xb = to_device(pod_exit_buf(stream[k], reason, 2000 + k), dev)
+        t0 = time.perf_counter()
+        pod = exit_(pod, pack, xb, now + 10)
+        torch.cuda.synchronize()
+        exit_s += time.perf_counter() - t0
+    launches = prefix_cuda.launches
+    by_shape = dict(prefix_cuda.launches_by_shape)
+    syncs = SYNCS.count / POD_ROUNDS
+    if launches != 4 * n * POD_ROUNDS:
+        raise AssertionError(f"pod path launched the prefix kernel "
+                             f"{launches} times in {POD_ROUNDS} steps, not "
+                             f"4 x {n} a step")
+    if prefix_cuda.tile_launches:
+        raise AssertionError("the pod path took the tile walk")
+    if syncs > n * HOST_SYNCS_PER_ROUND:
+        raise AssertionError(f"{syncs} host syncs per pod step, over "
+                             f"{n} x {HOST_SYNCS_PER_ROUND}")
+
+    # The written contracts (docs/SEMANTICS.md:46-50), per cluster rule.
+    thr = POD_FLOW_COUNT
+    per_sec, step_max = {}, {}
+    flow_blocks = param_blocks = 0
+    for k, (reason, t) in enumerate(zip(decs, times)):
+        lanes = stream[k]["cluster_row"]
+        ok = reason == 0
+        flow_blocks += int((reason == C.BlockReason.FLOW).sum())
+        param_blocks += int((reason == C.BlockReason.PARAM_FLOW).sum())
+        per_shard = np.stack([
+            np.bincount(lanes[d * b:(d + 1) * b][ok[d * b:(d + 1) * b]],
+                        minlength=CAPACITY)[ruled_rows] for d in range(n)])
+        step = per_shard.sum(axis=0)
+        sec = t // 1000
+        per_sec[sec] = per_sec.get(sec, 0) + step
+        step_max[sec] = np.maximum(step_max.get(sec, 0), per_shard.max(0))
+        if k in pre:
+            full = pre[k] >= thr
+            if (step[full] > 0).any():
+                raise AssertionError(
+                    f"round {k}: {int((step[full] > 0).sum())} cluster "
+                    "rules admitted after their pod total reached the "
+                    "threshold")
+    worst = 0
+    for sec, total in per_sec.items():
+        bound = thr + (n - 1) * step_max[sec]
+        if (total > bound).any():
+            raise AssertionError(f"second {sec}: a cluster rule admitted "
+                                 "over threshold + (D - 1) x its largest "
+                                 "per-shard step")
+        worst = max(worst, int((total - thr).max()))
+    if flow_blocks <= 0 or param_blocks <= 0:
+        raise AssertionError(f"cluster rules did not bind: {flow_blocks} "
+                             f"flow, {param_blocks} param blocks")
+
+    # The reduction on its own: the last step's contributions, summed.
+    prepared = [PPC.prepare(PPC.shard(pod, d), pack, now,
+                            cluster_param=True)[1] for d in range(n)]
+    reduce_ms = time_ms(lambda: PPC.sum_contributions(prepared), 20)
+    out = {
+        "shards": n, "lanes_per_shard": b, "rounds": POD_ROUNDS,
+        "pod_entry_ms_per_step": entry_s / POD_ROUNDS * 1e3,
+        "pod_entry_ms_per_shard": entry_s / POD_ROUNDS / n * 1e3,
+        "pod_exit_ms_per_step": exit_s / POD_ROUNDS * 1e3,
+        "pod_rule_checks_per_s": n * b * POD_ROUNDS / entry_s,
+        "reduction_ms_per_step": reduce_ms,
+        "reduction_bytes_per_step": n * PPC.contribution_bytes(prepared[0]),
+        "reduction_bytes_per_shard": PPC.contribution_bytes(prepared[0]),
+        "host_syncs_per_pod_step": syncs,
+        "prefix_launches": launches,
+        "prefix_launches_per_pod_step": launches / POD_ROUNDS,
+        "prefix_launches_by_shape": {f"K={k},N={m},M={v}": c for (k, m, v), c
+                                     in sorted(by_shape.items())},
+        "flow_blocks": flow_blocks, "param_blocks": param_blocks,
+        "largest_overshoot_over_threshold": worst,
+        "contract_checks": {"per_second_bound": True,
+                            "stop_after_threshold": len(pre)},
+        "pod_state_bytes": tree_bytes(pod),
+    }
+    return out, pod
+
+
+def pod_reads(pod):
+    """Part (e), reads: the global reads equal the sums of the shards'."""
+    from sentinel_tpu_torch.ops import step as S
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    n = pod.cur_threads.shape[0]
+    tele = PPC.global_telemetry_counts(pod)
+    views = [S.telemetry_view(PPC.shard(pod, d)) for d in range(n)]
+    for f in tele._fields:
+        want = sum(getattr(v, f).to(torch.int64) for v in views)
+        if not torch.equal(getattr(tele, f), want):
+            raise AssertionError(f"global_telemetry_counts.{f} is not the "
+                                 "sum of the shards'")
+    fl = PPC.global_flight_recorder(pod)
+    if not (pod.flight.stamps == fl.stamps).all():
+        raise AssertionError("flight stamps differ between shards")
+    for f in ("events", "attr", "hist", "slot_attr"):
+        want = sum(getattr(PPC.shard(pod.flight, d), f).to(torch.int64)
+                   for d in range(n))
+        if not torch.equal(getattr(fl, f), want):
+            raise AssertionError(f"global_flight_recorder.{f} is not the "
+                                 "sum of the shards'")
+    seconds = int((fl.stamps >= 0).sum())
+    if seconds < 1:
+        raise AssertionError("the pod folded no second into its ring")
+    return {"telemetry_equal": True, "flight_equal": True,
+            "flight_seconds_folded": seconds}
+
+
+def pod_states_equal(x, y, what):
+    """Every leaf equal, float leaves too (no tolerance)."""
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    for i, (a, b) in enumerate(zip(PPC.tree_leaves(x), PPC.tree_leaves(y),
+                                   strict=True)):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{what}: leaf {i} differs")
+
+
+def pod_cut(dev, seed=6, shadow=False):
+    """The cut configuration on one device: (rows, pack, one, stream)."""
+    c = POD_CUT
+    rows, pack, one = pod_world(dev, capacity=c["capacity"],
+                                n_resources=c["resources"])
+    stream = pod_stream(rows, c["shards"], c["per_shard"], c["rounds"], seed)
+    return rows, pack, one, stream
+
+
+def pod_card_cpu(dev):
+    """Part (b): the cut stream on the card and on the CPU; every decision
+    and every leaf equal. Returns the card's pod for the checkpoint."""
+    runs, packs = {}, {}
+    for d in (dev, "cpu"):
+        rows, packs[d], one, stream = pod_cut(d)
+        runs[d] = pod_drive(d, rows, packs[d], one, stream,
+                            POD_CUT["shards"])
+    blocked = 0
+    for k, (a, b) in enumerate(zip(runs[dev][0], runs["cpu"][0])):
+        for f in a:
+            if not np.array_equal(a[f], b[f]):
+                raise AssertionError(f"pod round {k}: decisions.{f} differ "
+                                     "between card and CPU")
+        blocked += int((a["reason"] > 0).sum())
+    pod_states_equal(runs[dev][1], runs["cpu"][1], "pod card vs CPU")
+    if blocked <= 0:
+        raise AssertionError("the cut pod stream blocked nothing")
+    return {"blocked_decisions": blocked, "decisions_equal": True,
+            "state_equal": True}, runs[dev][1], packs[dev]
+
+
+def pod_two_axes(dev):
+    """Part (c): a 2 x 4 pod with one global-scope rule (res0, 10 a
+    second) and one pod-scope rule (res10, 6 a second): the bound checks
+    of tests/test_namespaces.py:80-135."""
+    from sentinel_tpu_torch.parallel import namespaces as PNS
+
+    flow = [F.FlowRule(resource="res0", count=10, cluster_mode=True,
+                       cluster_config={"scope": "global"}),
+            F.FlowRule(resource="res10", count=6, cluster_mode=True)]
+    rows, pack, one = pod_world(dev, capacity=1_024, n_resources=100,
+                                flight_seconds=8, flow=flow)
+    s, p = POD_DCN
+    b = POD_DCN_PER_SHARD
+    entry, _ = PNS.make_dcn_pod_steps(dev)
+
+    def run(row, per, t, pod):
+        buf = make_entry_batch_np(s * p * b)
+        for d in range(s * p):
+            buf["cluster_row"][d * b:d * b + per] = rows["cluster"][row]
+        buf["count"][:] = 1
+        pod, dec = entry(pod, pack, to_device(buf, dev), t)
+        r = dec.reason.cpu().numpy().reshape(s, p * b)
+        return pod, [int((x == 0).sum()) for x in r]
+
+    pod = PNS.make_dcn_pod_state(s, p, one)
+    pod, a1 = run(10, 3, NOW0, pod)           # pod scope: a quota a slice
+    if not all(6 <= a <= 6 + (p - 1) * 3 for a in a1):
+        raise AssertionError(f"pod-scope rule admitted {a1} per slice")
+    pod, a2 = run(10, 3, NOW0 + 1, pod)
+    if a2 != [0, 0]:
+        raise AssertionError(f"pod-scope rule admitted {a2} after its quota")
+    pod, g1 = run(0, 2, NOW0 + 2, pod)        # global scope: one quota
+    if not 10 <= sum(g1) <= 10 + (s * p - 1) * 2:
+        raise AssertionError(f"global-scope rule admitted {g1}")
+    pod, g2 = run(0, 2, NOW0 + 3, pod)
+    if sum(g2) != 0:
+        raise AssertionError(f"global-scope rule admitted {g2} after its "
+                             "quota")
+    return {"shape": [s, p], "pod_scope_admitted": a1,
+            "global_scope_admitted": g1, "bounds_hold": True}
+
+
+def pod_nccl(dev):
+    """Part (d): torch.distributed with NCCL at world size 1 (a FileStore:
+    no network) against the one-process driver at D = 1 on shard 0's
+    lanes of the full-width stream; then the all_reduce's own time at the
+    full-width contribution."""
+    import torch.distributed as dist
+
+    from sentinel_tpu_torch.parallel import cluster as PPC
+    from sentinel_tpu_torch.parallel import namespaces as PNS
+
+    store_path = Path(__file__).resolve().parent / "smoke_logs" / "nccl_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    if store_path.exists():
+        store_path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        rows, pack, one = pod_world(dev)
+        stream = pod_stream(rows, 1, POD_PER_SHARD, POD_NCCL_ROUNDS, 8)
+        out = {}
+        for kind in ("pod", "dcn"):
+            if kind == "pod":
+                dentry, dexit = PPC.make_dist_pod_steps(device=dev)
+                oentry, oexit = PPC.make_pod_steps(dev)
+                pod = PPC.make_pod_state(1, one)
+            else:
+                dentry, dexit = PNS.make_dist_dcn_pod_steps(1, 1, device=dev)
+                oentry, oexit = PNS.make_dcn_pod_steps(dev)
+                pod = PNS.make_dcn_pod_state(1, 1, one)
+            state = PPC.tree_map(lambda x: x.clone(), one)
+            now = NOW0
+            for k, ebuf in enumerate(stream):
+                now += POD_STEP_MS
+                state, ddec = dentry(state, pack, to_device(ebuf, dev), now)
+                pod, odec = oentry(pod, pack, to_device(ebuf, dev), now)
+                for f in ddec._fields:
+                    if not torch.equal(getattr(ddec, f), getattr(odec, f)):
+                        raise AssertionError(f"NCCL {kind} round {k}: "
+                                             f"decisions.{f} differ")
+                xb = to_device(pod_exit_buf(
+                    ebuf, ddec.reason.cpu().numpy(), 3000 + k), dev)
+                state = dexit(state, pack, xb, now + 10)
+                pod = oexit(pod, pack, xb, now + 10)
+            index = 0 if kind == "pod" else (0, 0)
+            pod_states_equal(state, PPC.shard(pod, index), f"NCCL {kind}")
+            out[f"{kind}_equal"] = True
+        own = PPC.prepare(state, pack, now, cluster_param=True)[1]
+        out["all_reduce_ms"] = time_ms(
+            lambda: PPC.all_reduce_contribution(own), 20)
+        out["all_reduce_bytes"] = PPC.contribution_bytes(own)
+        out["world_size"] = dist.get_world_size()
+        out["backend"] = str(dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def pod_candidate(dev):
+    """Part (e), rollout: at the cut size, a candidate (the cluster rules,
+    no breakers) staged pod-wide on a pod whose live rules block nothing;
+    its shadow counters summed over the shards must equal the live counts
+    of a second pod ENFORCING the candidate on the same stream."""
+    from sentinel_tpu_torch.ops import step as S
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    c = POD_CUT
+    rows, cand, cand_one = pod_world(dev, capacity=c["capacity"],
+                                     n_resources=c["resources"],
+                                     degrade=False)
+    _, live, one = pod_world(dev, capacity=c["capacity"],
+                             n_resources=c["resources"], flow_count=1e9,
+                             param_count=1e9)
+    one = one._replace(shadow=S.make_shadow_state(
+        c["capacity"], cand, cand_one.degrade, device=dev))
+    stream = pod_stream(rows, c["shards"], c["per_shard"], c["rounds"], 9)
+    _, shadow_pod = pod_drive(dev, rows, live, one, stream, c["shards"],
+                              shadow_rules=cand)
+    _, enforcing = pod_drive(dev, rows, cand, cand_one, stream, c["shards"])
+    counts = PPC.global_shadow_counts(shadow_pod)
+    per_shard = sum(shadow_pod.shadow.counts[d] for d in range(c["shards"]))
+    if not torch.equal(counts, per_shard):
+        raise AssertionError("global_shadow_counts is not the sum of the "
+                             "shards'")
+    tele = PPC.global_telemetry_counts(enforcing)
+    for name, ch, ev in (("pass", S.SH_WOULD_PASS, C.MetricEvent.PASS),
+                         ("block", S.SH_WOULD_BLOCK, C.MetricEvent.BLOCK)):
+        if not torch.equal(counts[ch], tele.totals[ev]):
+            bad = int((counts[ch] != tele.totals[ev]).sum())
+            raise AssertionError(f"pod candidate would-{name} differs from "
+                                 f"the enforcing pod on {bad} rows")
+    would_block = int(counts[S.SH_WOULD_BLOCK].sum())
+    if would_block <= 0:
+        raise AssertionError("the pod candidate would block nothing")
+    return {"would_pass": int(counts[S.SH_WOULD_PASS].sum()),
+            "would_block": would_block, "equals_enforcing_pod": True}
+
+
+def pod_checkpoint(dev, pod, pack):
+    """Part (e), checkpoint: the card pod of part (b) saved, restored
+    into a fresh card template, leaf for leaf; both step on equal."""
+    from sentinel_tpu_torch.core.checkpoint import (
+        restore_pod_checkpoint, save_pod_checkpoint)
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    POD_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_pod_checkpoint(pod, str(POD_CKPT))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    rows, _, one, stream = pod_cut(dev, seed=12)
+    template = PPC.make_pod_state(POD_CUT["shards"], one)
+    t0 = time.perf_counter()
+    restored = restore_pod_checkpoint(template, str(POD_CKPT))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    pod_states_equal(pod, restored, "restored pod")
+    entry, _ = PPC.make_pod_steps(dev)
+    now = NOW0 + 5_000
+    _, a = entry(pod, pack, to_device(stream[0], dev), now)
+    _, b = entry(restored, pack, to_device(stream[0], dev), now)
+    if not torch.equal(a.reason, b.reason):
+        raise AssertionError("the restored pod decides otherwise")
+    return {"save_ms": save_ms, "restore_ms": restore_ms,
+            "file_bytes": POD_CKPT.stat().st_size,
+            "leaves": len(PPC.tree_leaves(pod)), "restored_equal": True}
+
+
+def pod_phase(dev):
+    """The pod path on the card: (a) full width with the written
+    contracts, (b) card = CPU at the cut size, (c) two axes, (d) NCCL at
+    world size 1, (e) the pod-wide candidate, the checkpoint and the
+    global reads. Counts are zeroed before (a)'s rounds and read after
+    them. Prints one ``{"pod": ...}`` line."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    # What earlier phases left running beside the pod's host-bound loop.
+    out = {"threads_at_start": sorted(t.name for t in threading.enumerate())}
+    parts = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        result = fn(*args)
+        parts[f"{name}_s"] = time.perf_counter() - t1
+        print(json.dumps({"pod_part": name, "s": parts[f"{name}_s"],
+                          "peak_bytes_so_far":
+                              torch.cuda.max_memory_allocated()}),
+              flush=True)
+        return result
+
+    out["full"], full_pod = part("full", pod_full, dev)
+    # The reads while the full pod is the only one held, then it goes.
+    out["reads"] = part("reads", pod_reads, full_pod)
+    del full_pod
+    out["card_cpu"], cut_pod, cut_pack = part("card_cpu", pod_card_cpu, dev)
+    out["two_axes"] = part("two_axes", pod_two_axes, dev)
+    out["nccl"] = part("nccl", pod_nccl, dev)
+    out["candidate"] = part("candidate", pod_candidate, dev)
+    out["checkpoint"] = part("checkpoint", pod_checkpoint, dev, cut_pod,
+                             cut_pack)
+    del cut_pod
+    out["cut"] = POD_CUT
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"pod": out}), flush=True)
+    if out["phase_s"] > POD_PHASE_LIMIT_S:
+        raise AssertionError(f"pod phase took {out['phase_s']:.1f} s, over "
+                             f"{POD_PHASE_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3596,6 +4156,7 @@ def main() -> int:
     main["eng"].close()
     rollout_phase(dev, main_results)
     cluster = cluster_phase(dev)
+    pod = pod_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -3619,6 +4180,9 @@ def main() -> int:
         "library_ms": None,
         "shape": main_shape["shape"],
         "cluster_path_launches": cluster["prefix_launches"],
+        "pod_path_launches": pod["full"]["prefix_launches"],
+        "pod_path_launches_per_step":
+            pod["full"]["prefix_launches_per_pod_step"],
     }, acquire_kernel_entry(cluster)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,6 +10,10 @@ its window, flow, param and degrade state) carry both ways, and each
 stays ``None`` when the dict has none (a flattened JAX state drops its
 ``None`` fields).
 
+Pod states (``parallel/``: every leaf with a leading ``[D]`` shard axis,
+or ``[S, P]`` for the two-axis pod) carry the same way, leaf shapes kept,
+so the reference's pod tree loads into the port's pod drivers and back.
+
 A token service's compiled rule tensors (``ClusterRuleTensors``) and its
 window state (``ClusterMetricState``) carry the same way, so a test can
 hand the JAX service's state to the port (:func:`cluster_from_numpy`)

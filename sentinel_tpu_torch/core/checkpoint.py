@@ -15,9 +15,17 @@ package's layout, key for key, dtype for dtype: either package restores
 the other's files. Checkpoints travel as these files, not through
 ``convert.py``.
 
-The pod and cluster checkpoints of the reference are not part of this
-package yet; neither is the LLM stream ledger, so a header's
-``llm_streams`` is written empty and a non-empty one is refused.
+Pod checkpoints (``save_pod_checkpoint`` / ``restore_pod_checkpoint``)
+snapshot a whole pod state tree (``parallel/cluster.py:make_pod_state``,
+every leaf with its shard axis): the same ``.npz`` as the JAX package's, a
+header with ``version`` and ``n_leaves`` and ``leaf_{i}`` in
+``jax.tree.leaves`` order (NamedTuple field order, ``None`` subtrees
+dropped), the param owner keys as uint32. Either package restores the
+other's files.
+
+The cluster checkpoints of the reference are not part of this package
+yet; neither is the LLM stream ledger, so a header's ``llm_streams`` is
+written empty and a non-empty one is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.utils.device import to_host
+from sentinel_tpu_torch.utils.tree import named_leaves, tree_unflatten
 
 CHECKPOINT_VERSION = 1
 
@@ -282,6 +291,65 @@ def restore_checkpoint(engine, path: str, force: bool = False) -> None:
     # The lease mirrors must match the restored windows, or host admission
     # would re-grant quota the snapshot already spent.
     engine._seed_leases_from_state()
+
+
+# Leaves the JAX package holds as uint32 (param value hashes) and this one
+# as int64 holding the same values: written and validated as uint32.
+_UINT32_LEAVES = frozenset({"param.key", "shadow.param.key"})
+
+
+def _wire_dtype(path: str, t: torch.Tensor) -> np.dtype:
+    if path in _UINT32_LEAVES:
+        return np.dtype(np.uint32)
+    return np.dtype(str(t.dtype).replace("torch.", ""))
+
+
+def save_pod_checkpoint(pod_state, path: str) -> None:
+    """Snapshot a pod state tree, every leaf with its shard axis, so a
+    restarted pod resumes with each shard's share of the global window
+    (the pod-global view is rebuilt from the shares). One device-to-host
+    copy; the file is the JAX package's layout."""
+    leaves = named_leaves(pod_state)
+    host = to_host({f"leaf_{i}": t for i, (_, t) in enumerate(leaves)})
+    arrays = {k: (v.astype(np.uint32) if leaves[i][0] in _UINT32_LEAVES
+                  else v)
+              for i, (k, v) in enumerate(host.items())}
+    _atomic_savez(path, {"version": CHECKPOINT_VERSION,
+                         "n_leaves": len(leaves)}, arrays)
+
+
+def restore_pod_checkpoint(like, path: str):
+    """A pod state rebuilt from ``save_pod_checkpoint`` output (this
+    package's or the JAX package's), on ``like``'s device. ``like`` is a
+    template with the target structure and shapes (a fresh
+    ``make_pod_state``); every leaf is validated against it before any
+    value is returned, so a mismatched file cannot half-load."""
+    leaves = named_leaves(like)
+    header, arrays = _load_npz(path)
+    if header.get("version") != CHECKPOINT_VERSION:
+        raise ValueError(
+            f"unsupported pod checkpoint version {header.get('version')}")
+    if header.get("n_leaves") != len(leaves):
+        raise ValueError(
+            f"pod checkpoint has {header.get('n_leaves')} leaves, "
+            f"template expects {len(leaves)}")
+    try:
+        loaded = [arrays[f"leaf_{i}"] for i in range(len(leaves))]
+    except KeyError as ex:
+        raise ValueError(
+            f"corrupted pod checkpoint {path!r}: missing {ex}") from ex
+    for i, (got, (name, want)) in enumerate(zip(loaded, leaves)):
+        dtype = _wire_dtype(name, want)
+        if tuple(got.shape) != tuple(want.shape) \
+                or np.dtype(got.dtype) != dtype:
+            raise ValueError(
+                f"pod checkpoint leaf {i} ({name}) is "
+                f"{got.dtype}{list(got.shape)}, template expects "
+                f"{dtype}{list(want.shape)}")
+    return tree_unflatten(like, (
+        torch.from_numpy(np.array(got, dtype=str(want.dtype).replace(
+            "torch.", ""), order="C")).to(want.device)
+        for got, (_, want) in zip(loaded, leaves)))
 
 
 class CheckpointTimer:

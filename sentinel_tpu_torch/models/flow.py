@@ -10,9 +10,11 @@ prefixes over the node rows each request commits PASS to — three row
 spaces (cluster, default node, origin) resolved by ONE prefix-kernel
 launch per sweep (``ops/segment.py``).
 
-The cluster-mode cross-device inputs of the JAX checker (``extra_pass``,
-``extra_next`` and their global twins) belong to the pod path, a later
-slice; this checker is the single-device one.
+Cluster-mode rules admit against the pod-global window: the pod drivers
+(``parallel/cluster.py``, ``parallel/namespaces.py``) hand in the other
+shards' pass counts and next-window use (``extra_pass``, ``extra_next``),
+and for ``scope="global"`` rules the cross-slice twins
+(``extra_pass_global``, ``extra_next_global``). Local rules ignore them.
 """
 
 from __future__ import annotations
@@ -285,6 +287,16 @@ def _sync_warmup(rt: FlowRuleTensors, fs: FlowState,
     )
 
 
+def _pod_extra(extra, extra_global, dcn, sel_row) -> torch.Tensor:
+    """float32[N]: the pod extra at each lane's selected row; the
+    cross-slice one where the rule has scope="global" and it is given."""
+    out = gather(extra, sel_row, 0).to(torch.float32)
+    if extra_global is not None:
+        out = torch.where(dcn, gather(extra_global, sel_row, 0)
+                          .to(torch.float32), out)
+    return out
+
+
 def check_flow(
     rt: FlowRuleTensors,
     fs: FlowState,
@@ -296,6 +308,10 @@ def check_flow(
     occupied_next: Optional[torch.Tensor] = None,  # int32[R] next-bucket borrows
     spec: Optional[W.WindowSpec] = None,
     occupy_timeout_ms: int = C.DEFAULT_OCCUPY_TIMEOUT_MS,
+    extra_pass: Optional[torch.Tensor] = None,  # [R] other shards' passes
+    extra_next: Optional[torch.Tensor] = None,  # [R] other shards' next use
+    extra_pass_global: Optional[torch.Tensor] = None,  # [R] cross-slice
+    extra_next_global: Optional[torch.Tensor] = None,  # [R] cross-slice
 ) -> FlowVerdict:
     """Vectorized ``FlowRuleChecker.checkFlow`` over the micro-batch.
 
@@ -303,6 +319,7 @@ def check_flow(
     acquire counts, the capped fixpoint loop for mixed ones); a final
     sweep gives verdicts, waits and occupy grants, then the leaky-bucket
     heads advance. Returns new state tensors; ``fs`` is not modified.
+    The ``extra_*`` inputs are the pod's (module docstring).
     """
     if spec is None:
         spec = W.WindowSpec(C.SECOND_WINDOW_MS, C.SECOND_BUCKETS)
@@ -314,11 +331,15 @@ def check_flow(
     rule_prev_pass = gather(prev_pass_all, rt.sync_row, 0).to(torch.float32)
     fs = _sync_warmup(rt, fs, rule_prev_pass, now_ms)
 
+    pod = dict(extra_pass=extra_pass, extra_next=extra_next,
+               extra_pass_global=extra_pass_global,
+               extra_next_global=extra_next_global)
+
     def _blocked_for(survivors):
         return _eval_flow_slots(
             rt, fs, w1, cur_threads, batch, now_ms, candidate,
             survivors=survivors, occupied_next=occupied_next, spec=spec,
-            occupy_timeout_ms=occupy_timeout_ms)[0]
+            occupy_timeout_ms=occupy_timeout_ms, **pod)[0]
 
     survivors = FX.survivor_fixpoint(candidate, _blocked_for, batch.count)
 
@@ -326,7 +347,7 @@ def check_flow(
      first_slot) = _eval_flow_slots(
         rt, fs, w1, cur_threads, batch, now_ms, candidate,
         survivors=survivors, occupied_next=occupied_next, spec=spec,
-        occupy_timeout_ms=occupy_timeout_ms)
+        occupy_timeout_ms=occupy_timeout_ms, **pod)
 
     # Advance leaky buckets: latest' = max(latest, now - acquire·cost)
     # + consumed·cost.
@@ -352,6 +373,10 @@ def _eval_flow_slots(
     occupied_next: Optional[torch.Tensor] = None,
     spec: Optional[W.WindowSpec] = None,
     occupy_timeout_ms: int = C.DEFAULT_OCCUPY_TIMEOUT_MS,
+    extra_pass: Optional[torch.Tensor] = None,
+    extra_next: Optional[torch.Tensor] = None,
+    extra_pass_global: Optional[torch.Tensor] = None,
+    extra_next_global: Optional[torch.Tensor] = None,
 ):
     """One vectorized sweep over all rule slots. ``survivors`` (defaults
     to ``candidate``) selects which requests count toward within-batch
@@ -439,7 +464,16 @@ def _eval_flow_slots(
         # --- current usage of the selected node
         totals = W.row_totals(w1, sel_row)  # [N, E]
         pass_1s = totals[:, C.MetricEvent.PASS].to(torch.float32)
-        used_qps = (pass_1s + tok_prefix) * qps_scale
+        used_qps = pass_1s + tok_prefix
+        if extra_pass is not None:
+            # Cluster-mode rules admit against the pod-global window, and
+            # scope="global" rules against the cross-slice one; the extra
+            # joins before the per-second scale, as in the reference.
+            extra = _pod_extra(extra_pass, extra_pass_global,
+                               g(rt.dcn_mode, False), sel_row)
+            used_qps = used_qps + torch.where(g(rt.cluster_mode, False),
+                                              extra, 0.0)
+        used_qps = used_qps * qps_scale
         used_thr = gather(cur_threads, sel_row, 0).to(torch.float32) + ent_prefix
         used = torch.where(grade == C.FLOW_GRADE_QPS, used_qps, used_thr)
         acq = torch.where(grade == C.FLOW_GRADE_QPS, batch.count, 1).to(
@@ -512,6 +546,13 @@ def _eval_flow_slots(
                 - gather(oldest_pass_all, sel_row, 0).to(torch.float32)
                 + gather(occupied_next, sel_row, 0).to(torch.float32)
                 + occ_prefix)
+            if extra_next is not None:
+                # Cluster-mode rules borrow against the pod-global next
+                # window, or every shard would lend up to the threshold.
+                extra = _pod_extra(extra_next, extra_next_global,
+                                   g(rt.dcn_mode, False), sel_row)
+                next_used = next_used + torch.where(
+                    g(rt.cluster_mode, False), extra, 0.0)
             grant = occ_cand & (next_used * qps_scale + acq <= thr) & (
                 occ_wait_us <= occupy_timeout_ms * 1000)
             occupied = occupied | grant

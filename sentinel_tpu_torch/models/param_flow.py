@@ -249,15 +249,20 @@ def _gather2(arr, r, s, fill):
     return torch.where(ok, arr[torch.where(ok, r, 0), s], fill)
 
 
-def _cms_min(cms: torch.Tensor, srule: torch.Tensor, pos: torch.Tensor
-             ) -> torch.Tensor:
+def _cms_min(cms: torch.Tensor, srule: torch.Tensor, pos: torch.Tensor,
+             extra: Optional[torch.Tensor] = None) -> torch.Tensor:
     """min over depth of ``cms[rule, d, pos[:, d]]`` (the CMS estimate);
-    ``srule`` < 0 reads row 0 and is masked to 0."""
+    ``srule`` < 0 reads row 0 and is masked to 0. ``extra`` (the pod's
+    other shards' sketch) is added cell by cell before the min: the
+    reference's ``_cms_min(cms + extra_cms, ...)``, reading only the
+    gathered cells."""
     d = cms.shape[1]
     ok = in_range(srule, cms.shape[0])
     r = torch.where(ok, srule, 0)
     darange = torch.arange(d, device=cms.device)[None, :]
     vals = cms[r[:, None], darange, pos[:, :d]]  # [N, d]
+    if extra is not None:
+        vals = vals + extra[r[:, None], darange, pos[:, :d]]
     return torch.where(ok, vals.min(dim=1).values, 0.0)
 
 
@@ -267,33 +272,44 @@ def check_param_flow(
     batch: EntryBatch,
     now_ms: int,
     candidate: torch.Tensor,  # bool[N]
+    extra_cms: Optional[torch.Tensor] = None,  # f32[PR, D, W] other shards'
 ) -> ParamVerdict:
     """Vectorized ``ParamFlowChecker.passLocalCheck`` over the micro-batch:
     survivor resolution (ops/fixpoint.py), then one commit pass that
-    updates ``ps`` in place."""
+    updates ``ps`` in place.
+
+    ``extra_cms`` (the pod path): the sum of the other shards' sketches.
+    Cluster-mode param rules admit every value, the hot owner included,
+    against the pod-global estimate (local + others'); local rules ignore
+    it."""
     ps = roll_sketch_windows(rt, ps, now_ms)
 
     def _blocked_for(survivors):
         return _eval_param(rt, ps, batch, now_ms, candidate,
-                           survivors=survivors, commit=False).blocked
+                           survivors=survivors, commit=False,
+                           extra_cms=extra_cms).blocked
 
     survivors = FX.survivor_fixpoint(candidate, _blocked_for, batch.count)
     return _eval_param(rt, ps, batch, now_ms, candidate,
-                       survivors=survivors, commit=True)
+                       survivors=survivors, commit=True, extra_cms=extra_cms)
 
 
 def roll_sketch_windows(rt: ParamRuleTensors, ps: ParamFlowState,
-                        now_ms: int) -> ParamFlowState:
-    """Lazy per-rule sketch window roll, IN PLACE: the admission sketch
+                        now_ms: int, lazy: bool = True) -> ParamFlowState:
+    """Per-rule sketch window roll, IN PLACE: the admission sketch
     hard-resets each window, the promotion sketch halves per elapsed
-    window. Runs only when some active rule's window rolled (JAX:
-    ``lax.cond``; here one counted sync)."""
+    window. Idempotent within a window. ``lazy`` runs it only when some
+    active rule's window rolled (JAX: ``lax.cond``; here one counted
+    sync); the pod's roll before its reduction passes ``lazy=False`` and
+    applies the masks unconditionally, which reads nothing back and
+    leaves every unrolled cell as it was (a fill under a false mask, a
+    multiply by 1.0)."""
     dur = rt.duration_ms.clamp(min=1)
     now = int(now_ms)
     win_start = now - now % dur
     elapsed = torch.clamp((win_start - ps.cms_start) // dur, 0, 30)
     rolled = (elapsed > 0) & (rt.resource_row >= 0)
-    if not host_bool(rolled.any()):
+    if lazy and not host_bool(rolled.any()):
         return ps
     factor = torch.exp2(-elapsed.to(torch.float32))
     ps.cms.masked_fill_(rolled[:, None, None], 0.0)
@@ -310,6 +326,7 @@ def _eval_param(
     candidate: torch.Tensor,
     survivors: torch.Tensor,
     commit: bool,
+    extra_cms: Optional[torch.Tensor] = None,
 ) -> ParamVerdict:
     n = batch.size
     dev = batch.cluster_row.device
@@ -370,6 +387,11 @@ def _eval_param(
         est = _cms_min(ps.cms, srule, pos)               # [N]
         avail = torch.where(fresh, torch.clamp(max_count - est, min=0.0),
                             refilled)
+        if extra_cms is not None:
+            est_pod = _cms_min(ps.cms, srule, pos, extra=extra_cms)
+            avail = torch.where(g(rt.cluster_mode, False),
+                                torch.clamp(max_count - est_pod, min=0.0),
+                                avail)
         acqf = batch.count.to(torch.float32)
         qps_ok = (thr > 0) & (tok_prefix + acqf <= avail)
 

@@ -34,9 +34,14 @@ non-enforcing lanes of the same step, commits its would-verdicts through
 the live commit's one bincount, and with ``canary_bps`` set lets the
 candidate's verdict govern a hash-selected slice of lanes;
 ``exit_step(shadow_rules=...)`` feeds live completions to the candidate's
-breakers and THREAD-grade param gauges. The pod arguments of the
-reference (``shadow_extra_pass`` / ``shadow_extra_cms``) wait for the pod
-reduction.
+breakers and THREAD-grade param gauges.
+
+The pod (``parallel/cluster.py``, ``parallel/namespaces.py``) runs this
+step on every shard with the other shards' contributions summed over the
+pod: ``extra_pass`` / ``extra_next`` (and the cross-slice twins
+``extra_pass_global`` / ``extra_next_global``) for cluster-mode flow
+rules, ``extra_cms`` for cluster-mode param rules, and
+``shadow_extra_pass`` / ``shadow_extra_cms`` for a pod-wide candidate's.
 """
 
 from __future__ import annotations
@@ -384,7 +389,9 @@ def _checker_verdict(chk, verdict, cand: torch.Tensor) -> torch.Tensor:
 def _shadow_entry_eval(state: SentinelState, shadow_rules: RulePack,
                        batch: EntryBatch, now_ms: int, w1_live: W.Window,
                        w60_live: W.Window, sec_counts: torch.Tensor,
-                       spec1: W.WindowSpec, occupy_timeout_ms: int):
+                       spec1: W.WindowSpec, occupy_timeout_ms: int,
+                       shadow_extra_pass: Optional[torch.Tensor] = None,
+                       shadow_extra_cms: Optional[torch.Tensor] = None):
     """The candidate ruleset's cascade in non-enforcing lanes: authority
     -> system -> param -> flow -> degrade, as the live chain. Every real
     lane counts, pre-decided or not. Flow and param admit against the
@@ -393,7 +400,9 @@ def _shadow_entry_eval(state: SentinelState, shadow_rules: RulePack,
     the live rotated window and the ROLLED minute window and second
     staging (the same tensors the live check reads); thread gauges and OS
     signals are live. Occupy borrows are not simulated: a prioritized
-    request the candidate rejects counts as would-block.
+    request the candidate rejects counts as would-block. On the pod the
+    candidate's cluster-mode rules admit against the pod-global shadow
+    window and sketch (``shadow_extra_pass`` / ``shadow_extra_cms``).
 
     Returns ``(blocked, reason, wait_us, (flow, param, degrade) states,
     rotated shadow w1, per-family block masks, rule_slot)``."""
@@ -420,7 +429,7 @@ def _shadow_entry_eval(state: SentinelState, shadow_rules: RulePack,
 
     cand = lanes & (~s_blocked)
     s_pv = P.check_param_flow(shadow_rules.param, sh.param, batch, now_ms,
-                              cand)
+                              cand, extra_cms=shadow_extra_cms)
     s_reason = torch.where(cand & s_pv.blocked,
                            int(C.BlockReason.PARAM_FLOW), s_reason)
     s_slot = torch.where(cand & s_pv.blocked, s_pv.slot, s_slot)
@@ -428,7 +437,8 @@ def _shadow_entry_eval(state: SentinelState, shadow_rules: RulePack,
 
     s_fv = F.check_flow(shadow_rules.flow, sh.flow, sh_w1, state.cur_threads,
                         batch, now_ms, s_blocked | (~lanes), spec=spec1,
-                        occupy_timeout_ms=occupy_timeout_ms)
+                        occupy_timeout_ms=occupy_timeout_ms,
+                        extra_pass=shadow_extra_pass)
     s_flow = lanes & (~s_blocked) & s_fv.blocked
     s_reason = torch.where(s_flow, int(C.BlockReason.FLOW), s_reason)
     s_slot = torch.where(s_flow, s_fv.slot, s_slot)
@@ -461,8 +471,22 @@ def entry_step(
     shadow_rules: Optional[RulePack] = None,
     canary_bps: Optional[int] = None,
     canary_salt: Optional[int] = None,
+    extra_pass: Optional[torch.Tensor] = None,
+    extra_next: Optional[torch.Tensor] = None,
+    extra_cms: Optional[torch.Tensor] = None,
+    extra_pass_global: Optional[torch.Tensor] = None,
+    extra_next_global: Optional[torch.Tensor] = None,
+    shadow_extra_pass: Optional[torch.Tensor] = None,
+    shadow_extra_cms: Optional[torch.Tensor] = None,
 ) -> Tuple[SentinelState, Decisions]:
     """One admission step; consumes ``state``.
+
+    ``extra_pass`` / ``extra_next`` ([R]) and ``extra_cms`` (f32[PR, D,
+    W]), all optional, are the other shards' pass counts, next-window use
+    and param sketch, for cluster-mode rules; ``extra_pass_global`` /
+    ``extra_next_global`` are the cross-slice twins that scope="global"
+    rules read instead; ``shadow_extra_pass`` / ``shadow_extra_cms`` are
+    the candidate's. The pod drivers (``parallel/``) supply them.
 
     ``extra_checkers``: the SPI device checkers (``core/spi.py``), each
     ``fn(state, rules, batch, now_ms, candidate) -> bool[N]``, spliced
@@ -528,7 +552,8 @@ def entry_step(
     decided = decided | blocked
 
     cand = valid & (~decided)
-    pv = P.check_param_flow(rules.param, state.param, batch, now_ms, cand)
+    pv = P.check_param_flow(rules.param, state.param, batch, now_ms, cand,
+                            extra_cms=extra_cms)
     reason = torch.where(cand & pv.blocked, int(C.BlockReason.PARAM_FLOW),
                          reason)
     rule_slot = torch.where(cand & pv.blocked, pv.slot, rule_slot)
@@ -548,7 +573,10 @@ def entry_step(
 
     fv = F.check_flow(rules.flow, state.flow, w1, state.cur_threads, batch,
                       now_ms, decided, occupied_next=occupied_next,
-                      spec=spec1, occupy_timeout_ms=occupy_timeout_ms)
+                      spec=spec1, occupy_timeout_ms=occupy_timeout_ms,
+                      extra_pass=extra_pass, extra_next=extra_next,
+                      extra_pass_global=extra_pass_global,
+                      extra_next_global=extra_next_global)
     hit = valid & (~decided) & fv.blocked
     reason = torch.where(hit, int(C.BlockReason.FLOW), reason)
     rule_slot = torch.where(hit, fv.slot, rule_slot)
@@ -573,7 +601,8 @@ def entry_step(
     if shadow_rules is not None and state.shadow is not None:
         s_eval = _shadow_entry_eval(state, shadow_rules, batch, now_ms, w1,
                                     w60, sec.counts, spec1,
-                                    occupy_timeout_ms)
+                                    occupy_timeout_ms, shadow_extra_pass,
+                                    shadow_extra_cms)
         (s_blocked, s_reason, s_wait_us, s_states, sh_w1, s_fam,
          s_slot) = s_eval
         if canary_bps is not None:

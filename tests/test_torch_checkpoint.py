@@ -470,6 +470,7 @@ def test_checkpoint_round_trip_restores_slot_assignment(tmp_path):
     """tests/test_slots.py:390 on the port, with ``timeseries_view`` as
     the fold (the port's stand-in for ``slo_refresh``)."""
     pctx.replace_context(None)
+    pctx.bump_generation()  # retire a context pooled by an earlier engine
     path = str(tmp_path / "slots.npz")
     clock = Clock(NOW0)
 

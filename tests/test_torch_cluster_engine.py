@@ -121,8 +121,11 @@ class Side:
 def sides():
     for tu in (jtu, ptu):
         tu.freeze_time(NOW0)
+    # A context pooled on this thread by an earlier module's engine holds
+    # that engine's rows: drop it, and retire every pooled one.
     for ctx in (jctx, pctx):
         ctx.replace_context(None)
+        ctx.bump_generation()
     # First steps are slow on both sides: the JAX service compiles its
     # acquire step once per shape, and the port's first window scatter
     # imports torch's shape helpers (~0.8 s). Absorb both here, or a first

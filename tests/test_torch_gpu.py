@@ -18,7 +18,10 @@ syncs unchanged with no candidate, and the kernel's launches with one; and
 the cluster token path: the acquire kernel bit-equal to its plain form at
 every width and status, the wrapper's refusals, a raised error (never a
 fallback) when the build or a launch fails, and a port server on the card
-answering a client as one on the CPU does.
+answering a client as one on the CPU does; and the pod: four shards on the
+card deciding as on the CPU, leaf for leaf, and the distributed driver
+over NCCL at world size 1 equal to gloo on the CPU and to the one-process
+driver.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1154,3 +1157,69 @@ def test_server_and_client_on_cuda_agree_with_cpu(cuda):
         time_util.unfreeze_time()
     assert card == cpu
     assert {s for s, _, _ in card} >= {0, 1, 2, 3}
+
+
+# ---------------------------------------------------------------------------
+# The pod
+# ---------------------------------------------------------------------------
+
+
+def test_pod_on_cuda_equals_cpu(cuda):
+    """Four shards at the smoke's cut size (capacity 8,192, 2,000
+    resources, 256 lanes a shard, 6 rounds with exits): every decision and
+    every state leaf equal on the card and the CPU."""
+    import chip_smoke as cs
+
+    runs = {}
+    for key, dev in (("card", cuda), ("cpu", "cpu")):
+        rows, pack, one, stream = cs.pod_cut(dev)
+        runs[key] = cs.pod_drive(dev, rows, pack, one, stream,
+                                 cs.POD_CUT["shards"])
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        for f in a:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    assert sum(int((d["reason"] > 0).sum()) for d in runs["card"][0]) > 0
+    cs.pod_states_equal(runs["card"][1], runs["cpu"][1], "pod")
+
+
+def test_dist_pod_over_nccl_equals_gloo_and_one_process(cuda, tmp_path):
+    """World size 1 (a FileStore, no network): the distributed driver on
+    the card over NCCL, the same driver on the CPU over a gloo group, and
+    the one-process driver on the card at D = 1 give equal decisions and
+    state over the cut stream's first shard."""
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from sentinel_tpu_torch.parallel import cluster as PPC
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+        out = {}
+        for name, dev, group in (("nccl", cuda, None), ("gloo", "cpu", gloo),
+                                 ("one", cuda, None)):
+            rows, pack, one, _ = cs.pod_cut(dev)
+            stream = cs.pod_stream(rows, 1, 256, 6, 21)
+            if name == "one":
+                entry, exit_ = PPC.make_pod_steps(dev)
+                state = PPC.make_pod_state(1, one)
+            else:
+                entry, exit_ = PPC.make_dist_pod_steps(group, device=dev)
+                state = one
+            decs, now = [], cs.NOW0
+            for k, ebuf in enumerate(stream):
+                now += 50
+                state, dec = entry(state, pack, cs.to_device(ebuf, dev), now)
+                decs.append(cs.decisions_np(dec))
+                state = exit_(state, pack, cs.to_device(cs.pod_exit_buf(
+                    ebuf, decs[-1]["reason"], k), dev), now + 10)
+            out[name] = (decs, state if name != "one"
+                         else PPC.shard(state, 0))
+        for name in ("gloo", "one"):
+            for a, b in zip(out["nccl"][0], out[name][0]):
+                for f in a:
+                    np.testing.assert_array_equal(a[f], b[f], err_msg=name)
+            cs.pod_states_equal(out["nccl"][1], out[name][1], name)
+    finally:
+        dist.destroy_process_group()

@@ -62,8 +62,11 @@ class Twin:
     """A JAX and a port slot-mode engine at one budget, one stream."""
 
     def __init__(self, budget, flow=()):
+        # A context pooled on this thread by an earlier engine holds that
+        # engine's rows: drop it and retire every pooled one.
         for ctx in (jctx, pctx):
             ctx.replace_context(None)
+            ctx.bump_generation()
         self.jclk = SimClock(BASE_MS)
         self.pclk = _Clock(BASE_MS)
         self.j = JEngine(clock=self.jclk.now_ms, journal_path="",

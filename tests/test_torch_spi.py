@@ -266,6 +266,7 @@ def test_checker_on_slot_mode_dispatch(monkeypatch):
 
 def _port_engine():
     pctx.replace_context(None)
+    pctx.bump_generation()  # retire a context pooled by an earlier engine
     return pst.SentinelEngine(64, device="cpu")
 
 

@@ -271,6 +271,25 @@ def test_convert_round_trip_keeps_values_and_dtypes():
     assert_tree_equal(jax_to_np(jstate), port_np(again))
 
 
+def test_convert_round_trip_keeps_pod_trees():
+    """The reference's ``[D, ...]`` and ``[S, P, ...]`` pod trees (a
+    candidate's shadow and the flight ring included) load into the port
+    and come back with every leaf, shape and dtype."""
+    from sentinel_tpu.parallel import cluster as JPC
+    from sentinel_tpu.parallel import namespaces as JNS
+
+    rows, pack, one = pod_world()
+    one = one._replace(shadow=JS.make_shadow_state(POD_CAPACITY, pack,
+                                                   one.degrade))
+    for pod in (JPC.make_pod_state(3, one), JNS.make_dcn_pod_state(2, 3, one)):
+        want = jax_to_np(pod)
+        got = convert.state_from_numpy(want, "cpu")
+        assert got.shadow is not None and got.flight is not None
+        assert_tree_equal(want, port_np(got), rtol=0.0)
+        again = convert.state_from_numpy(convert.state_to_numpy(got), "cpu")
+        assert_tree_equal(want, port_np(again), rtol=0.0)
+
+
 def test_to_device_matches_staging_dicts():
     sc = Scenario()
     rng = np.random.default_rng(5)
@@ -284,3 +303,214 @@ def test_to_device_matches_staging_dicts():
             assert getattr(eb, f).numpy().dtype == a.dtype, f
     xb = to_device(make_exit_batch_np(4), "cpu")
     assert type(xb).__name__ == "ExitBatch" and xb.size == 4
+
+
+# ---------------------------------------------------------------------------
+# The pod: the live JAX reference (a vmap with named axes) and its twin
+# ---------------------------------------------------------------------------
+
+POD_CAPACITY = 128
+
+
+def pod_world(thr=10.0, local_thr=3.0, param_thr=6.0, param_local_thr=2.0,
+              brk_count=3, scope=None, flight_seconds=8):
+    """One rule pack whose shapes every pod scenario shares (so the
+    reference compiles once per step kind): a cluster-mode flow rule on
+    ``shared`` (``scope`` its cluster_config scope), a local one on
+    ``local``, a cluster-mode and a local param rule on ``pshared`` /
+    ``plocal``, an exception-count breaker on ``brk``; ``free`` has no
+    rule. Returns (rows by name, JAX pack, one JAX shard state)."""
+    reg = JRegistry(POD_CAPACITY)
+    names = ("shared", "local", "pshared", "plocal", "brk", "free")
+    rows = {n: reg.cluster_row(n) for n in names}
+    cfg = None if scope is None else {"scope": scope}
+    flow = [JF.FlowRule(resource="shared", count=thr, cluster_mode=True,
+                        cluster_config=cfg),
+            JF.FlowRule(resource="local", count=local_thr)]
+    param = [JP.ParamFlowRule("pshared", param_idx=0, count=param_thr,
+                              cluster_mode=True),
+             JP.ParamFlowRule("plocal", param_idx=0, count=param_local_thr)]
+    degrade = [JD.DegradeRule(
+        resource="brk", grade=JC.DEGRADE_GRADE_EXCEPTION_COUNT,
+        count=brk_count, time_window=5, min_request_amount=1)]
+    ft, _ = JF.compile_flow_rules(flow, reg, POD_CAPACITY)
+    dt, di = JD.compile_degrade_rules(degrade, reg, POD_CAPACITY)
+    pt = JP.compile_param_rules(param, reg, POD_CAPACITY)
+    pack = JS.RulePack(
+        flow=ft, degrade=dt,
+        authority=JA.compile_authority_rules([], reg, POD_CAPACITY),
+        system=JY.compile_system_rules([]), param=pt)
+    one = JS.make_state(POD_CAPACITY, ft.num_rules, NOW0,
+                        degrade=JD.make_degrade_state(dt, di),
+                        param=JP.make_param_state(pt.num_rules),
+                        flight_seconds=flight_seconds)
+    return rows, pack, one
+
+
+def pod_entry_buf(n_shards, per_shard, lanes, count=1, param=None,
+                  prioritized=False):
+    """A ``[n_shards * per_shard]`` entry buffer; ``lanes`` maps lane
+    index -> cluster row (the rest padding). ``param`` puts one hashed
+    value at param index 0 of every live lane."""
+    buf = make_entry_batch_np(n_shards * per_shard)
+    for i, row in lanes.items():
+        buf["cluster_row"][i] = row
+    live = buf["cluster_row"] >= 0
+    buf["count"][live] = count
+    buf["prioritized"][live] = prioritized
+    if param is not None:
+        buf["param_hash"][live, 0] = param
+        buf["param_present"][live, 0] = True
+    return buf
+
+
+def every_lane(n_shards, per_shard, row, per_live=None):
+    """lane -> row for the first ``per_live`` lanes of every shard."""
+    per_live = per_shard if per_live is None else per_live
+    return {d * per_shard + j: row
+            for d in range(n_shards) for j in range(per_live)}
+
+
+def pod_exit_buf(ebuf, reason, error=None):
+    """Completions of the admitted lanes of an entry buffer."""
+    buf = make_exit_batch_np(ebuf["cluster_row"].shape[0])
+    ok = (ebuf["cluster_row"] >= 0) & (reason == 0)
+    for f in ("cluster_row", "dn_row", "origin_row", "entry_in", "count",
+              "param_hash", "param_present"):
+        buf[f][:] = ebuf[f]
+    buf["cluster_row"][~ok] = -1
+    err = np.zeros(ok.shape, bool) if error is None else error
+    buf["success"][:] = ok & ~err
+    buf["error"][:] = ok & err
+    buf["rt_ms"][:] = 5
+    return buf
+
+
+_JAX_POD = {}
+
+
+def jax_pod_steps(kind="pod", cluster_param=True, global_scope=True,
+                  shadow_rules=None):
+    """The reference's per-shard pod bodies under ``jax.vmap`` with named
+    axes (its ``shard_map`` is refused by jax 0.9.0): ``kind="pod"``
+    vmaps ``parallel/cluster.py:_pod_entry`` / ``_pod_exit`` over
+    ``"pod"`` (state ``[D, 1, ...]``, batch ``[D, B]``); ``kind="dcn"``
+    nests ``namespaces._dcn_entry`` / ``_dcn_exit`` over ``"dcn"`` then
+    ``"ici"`` (state ``[S, P, 1, 1, ...]``, batch ``[S, P, B]``). Jitted
+    once per configuration for the process."""
+    import functools
+
+    import jax
+
+    from sentinel_tpu.parallel import cluster as JPC
+    from sentinel_tpu.parallel import namespaces as JNS
+
+    key = (kind, cluster_param, global_scope, id(shadow_rules))
+    if key in _JAX_POD:
+        return _JAX_POD[key][0]
+    axes = (0, None, 0, None)
+    if kind == "pod":
+        ent = jax.vmap(functools.partial(
+            JPC._pod_entry, axis=JPC.AXIS, cluster_param=cluster_param,
+            shadow_rules=shadow_rules), in_axes=axes, axis_name=JPC.AXIS)
+        ext = jax.vmap(functools.partial(
+            JPC._pod_exit, axis=JPC.AXIS, shadow_rules=shadow_rules),
+            in_axes=axes, axis_name=JPC.AXIS)
+    else:
+        ent = functools.partial(JNS._dcn_entry, cluster_param=cluster_param,
+                                global_scope=global_scope,
+                                extra_checkers=())
+        ent = jax.vmap(jax.vmap(ent, in_axes=axes, axis_name=JNS.ICI_AXIS),
+                       in_axes=axes, axis_name=JNS.DCN_AXIS)
+        ext = jax.vmap(jax.vmap(JNS._dcn_exit, in_axes=axes,
+                                axis_name=JNS.ICI_AXIS),
+                       in_axes=axes, axis_name=JNS.DCN_AXIS)
+    steps = (jax.jit(ent), jax.jit(ext))
+    _JAX_POD[key] = (steps, shadow_rules)  # keeps the id's owner alive
+    return steps
+
+
+def squeeze_np(d, lead: int):
+    """A nested numpy dict of a vmapped reference state: drop the
+    singleton axes that follow the ``lead`` shard axes."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out[k] = squeeze_np(v, lead)
+        else:
+            out[k] = v.reshape(v.shape[:lead] + v.shape[2 * lead:])
+    return out
+
+
+class PodTwin:
+    """The reference pod and the port's one-process pod, stepped together
+    on the same numpy batches; every step compares the decisions and every
+    state leaf (float leaves too) bit for bit."""
+
+    def __init__(self, pack, one, shape, cluster_param=True,
+                 global_scope=True, shadow_rules=None, pshadow_rules=None):
+        import jax
+        import jax.numpy as jnp
+
+        from sentinel_tpu_torch.parallel import cluster as PPC
+        from sentinel_tpu_torch.parallel import namespaces as PNS
+
+        self.shape = tuple(shape)          # (D,) or (S, P)
+        self.lead = len(self.shape)
+        kind = "pod" if self.lead == 1 else "dcn"
+        self.jentry, self.jexit = jax_pod_steps(
+            kind, cluster_param, global_scope, shadow_rules)
+        ones = (1,) * self.lead
+        self.jpack = pack
+        self.jstate = jax.tree.map(
+            lambda x: jnp.broadcast_to(x, self.shape + ones + x.shape), one)
+        self.prules = convert.rules_from_numpy(jax_to_np(pack), "cpu")
+        self.pstate = convert.state_from_numpy(self.jax_np(), "cpu")
+        if kind == "pod":
+            self.pentry, self.pexit = PPC.make_pod_steps(
+                "cpu", cluster_param=cluster_param,
+                shadow_rules=pshadow_rules)
+        else:
+            self.pentry, self.pexit = PNS.make_dcn_pod_steps(
+                "cpu", cluster_param=cluster_param,
+                global_scope=global_scope)
+
+    def jax_np(self):
+        return squeeze_np(jax_to_np(self.jstate), self.lead)
+
+    def _jbatch(self, buf, cls):
+        import jax.numpy as jnp
+
+        return cls(**{k: jnp.asarray(v.reshape(self.shape + (-1,)
+                                               + v.shape[1:]))
+                      for k, v in buf.items()})
+
+    def check_state(self):
+        assert_tree_equal(self.jax_np(), port_np(self.pstate), rtol=0.0)
+
+    def entry(self, buf, now):
+        import jax.numpy as jnp
+
+        self.jstate, jdec = self.jentry(self.jstate, self.jpack,
+                                        self._jbatch(buf, JEntryBatch),
+                                        jnp.int64(now))
+        self.pstate, pdec = self.pentry(self.pstate, self.prules,
+                                        to_device(buf, "cpu"), now)
+        for f in ("reason", "wait_us", "rule_slot"):
+            w = np.asarray(getattr(jdec, f)).reshape(-1)
+            g = getattr(pdec, f).numpy()
+            assert w.dtype == g.dtype, f
+            np.testing.assert_array_equal(g, w, err_msg=f)
+        self.check_state()
+        return np.asarray(jdec.reason).reshape(-1), \
+            np.asarray(jdec.wait_us).reshape(-1)
+
+    def exit(self, buf, now):
+        import jax.numpy as jnp
+
+        self.jstate = self.jexit(self.jstate, self.jpack,
+                                 self._jbatch(buf, JExitBatch),
+                                 jnp.int64(now))
+        self.pstate = self.pexit(self.pstate, self.prules,
+                                 to_device(buf, "cpu"), now)
+        self.check_state()

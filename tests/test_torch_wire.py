@@ -318,6 +318,7 @@ def test_entry_exit_bridge_through_remote_entry(reactor):
     reason. ``MSG_EXIT`` exits one (OK), the same id again is
     BAD_REQUEST, and the dropped connection exits the entry it held."""
     pctx.replace_context(None)
+    pctx.bump_generation()  # retire a context pooled by an earlier engine
     eng = pst.SentinelEngine(capacity=64, device="cpu")
     eng.flow_rules.load_rules([PFlowRule(resource="bridged", count=2)])
     server = _server("port", reactor, engine=eng)
@@ -362,6 +363,7 @@ def test_engine_roles_build_services_on_the_engine_device():
     from sentinel_tpu_torch.cluster import state as pstate
 
     pctx.replace_context(None)
+    pctx.bump_generation()  # retire a context pooled by an earlier engine
     eng = pst.SentinelEngine(capacity=64, device="cpu")
     try:
         server = eng.cluster.set_to_server(host="127.0.0.1", port=0)
