@@ -199,8 +199,43 @@ Phases (any failure raises and exits non-zero; none is caught):
    the card; the global reads equal the sums of the shards' reads. Counts
    are zeroed before (a)'s rounds and read after them. The phase must end
    within 60 s. Prints one ``{"pod": ...}`` line.
-13. The smoke's wall time, the kernels line (both kernels, with the pod
-   path's prefix launches), the card line, and the final
+13. Control: the control plane that rides the once-per-second fold. (a-c)
+   The main path's configuration (capacity 32,768, the 10,000 resources
+   and headline rules) on an injected clock, 17 simulated seconds of four
+   width-2048 batches a second with exits and one fold a second, on the
+   card and then on the CPU: after 4 s, availability objectives load on 64
+   resources (a 10 s / 2 s page pair and a 30 s / 5 s ticket pair) and
+   adaptive targets on 16 tunable flow rules; a burst on ``res0`` (its
+   rule tightened to 8 a second) fires and resolves both alerts and raises
+   ``abort_signal``; the loop proposes, shadows, canaries and promotes
+   ``res1000`` (64 -> 128 under 96 a second) and proposes a decrease of
+   ``res1010`` (exits at 50 ms against a 1 ms p99 target) that the
+   guardrail aborts, leaving the last-known-good rules live. Decisions,
+   every fold's alert store, ``abort_signal`` and guardrail states, the
+   shadow counters, the SLO status, the decision log, the live rules, the
+   journal's records, ``why_query`` and ``explain_trace`` (less the window
+   the trace pump reads at its own time) must be equal on both; the
+   webhook must deliver every transition to a loopback endpoint; the
+   card's journal directory must recover in a fresh engine (records, the
+   decision log and the alert log). Prints the fold's ms with and without
+   objectives, the render's ms, entry ms / host syncs / prefix launches a
+   step with no candidate, in shadow and in canary, the journal's bytes
+   and its record-with-fsync ms. (d) The pipeline under 16 callers for
+   4 s on a card engine that is also an embedded token server answering 4
+   loopback connections: every sealed second's pipeline, batch and wire
+   counts equal the observations filed in it, their totals equal the
+   pipeline's harvests, the token service's harvested batches and the
+   replies; the wire stages reconcile with the RTT and the exemplars
+   resolve to stitched spans. (e) Three port leaders (engine + token
+   server; cut to 200 resources so a second fits a frame) under one
+   ``FleetView``: every settled fleet cell is the sum of the leaders' own
+   ``timeseries_view`` cells. (f) With objectives and idle targets loaded
+   the main path's step stays at 15.0625 host syncs and 4.0 prefix
+   launches. (g) No thread the phase started is alive after its engines
+   close. The phase must end within 60 s. Prints one ``{"control": ...}``
+   line.
+14. The smoke's wall time, the kernels line (both kernels, with the pod
+   and control paths' prefix launches), the card line, and the final
    ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
@@ -718,6 +753,7 @@ def profile_phase(dev, rounds: int = 8, width: int = 8192):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     counted = prefix_cuda.launches
+    eng.close()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
@@ -787,6 +823,7 @@ def parity_phase():
             clock.now += 20
             eng.complete_batch(exit_buf(rng, ebuf, decs[-1]["reason"]))
         runs[dev] = (decs, convert.state_to_numpy(eng.state))
+        eng.close()
     blocked = 0
     for r, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
         for f in a:
@@ -4114,6 +4151,897 @@ def pod_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the control plane that rides the once-per-second fold
+# ---------------------------------------------------------------------------
+
+CONTROL_WIDTH = 2048
+CONTROL_STEP_MS = 250            # four width-2048 batches a simulated second
+CONTROL_SECONDS = 17
+CONTROL_WARM_S = 4               # seconds before objectives and targets load
+CONTROL_OBJECTIVES = tuple(f"res{10 * i}" for i in range(64))
+CONTROL_TARGETS = tuple(f"res{1000 + 10 * i}" for i in range(16))
+CONTROL_BURN = "res0"            # an objective's resource, tightened to 8/s
+CONTROL_BURN_COUNT = 8
+CONTROL_BURN_LANES = 64
+CONTROL_BURN_SECONDS = (4, 8)
+CONTROL_UP = CONTROL_TARGETS[0]  # count 64 under 96/s: promoted to 128
+CONTROL_UP_COUNT = 64
+CONTROL_UP_LANES = 24
+CONTROL_UP_SECONDS = (4, 10)
+CONTROL_DOWN = CONTROL_TARGETS[1]  # RT 50 ms against 1 ms: a decrease
+CONTROL_DOWN_COUNT = 6000          # that the guardrail aborts
+CONTROL_DOWN_LANES = 1024
+CONTROL_DOWN_SECONDS = (10, 17)
+CONTROL_DOWN_RT_MS = 50
+# Drill-speed knobs (``tests/test_adaptive.py``'s, with a one-second
+# cadence) and a journal tail that holds the whole run.
+CONTROL_KEYS = {
+    "csp.sentinel.adaptive.interval.seconds": "1",
+    "csp.sentinel.adaptive.shadow.seconds": "1",
+    "csp.sentinel.adaptive.canary.seconds": "1",
+    "csp.sentinel.adaptive.cooldown.seconds": "4",
+    "csp.sentinel.adaptive.abort.backoff.seconds": "30",
+    "csp.sentinel.adaptive.step.pct": "1.0",
+    "csp.sentinel.adaptive.increase.pct": "1.0",
+    "csp.sentinel.adaptive.decrease.pct": "0.5",
+    "csp.sentinel.journal.capacity": "4096",
+}
+CONTROL_ABORT_WINDOWS = 2
+CONTROL_PIPE_THREADS = 16
+CONTROL_PIPE_WINDOW_S = 4.0
+CONTROL_WIRE_CONNS = 4
+CONTROL_WIRE_BURST = 16
+CONTROL_WIRE_FLOWS = 8
+CONTROL_FLEET_LEADERS = 3
+CONTROL_FLEET_SECONDS = 3
+# A leader's page carries each second's whole resource map and the health
+# of every resource the SLO manager baselines, in one u16-framed JSON
+# entity (at most 64,000 bytes): a second with thousands of active
+# resources cannot be framed and is skipped, loudly (the reference's
+# bound). The leaders therefore serve 200 resources.
+CONTROL_FLEET_CUT = {"capacity": 8_192, "resources": 200}
+CONTROL_PHASE_LIMIT_S = 60.0
+CONTROL_DIR = Path(__file__).resolve().parent / "smoke_logs" / "control"
+# Read at pump time from the live window (the reference's trace ring does
+# the same), so it depends on when the pump ran, not on the device.
+TRACE_WINDOW_FIELDS = ("window", "windowAtTrace")
+
+
+def control_lanes():
+    """Per batch: the resource index of every lane. The scenario's
+    resources get fixed shares; the rest of each batch is the headline's
+    uniform traffic over the other resources (one seeded stream)."""
+    rng = np.random.default_rng(41)
+    special = {0} | {int(r[3:]) for r in CONTROL_TARGETS}
+    pool = np.array([i for i in range(N_RESOURCES) if i not in special])
+    out = []
+    for s in range(CONTROL_SECONDS):
+        for _ in range(1000 // CONTROL_STEP_MS):
+            lanes = []
+            for res, n, (a, b) in (
+                    (CONTROL_BURN, CONTROL_BURN_LANES, CONTROL_BURN_SECONDS),
+                    (CONTROL_UP, CONTROL_UP_LANES, CONTROL_UP_SECONDS),
+                    (CONTROL_DOWN, CONTROL_DOWN_LANES,
+                     CONTROL_DOWN_SECONDS)):
+                if a <= s < b:
+                    lanes += [int(res[3:])] * n
+            rest = CONTROL_WIDTH - len(lanes)
+            lanes = np.concatenate([np.array(lanes, np.int64),
+                                    rng.choice(pool, size=rest)])
+            out.append((s, rng.permutation(lanes)))
+    return out
+
+
+def control_rules(eng):
+    """The headline rules with the scenario's three thresholds."""
+    counts = {CONTROL_BURN: CONTROL_BURN_COUNT, CONTROL_UP: CONTROL_UP_COUNT,
+              CONTROL_DOWN: CONTROL_DOWN_COUNT}
+    eng.flow_rules.load_rules([
+        F.FlowRule(resource=f"res{i}",
+                   count=counts.get(f"res{i}", 1e9))
+        for i in range(0, N_RESOURCES, 10)])
+
+
+def control_objectives(eng):
+    from sentinel_tpu_torch.slo.objectives import BurnWindow, SloObjective
+
+    eng.slo.load_objectives([SloObjective(
+        resource=r, objective=0.99, min_events=1,
+        windows=(BurnWindow(10, 2, 2.0, "page"),
+                 BurnWindow(30, 5, 6.0, "ticket")))
+        for r in CONTROL_OBJECTIVES])
+
+
+def control_targets(eng):
+    from sentinel_tpu_torch.adaptive.controller import AdaptiveTarget
+
+    eng.adaptive.load_targets([AdaptiveTarget(
+        resource=r, max_block_rate=0.05,
+        rt_p99_ms=1.0 if r == CONTROL_DOWN else 0.0,
+        floor=1.0, ceiling=1e6, min_entries=8) for r in CONTROL_TARGETS])
+    eng.adaptive.enable()
+
+
+class _Hook:
+    """A loopback webhook endpoint (``http.server``) that keeps the
+    bodies it was sent."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        received = self.received = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                received.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, fmt, *args):
+                pass
+
+        self.server = HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="smoke-webhook-endpoint")
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}/hook"
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=5)
+
+
+class _HookTimer:
+    """Times every call of the fold's parts: ``{name: (owner, attr)}``,
+    each wrapped in place for the ``with`` block (a call nested in another
+    counts in both)."""
+
+    def __init__(self, targets):
+        self.targets, self.ms = targets, {name: [] for name in targets}
+        self.saved = []
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            orig = getattr(owner, attr)
+            self.saved.append((owner, attr, orig))
+
+            def timed(*a, _orig=orig, _ms=self.ms[name], **kw):
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                _ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in self.saved:
+            setattr(owner, attr, orig)
+
+
+def _plain(obj):
+    """As the journal file holds it: JSON types only."""
+    return json.loads(json.dumps(obj, sort_keys=True, default=str))
+
+
+def _strip_trace_window(obj):
+    if isinstance(obj, dict):
+        return {k: _strip_trace_window(v) for k, v in obj.items()
+                if k not in TRACE_WINDOW_FIELDS}
+    if isinstance(obj, list):
+        return [_strip_trace_window(v) for v in obj]
+    return obj
+
+
+def _alerts_view(eng):
+    snap = eng.slo.alerts_snapshot()
+    snap.pop("webhook")
+    return snap
+
+
+def control_run(dev, lanes, hook_url, journal_path):
+    """The scenario on ``dev``: 4 s of headline traffic, then objectives
+    on 64 resources and targets on 16 flow rules load, a burst burns
+    CONTROL_BURN's objective, the loop promotes CONTROL_UP and sees its
+    decrease of CONTROL_DOWN aborted by the guardrail. The fold runs once
+    a simulated second. Returns what the card and the CPU must agree on,
+    the measurements, and the open engine."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.slo.webhook import AlertWebhook
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    clock = Clock(NOW0)
+    eng = SentinelEngine(capacity=CAPACITY, device=dev, clock=clock,
+                         journal_path=journal_path)
+    eng.rollout.abort_windows = CONTROL_ABORT_WINDOWS
+    eng.slo.webhook = AlertWebhook(urls=[hook_url], timeout_ms=2000,
+                                   retries=2)
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    cluster = np.array([reg.cluster_row(f"res{i}")
+                        for i in range(N_RESOURCES)], np.int32)
+    dn = np.array([reg.default_row(CTX, f"res{i}", ent)
+                   for i in range(N_RESOURCES)], np.int32)
+    load_rules(eng, tight=False)
+    control_rules(eng)
+    rng = np.random.default_rng(43)
+    down_row = cluster[int(CONTROL_DOWN[3:])]
+    cuda = dev == "cuda" or getattr(dev, "type", None) == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    decisions, folds, shadow, steps = [], [], [], []
+    fired_at = {}
+    spill_ms = {"without": [], "with": []}
+    prefix_cuda.launches = 0
+    launches_total = 0
+    from sentinel_tpu_torch.core import engine as engine_mod
+
+    with _HookTimer({"render": (engine_mod, "second_to_dict"),
+                     "slo_ingest": (eng.slo, "ingest"),
+                     "slo_evaluate": (eng.slo, "evaluate"),
+                     "waterfall_roll": (eng.waterfall, "roll"),
+                     "population_roll": (eng.population, "roll"),
+                     "adaptive_tick": (eng.adaptive, "on_spill")}) as hooks:
+        for k, (s, pick) in enumerate(lanes):
+            if s == CONTROL_WARM_S and k % (1000 // CONTROL_STEP_MS) == 0:
+                control_objectives(eng)
+                control_targets(eng)
+            clock.now = NOW0 + s * 1000 + (k % (1000 // CONTROL_STEP_MS)) \
+                * CONTROL_STEP_MS
+            buf = make_entry_batch_np(CONTROL_WIDTH)
+            buf["cluster_row"][:] = cluster[pick]
+            buf["dn_row"][:] = dn[pick]
+            buf["count"][:] = 1
+            stage = getattr(eng.rollout.active_set(), "stage", None)
+            batch = to_device(buf, dev)
+            sync()
+            s0, l0 = SYNCS.count, prefix_cuda.launches
+            t0 = time.perf_counter()
+            reason, _ = eng.harvest_decisions(eng.check_batch(batch))
+            entry_ms = (time.perf_counter() - t0) * 1e3
+            steps.append((stage, entry_ms, SYNCS.count - s0,
+                          prefix_cuda.launches - l0))
+            decisions.append(reason.copy())
+            # Sample the verdicts now, in order, so the pump never drops a
+            # batch behind a slower step.
+            eng.traces.drain()
+            xb = make_exit_batch_np(CONTROL_WIDTH)
+            ok = reason == 0
+            xb["cluster_row"][:] = np.where(ok, buf["cluster_row"], -1)
+            xb["dn_row"][:] = buf["dn_row"]
+            xb["count"][:] = 1
+            xb["success"][:] = ok
+            xb["rt_ms"][:] = np.where(buf["cluster_row"] == down_row,
+                                      CONTROL_DOWN_RT_MS,
+                                      rng.integers(1, 90, CONTROL_WIDTH))
+            eng.complete_batch(to_device(xb, dev), now_ms=clock.now + 20)
+            sync()
+            if k % (1000 // CONTROL_STEP_MS) == 1000 // CONTROL_STEP_MS - 1:
+                # The once-per-second fold, at the next second's start.
+                clock.now = NOW0 + (s + 1) * 1000
+                t0 = time.perf_counter()
+                eng.slo_refresh(now_ms=clock.now)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                if s:  # the first fold pays first-use costs
+                    spill_ms["with" if s >= CONTROL_WARM_S
+                             else "without"].append(ms)
+                snap = _alerts_view(eng)
+                for a in snap["active"]:
+                    fired_at.setdefault(a["key"], clock.now)
+                folds.append({"t": clock.now, "alerts": snap,
+                              "abortSignal": eng.slo.abort_signal(),
+                              "adaptive": eng.adaptive.guardrail_state(),
+                              "rollout": eng.rollout.guardrail_state()})
+                counts = eng.shadow_counts()
+                shadow.append(None if counts is None else counts.tolist())
+    launches_total = prefix_cuda.launches
+    burn_stamp = NOW0 + CONTROL_BURN_SECONDS[0] * 1000 + 500
+    agree = {
+        "decisions": decisions,
+        "folds": folds,
+        "shadow": shadow,
+        "slo_status": eng.slo.status(),
+        "history": _plain(eng.adaptive.history()),
+        "adaptive_status": eng.adaptive.status(),
+        "live_flow": [(r.resource, r.count)
+                      for r in eng.flow_rules.get_rules()],
+        "lkg": [(r.resource, r.count)
+                for r in eng.adaptive.last_known_good()["flow"]],
+        "journal": _plain(eng.journal.replay()),
+        "traces": {k: v for k, v in eng.traces.snapshot(limit=0).items()
+                   if k != "traces"},
+        "why": eng.why_query(CONTROL_BURN, stamp_ms=burn_stamp),
+        "why_newest": eng.why_query(CONTROL_BURN),
+        "explain": _strip_trace_window(eng.explain_trace(CONTROL_BURN)),
+    }
+    measured = {"steps": steps, "spill_ms": spill_ms,
+                "hook_ms": hooks.ms, "prefix_launches": launches_total,
+                "fired_at": fired_at}
+    return agree, measured, eng
+
+
+def _diff(a, b, path="control"):
+    """The first path where two nested results differ (None if equal)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return None if np.array_equal(a, b) else path
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return f"{path}: keys {sorted(set(a) ^ set(b))}"
+        for k in a:
+            d = _diff(a[k], b[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path}: length {len(a)} vs {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = _diff(x, y, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if a == b else f"{path}: {a!r} vs {b!r}"
+
+
+def _p(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def control_scenario(dev, out):
+    """Parts (a)-(c): the scenario on the card, then on the CPU; every
+    result equal; the card's journal directory recovered in a fresh
+    engine; the measurements."""
+    from sentinel_tpu_torch.telemetry.journal import ControlPlaneJournal
+
+    lanes = control_lanes()
+    hook = _Hook()
+    jdir = CONTROL_DIR / "journal"
+    jdir.mkdir(parents=True, exist_ok=True)
+    for f in jdir.iterdir():
+        f.unlink()
+    jpath = str(jdir / "audit.jsonl")
+    try:
+        t0 = time.perf_counter()
+        card, measured, card_eng = control_run(dev, lanes, hook.url, jpath)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, _, cpu_eng = control_run("cpu", lanes, hook.url, "")
+        cpu_s = time.perf_counter() - t0
+        diff = _diff(card, cpu)
+        if diff:
+            raise AssertionError(f"control: card and CPU differ at {diff}")
+        # The alert arc: the burn fired a page and a ticket, both resolved.
+        events = card["folds"][-1]["alerts"]["events"]
+        kinds = [(e["type"], e["alert"]["severity"]) for e in events]
+        for want in (("fired", "page"), ("resolved", "page"),
+                     ("fired", "ticket")):
+            if want not in kinds:
+                raise AssertionError(f"control: no {want} transition: "
+                                     f"{kinds}")
+        others = sorted({e["alert"]["resource"] for e in events}
+                        - {CONTROL_BURN})
+        if others:
+            raise AssertionError(f"control: alerts on {others}")
+        signals = [f["abortSignal"] for f in card["folds"] if f["abortSignal"]]
+        if not signals:
+            raise AssertionError("control: the page never reached "
+                                 "abort_signal")
+        # The loop: one promote of CONTROL_UP (64 -> 128), one guardrail
+        # abort of CONTROL_DOWN with the last-known-good rules live.
+        hist = card["history"]["events"]
+        promotes = [e for e in hist if e["kind"] == "promote"]
+        aborts = [e for e in hist if e["kind"] == "abort"]
+        if [[(c["resource"], c["from"], c["to"]) for c in e["changes"]]
+                for e in promotes] != [[(CONTROL_UP, float(CONTROL_UP_COUNT),
+                                         2.0 * CONTROL_UP_COUNT)]]:
+            raise AssertionError(f"control: promotions {promotes}")
+        if len(aborts) != 1 or "guardrail" not in aborts[0]["reason"] \
+                or not aborts[0]["lkgIntact"]:
+            raise AssertionError(f"control: aborts {aborts}")
+        live = dict(card["live_flow"])
+        if live[CONTROL_UP] != 2.0 * CONTROL_UP_COUNT \
+                or live[CONTROL_DOWN] != CONTROL_DOWN_COUNT \
+                or card["live_flow"] != card["lkg"]:
+            raise AssertionError("control: live rules are not the "
+                                 "last-known-good set")
+        proposed = [c["to"] for e in hist if e["kind"] == "propose"
+                    for c in e["changes"] if c["resource"] == CONTROL_DOWN]
+        if proposed != [CONTROL_DOWN_COUNT * 0.5]:
+            raise AssertionError(f"control: decreases proposed {proposed}")
+        if not any(s is not None for s in card["shadow"]):
+            raise AssertionError("control: no shadow counters while a "
+                                 "candidate was staged")
+        why = card["why"]
+        if (why["verdict"] or {}).get("reason") != "FLOW" \
+                or why["verdict"]["provenance"] is None:
+            raise AssertionError(f"control: why_query {why['verdict']}")
+        if card["explain"] is None \
+                or card["explain"]["verdict"]["reason"] != "FLOW":
+            raise AssertionError("control: explain_trace found no FLOW "
+                                 "trace")
+        # The webhook delivered both engines' transitions.
+        n_events = len(events)
+        deadline = time.perf_counter() + 10
+        while len(hook.received) < 2 * n_events \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if len(hook.received) != 2 * n_events:
+            raise AssertionError(f"control: webhook got "
+                                 f"{len(hook.received)} of {2 * n_events}")
+        # (c) the card's journal recovers in a fresh engine.
+        for eng in (card_eng, cpu_eng):
+            eng.close()
+        fresh = SentinelEngine(capacity=1024, device=dev, journal_path=jpath)
+        try:
+            if _plain(fresh.journal.replay()) != card["journal"] \
+                    or fresh.journal.last_seq != card["journal"][-1]["seq"]:
+                raise AssertionError("control: recovered journal differs")
+            if _plain(fresh.adaptive.history()) != card["history"]:
+                raise AssertionError("control: recovered decision log "
+                                     "differs")
+            if _plain(fresh.slo.alerts_snapshot()["events"]) != \
+                    _plain(events):
+                raise AssertionError("control: recovered alert log differs")
+        finally:
+            fresh.close()
+        files = sorted(jdir.iterdir())
+        jbytes = sum(f.stat().st_size for f in files)
+        probe = ControlPlaneJournal(lambda: NOW0,
+                                    path=str(CONTROL_DIR / "probe.jsonl"))
+        fsync_ms = []
+        for i in range(32):
+            t1 = time.perf_counter()
+            probe.record("probe", i=i)
+            fsync_ms.append((time.perf_counter() - t1) * 1e3)
+        probe.close()
+        (CONTROL_DIR / "probe.jsonl").unlink()
+    finally:
+        hook.stop()
+    steps = measured["steps"]
+
+    def by(stage):
+        rows = [x for x in steps if x[0] == stage]
+        return {"steps": len(rows),
+                "entry_ms_p50": _p([x[1] for x in rows], 50),
+                "host_syncs_per_step": (sum(x[2] for x in rows) / len(rows)
+                                        if rows else None),
+                "prefix_launches_per_step":
+                    (sum(x[3] for x in rows) / len(rows) if rows else None)}
+
+    out["slo"] = {
+        "objectives": len(CONTROL_OBJECTIVES),
+        "transitions": kinds,
+        "fired_at_ms": {k: v - NOW0 for k, v in measured["fired_at"].items()},
+        "burn": card["slo_status"]["burn"][f"{CONTROL_BURN}:availability"],
+        "health": {"instance": card["slo_status"]["health"]["instance"],
+                   "resources_scored": len(
+                       card["slo_status"]["health"]["resources"]),
+                   "below_100_while_burning": {
+                       r: h for r, h in card["folds"][CONTROL_BURN_SECONDS[0]][
+                           "alerts"]["health"]["resources"].items()
+                       if h < 100}},
+        "abort_signal_folds": len(signals),
+        "slo_refresh_ms_p50": _p(measured["spill_ms"]["with"], 50),
+        "spill_ms_p50_without_objectives":
+            _p(measured["spill_ms"]["without"], 50),
+        "spill_ms_p50_with_objectives": _p(measured["spill_ms"]["with"], 50),
+        "render_ms_p50": _p(measured["hook_ms"]["render"], 50),
+        "renders": len(measured["hook_ms"]["render"]),
+        "fold_parts_ms_p50": {k: _p(v, 50)
+                              for k, v in measured["hook_ms"].items()},
+        "webhook_posts": len(hook.received),
+    }
+    out["adaptive"] = {
+        "targets": len(CONTROL_TARGETS),
+        "decisions": [(e["seq"], e["kind"], e.get("candidate"),
+                       [(c["resource"], c["to"])
+                        for c in e.get("changes", [])])
+                      for e in hist if e["kind"] in (
+                          "propose", "canary", "promote", "abort")],
+        "live_after": {CONTROL_UP: live[CONTROL_UP],
+                       CONTROL_DOWN: live[CONTROL_DOWN]},
+        "no_candidate": by(None), "shadow": by("shadow"),
+        "canary": by("canary"),
+    }
+    out["journal"] = {
+        "records": len(card["journal"]),
+        "kinds": sorted({r["kind"] for r in card["journal"]}),
+        "file_bytes": jbytes, "files": len(files),
+        "bytes_per_record": jbytes / len(card["journal"]),
+        "record_ms_p50_with_fsync": _p(fsync_ms, 50),
+        "record_ms_p99_with_fsync": _p(fsync_ms, 99),
+        "recovered_equal": True,
+        "why_reason": why["verdict"]["reason"],
+        "why_blocked_that_second": why["verdict"]["blockedThatSecond"],
+    }
+    out["card_vs_cpu"] = {"equal": True, "batches": len(lanes),
+                          "card_s": card_s, "cpu_s": cpu_s}
+    return measured["prefix_launches"]
+
+
+def control_waterfall(dev, out):
+    """(d): the pipeline under 16 callers for 4 s on the card, the
+    engine an embedded token server answering traced wire requests; every
+    pipeline harvest and every fused token batch lands in the sealed
+    seconds, each wire request's stages reconcile with its RTT."""
+    import socket
+
+    from sentinel_tpu_torch.cluster.constants import MSG_FLOW
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.telemetry.spans import new_trace_context
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    eng = SentinelEngine(capacity=CAPACITY, device=dev)
+    load_rules(eng, tight=False)
+    srv = eng.cluster.set_to_server(host="127.0.0.1", port=0)
+    svc = srv.service
+    svc.rules.load_rules("default", [
+        F.FlowRule(resource=f"wf{i}", count=1e9, cluster_mode=True,
+                   cluster_config={"flowId": 7100 + i, "thresholdType": 1})
+        for i in range(CONTROL_WIRE_FLOWS)])
+    harvested = [0]
+    harvest = svc.harvest_tokens
+
+    def counted(ticket):
+        got = harvest(ticket)
+        harvested[0] += 1
+        return got
+
+    svc.harvest_tokens = counted
+    svc.request_tokens([(7100, 1, False)] * 4)
+    harvested[0] = 0
+    wf = eng.waterfall
+    # Tally every observation under the second the recorder filed it in
+    # (its own clock read, captured per thread).
+    tally = {"pipeline": {}, "batch": {}, "wire": {}}
+    tally_lock = threading.Lock()
+    filed = threading.local()
+    recorder_now = wf._now_ms
+
+    def now_ms():
+        v = recorder_now()
+        filed.sec = v - v % 1000
+        return v
+
+    def tallied(kind, fn):
+        def observe(*a, **kw):
+            fn(*a, **kw)
+            with tally_lock:
+                tally[kind][filed.sec] = tally[kind].get(filed.sec, 0) + 1
+        return observe
+
+    wf._now_ms = now_ms
+    wf.observe_pipeline = tallied("pipeline", wf.observe_pipeline)
+    wf.observe_batch = tallied("batch", wf.observe_batch)
+    wf.observe_wire = tallied("wire", wf.observe_wire)
+    eng.start_pipeline(max_batch=8, linger_s=0.0002)
+    stop = threading.Event()
+    errors, pairs, replies = [], [0], [0]
+
+    def caller(i):
+        r = np.random.default_rng(100 + i)
+        try:
+            while not stop.is_set():
+                res = f"res{int(r.integers(0, N_RESOURCES))}"
+                try:
+                    with eng.entry(res):
+                        pass
+                except st.BlockException:
+                    pass
+                pairs[0] += 1
+        except Exception as ex:  # noqa: BLE001 — failed below
+            errors.append(ex)
+        finally:
+            ctx_mod.replace_context(None)
+
+    def wire(i):
+        try:
+            with socket.create_connection(("127.0.0.1", srv.bound_port),
+                                          timeout=10) as sock:
+                reader = ccodec.FrameReader()
+                xid = 0
+                while not stop.is_set():
+                    frames = []
+                    for _ in range(CONTROL_WIRE_BURST):
+                        xid += 1
+                        body = ccodec.encode_flow_request(
+                            7100 + xid % CONTROL_WIRE_FLOWS, 1, False)
+                        if xid <= CONTROL_WIRE_BURST:
+                            # The first burst traced: its spans stay in
+                            # the service's bounded span ring.
+                            body = ccodec.append_trace_tlv(
+                                body, new_trace_context().traceparent())
+                        frames.append(ccodec.encode_request(xid, MSG_FLOW,
+                                                            body))
+                    sock.sendall(b"".join(frames))
+                    got = 0
+                    while got < CONTROL_WIRE_BURST:
+                        data = sock.recv(65536)
+                        if not data:
+                            raise OSError("server closed")
+                        for b in reader.feed(data):
+                            if ccodec.decode_response(b).status != 0:
+                                raise AssertionError("wire reply not OK")
+                            got += 1
+                    replies[0] += got
+        except Exception as ex:  # noqa: BLE001 — failed below
+            errors.append(ex)
+
+    zero_cluster_counts()
+    threads = ([threading.Thread(target=caller, args=(i,))
+                for i in range(CONTROL_PIPE_THREADS)]
+               + [threading.Thread(target=wire, args=(i,))
+                  for i in range(CONTROL_WIRE_CONNS)])
+    for t in threads:
+        t.start()
+    time.sleep(CONTROL_PIPE_WINDOW_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    eng.stop_pipeline()
+    counts = read_cluster_counts()
+    srv_batches = harvested[0]
+    eng.cluster.stop()
+    if errors:
+        raise AssertionError(f"control waterfall: {errors[:3]}")
+    if counts["acquire"] != srv_batches:
+        raise AssertionError(f"control waterfall: {counts['acquire']} "
+                             f"acquire launches for {srv_batches} batches")
+    pipe = eng.pipeline_stats()
+    eng.slo_refresh(now_ms=eng.now_ms() + 2000)
+    snap = wf.snapshot(limit=100)
+    recent = snap["recent"]
+    for r in recent:
+        sec = r["timestamp"]
+        got = (r["lanes"].get("pipeline", {}).get("queue", {})
+               .get("count", 0), r["coalesce"]["batches"], r["rtt"]["count"])
+        want = tuple(tally[k].get(sec, 0) for k in ("pipeline", "batch",
+                                                     "wire"))
+        if got != want:
+            raise AssertionError(f"control waterfall: second {sec} sealed "
+                                 f"{got}, observed {want}")
+    if {s for t in tally.values() for s in t} - {r["timestamp"]
+                                                  for r in recent}:
+        raise AssertionError("control waterfall: an observed second was "
+                             "not sealed")
+    pipe_lane = sum(tally["pipeline"].values())
+    batches = sum(tally["batch"].values())
+    wire_n = sum(tally["wire"].values())
+    if pipe_lane != pipe["harvests"] - pipe["failOpenCycles"] \
+            or pipe["failOpenCycles"]:
+        raise AssertionError(f"control waterfall: pipeline lane {pipe_lane}"
+                             f" vs harvests {pipe['harvests']}")
+    if batches != srv_batches:
+        raise AssertionError(f"control waterfall: {batches} sealed batches "
+                             f"vs the batcher's {srv_batches}")
+    if wire_n != replies[0] or snap["lateDrops"]:
+        raise AssertionError(f"control waterfall: {wire_n} sealed wire "
+                             f"requests vs {replies[0]} replies")
+    if snap["reconciliation"]["relativeError"] > 1e-6:
+        raise AssertionError(f"control waterfall: stages do not reconcile "
+                             f"{snap['reconciliation']}")
+    trace_ids = {t["traceId"] for t in svc.spans.traces()}
+    if not snap["exemplars"] or any(ex["traceId"] not in trace_ids
+                                    for ex in snap["exemplars"]):
+        raise AssertionError("control waterfall: an exemplar lost its span")
+    cum = snap["cumulative"]
+    out["waterfall"] = {
+        "window_s": CONTROL_PIPE_WINDOW_S, "callers": CONTROL_PIPE_THREADS,
+        "pairs": pairs[0], "pipeline_cycles": pipe["cycles"],
+        "pipeline_harvests": pipe["harvests"],
+        "wire_connections": CONTROL_WIRE_CONNS, "wire_requests": replies[0],
+        "fused_batches": srv_batches, "sealed_seconds": len(recent),
+        "per_second_equal": True,
+        "pipeline_queue_ms": [cum["pipeline"]["queue"]["p50Ms"],
+                              cum["pipeline"]["queue"]["p99Ms"]],
+        "pipeline_device_ms": [cum["pipeline"]["device"]["p50Ms"],
+                               cum["pipeline"]["device"]["p99Ms"]],
+        "wire_queue_ms": [cum["wire"]["queue"]["p50Ms"],
+                          cum["wire"]["queue"]["p99Ms"]],
+        "wire_device_ms": [cum["wire"]["device"]["p50Ms"],
+                           cum["wire"]["device"]["p99Ms"]],
+        "wire_rtt_ms": [snap["rtt"]["p50Ms"], snap["rtt"]["p99Ms"]],
+        "reconciliation": snap["reconciliation"],
+        "device_utilization": [r["deviceUtilization"] for r in recent],
+        "sentry": {k: [(w["window"], w["firing"]) for w in v]
+                   for k, v in snap["sentry"]["burn"].items()},
+        "alerts_active": len(eng.slo.alerts_snapshot()["active"]),
+        "kernel_launches": {
+            "acquire": counts["acquire"],
+            "acquire_by_width": counts["acquire_by_width"],
+            "prefix": counts["prefix"],
+            "prefix_by_shape": {f"K={k},N={n},M={m}": c for (k, n, m), c
+                                in sorted(counts["prefix_by_shape"].items())}},
+    }
+    eng.close()
+    return counts
+
+
+def control_fleet(dev, out):
+    """(e): three port leaders (engine + token server each) on loopback
+    under one FleetView: every settled (resource, second) fleet sum is
+    the sum of the leaders' own timeseries_view cells."""
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.telemetry import fleet as FL
+
+    cap, n_res = CONTROL_FLEET_CUT["capacity"], CONTROL_FLEET_CUT["resources"]
+    clock = Clock(NOW0)
+    leaders, servers = [], []
+    view = None
+    try:
+        for li in range(CONTROL_FLEET_LEADERS):
+            eng = SentinelEngine(capacity=cap, device=dev, clock=clock)
+            reg = eng.registry
+            ent = reg.entrance_row(CTX)
+            cl = np.array([reg.cluster_row(f"res{i}") for i in range(n_res)],
+                          np.int32)
+            dn = np.array([reg.default_row(CTX, f"res{i}", ent)
+                           for i in range(n_res)], np.int32)
+            eng.flow_rules.load_rules([
+                F.FlowRule(resource=f"res{i}", count=40 + 20 * li)
+                for i in range(0, n_res, 10)])
+            leaders.append((eng, cl, dn))
+            servers.append(ClusterTokenServer(engine=eng, host="127.0.0.1",
+                                              port=0).start())
+        rng = np.random.default_rng(47)
+        for s in range(CONTROL_FLEET_SECONDS):
+            for k in range(1000 // CONTROL_STEP_MS):
+                clock.now = NOW0 + s * 1000 + k * CONTROL_STEP_MS
+                for eng, cl, dn in leaders:
+                    pick = rng.integers(0, n_res, CONTROL_WIDTH)
+                    buf = make_entry_batch_np(CONTROL_WIDTH)
+                    buf["cluster_row"][:] = cl[pick]
+                    buf["dn_row"][:] = dn[pick]
+                    buf["count"][:] = 1
+                    eng.check_batch(to_device(buf, dev))
+        clock.now = NOW0 + CONTROL_FLEET_SECONDS * 1000 + 1
+        for eng, _, _ in leaders:
+            eng.slo_refresh()
+        view = FL.FleetView([(f"L{i}", "127.0.0.1", s.bound_port)
+                             for i, s in enumerate(servers)],
+                            clock=clock, stale_ms=10_000)
+        leaders[0][0].fleet = view
+        if not view.wait_connected():
+            raise AssertionError("control fleet: leaders not connected")
+        t0 = time.perf_counter()
+        polled = view.poll()
+        poll_ms = (time.perf_counter() - t0) * 1e3
+        series = view.series()
+        truth = [{x["timestamp"]: x["resources"]
+                  for x in eng.timeseries_view()["seconds"]}
+                 for eng, _, _ in leaders]
+        settled = view.settled_through_ms()
+        cells = 0
+        for sec in series:
+            if sec["timestamp"] > settled:
+                continue
+            for res, cell in sec["resources"].items():
+                for f in FL._SUM_FIELDS:
+                    want = sum(int(t.get(sec["timestamp"], {}).get(res, {})
+                                   .get(f, 0)) for t in truth)
+                    if cell["fleet"][f] != want:
+                        raise AssertionError(
+                            f"control fleet: {res}@{sec['timestamp']}.{f} "
+                            f"{cell['fleet'][f]} != {want}")
+                cells += 1
+        status = view.status()
+        skipped = sum(r["secondsSkipped"] for r in status["leaders"].values())
+        if status["staleLeaders"] or skipped \
+                or len(series) != CONTROL_FLEET_SECONDS or cells == 0:
+            raise AssertionError(
+                f"control fleet: {len(series)} seconds, {skipped} skipped, "
+                f"{status['staleLeaders']} stale, {cells} cells")
+        page = FL.leader_fleet_payload(servers[0], 0, 16)
+        out["fleet"] = {
+            "leaders": CONTROL_FLEET_LEADERS, "cut": CONTROL_FLEET_CUT,
+            "seconds": len(series), "cells_checked": cells,
+            "sums_equal": True, "ingested": polled,
+            "polls": status["polls"],
+            "pages": sum(r["polls"] for r in status["leaders"].values()),
+            "poll_ms": poll_ms, "page_bytes": len(page),
+            "skew_ms": [r["skewMs"] for r in status["leaders"].values()],
+            "settled_through_ms": settled - NOW0,
+            "fleet_health": status["fleetHealth"],
+        }
+    finally:
+        for eng, _, _ in leaders:
+            eng.close()
+        for srv in servers:
+            srv.stop()
+    if leaders and leaders[0][0].fleet is not None:
+        raise AssertionError("control fleet: close() left the view")
+
+
+def control_syncs(dev, out):
+    """(f): objectives on 64 resources and 16 enabled, idle targets add
+    no host sync and no launch to the main path's entry step."""
+    eng, clock, cluster, dn, origin_a = make_engine(dev, tight=False)
+    try:
+        control_objectives(eng)
+        control_targets(eng)
+        rng = np.random.default_rng(7)
+        res, _ = headline_rounds(eng, clock, cluster, dn, origin_a, rng,
+                                 CONTROL_WIDTH, dev)
+        eng.slo_refresh(now_ms=clock.now + 1000)
+        if res["host_syncs_per_round"] != HOST_SYNCS_PER_ROUND \
+                or res["prefix_launches_per_entry_step"] != 4.0:
+            raise AssertionError(f"control: hooks changed the step {res}")
+        if eng.adaptive.proposal_count:
+            raise AssertionError("control: idle targets proposed")
+        out["main_path_with_hooks"] = res
+    finally:
+        eng.close()
+
+
+def control_phase(dev):
+    """The control plane on the card: (a)-(c) the scenario on the card and
+    the CPU, (d) the waterfall, (e) fleet federation, (f) no added device
+    work, (g) no thread of the phase alive after its engines close.
+    Prints one ``{"control": ...}`` line; returns the prefix launches of
+    the scenario's card run and the acquire launches of (d)'s token
+    server."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = {t.ident for t in threading.enumerate()}
+    saved = {k: config.get(k) for k in CONTROL_KEYS}
+    for k, v in CONTROL_KEYS.items():
+        config.set(k, v)
+    out = {"reduced": [f"fleet leaders at capacity "
+                       f"{CONTROL_FLEET_CUT['capacity']} with "
+                       f"{CONTROL_FLEET_CUT['resources']} resources"]}
+    parts = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        result = fn(*args)
+        parts[f"{name}_s"] = time.perf_counter() - t1
+        return result
+
+    try:
+        launches = part("scenario", control_scenario, dev, out)
+    finally:
+        with config._lock:
+            for k, v in saved.items():
+                if v is None:
+                    config._config.pop(k, None)
+                else:
+                    config._config[k] = v
+    wf_counts = part("waterfall", control_waterfall, dev, out)
+    part("fleet", control_fleet, dev, out)
+    part("syncs", control_syncs, dev, out)
+    alive = []
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in before and t.is_alive()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    if alive:
+        raise AssertionError(f"control: threads alive after close: {alive}")
+    out["threads_left"] = 0
+    out["scenario_prefix_launches"] = launches
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"control": out}), flush=True)
+    if out["phase_s"] > CONTROL_PHASE_LIMIT_S:
+        raise AssertionError(f"control phase took {out['phase_s']:.1f} s, "
+                             f"over {CONTROL_PHASE_LIMIT_S} s")
+    return {"prefix": launches, "acquire": wf_counts["acquire"],
+            "acquire_by_width": wf_counts["acquire_by_width"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4157,6 +5085,7 @@ def main() -> int:
     rollout_phase(dev, main_results)
     cluster = cluster_phase(dev)
     pod = pod_phase(dev)
+    control_launches = control_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -4183,7 +5112,11 @@ def main() -> int:
         "pod_path_launches": pod["full"]["prefix_launches"],
         "pod_path_launches_per_step":
             pod["full"]["prefix_launches_per_pod_step"],
-    }, acquire_kernel_entry(cluster)]}), flush=True)
+        "control_path_launches": control_launches["prefix"],
+    }, dict(acquire_kernel_entry(cluster),
+            control_path_launches=control_launches["acquire"],
+            control_path_launches_by_width=control_launches[
+                "acquire_by_width"])]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

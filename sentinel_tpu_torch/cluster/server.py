@@ -9,9 +9,10 @@ its decoded request and a collector drains the queue into one
 amortizes across clients (SURVEY.md §7 hard part #1). Single-request
 latency still takes at most ``batch_linger_s``.
 
-Not ported yet: the ``MSG_FLEET`` branch (``telemetry/fleet.py``) and the
-``MSG_STREAM_TICK`` branch (``llm/``). The port answers both with the FAIL
-frame the reference sends when those handlers raise. The JAX package's
+The ``MSG_FLEET`` branch serves this leader's fleet telemetry page
+(``telemetry/fleet.py``). Not ported yet: the ``MSG_STREAM_TICK`` branch
+(``llm/``), answered with the FAIL frame the reference sends when its
+handler raises. The JAX package's
 sharded leaders (``cluster/sharding.py``) are not ported either, so no
 verdict here is WRONG_SLICE.
 """
@@ -122,8 +123,7 @@ class _Batcher:
         self.shed_requests = 0
         self.queue_depth_max = 0
         # Latency waterfall recorder, attached by the owning server at
-        # start when its engine has one (no engine of this package has
-        # one yet). When set, each fused batch stamps drain/dispatch/
+        # start when its engine has one. When set, each fused batch stamps drain/dispatch/
         # device marks into its groups' boxes (three perf_counter reads
         # per BATCH — nothing per request, nothing on the shed path).
         self.waterfall = None
@@ -466,10 +466,29 @@ def process_control_frame(server: "ClusterTokenServer", req: codec.Request,
             req.xid, MSG_ENTRY, TokenResultStatus.BLOCKED,
             codec.encode_entry_response(0, reason)), namespace)
     if req.msg_type == MSG_FLEET:
-        # Not ported yet (telemetry/fleet.py): the FAIL frame the
-        # reference answers when its fleet handler raises.
-        return (codec.encode_response(
-            req.xid, MSG_FLEET, TokenResultStatus.FAIL), namespace)
+        # Fleet telemetry pull: this leader's flight-recorder spill page,
+        # instance health and shard ownership, epoch-stamped like any
+        # token reply; shared by both frontends.
+        from sentinel_tpu_torch.telemetry.fleet import (
+            leader_fleet_payload,
+            leader_population_payload,
+        )
+
+        try:
+            since_ms, max_s = codec.decode_fleet_request(req.entity)
+            # max_seconds == -1 selects the population page (same
+            # message, no new opcode).
+            if max_s == -1:
+                entity = stamp_epoch(server, leader_population_payload(
+                    server))
+            else:
+                entity = stamp_epoch(
+                    server, leader_fleet_payload(server, since_ms, max_s))
+            return (codec.encode_response(
+                req.xid, MSG_FLEET, TokenResultStatus.OK, entity), namespace)
+        except Exception:  # noqa: BLE001 — a read must never kill the conn
+            return (codec.encode_response(
+                req.xid, MSG_FLEET, TokenResultStatus.FAIL), namespace)
     if req.msg_type == MSG_STREAM_TICK:
         # Not ported yet (llm/): a malformed frame is BAD_REQUEST as in
         # the reference, a well-formed one the FAIL frame the reference

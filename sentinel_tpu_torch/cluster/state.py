@@ -3,10 +3,12 @@ reference: ``core:cluster/ClusterStateManager.java`` — SURVEY.md §2.4): an
 instance is NOT_STARTED, a token CLIENT, or an (embedded) token SERVER;
 the ops plane can flip roles at runtime.
 
-The HA manager (``cluster/ha.py``) and the control-plane journal are not
-ported yet: ``ha`` and ``journal`` stay None, and every use of them stands
-behind the reference's own None checks. A server this manager starts
-runs its token service on the owning engine's device.
+The HA manager (``cluster/ha.py``) is not ported yet: ``ha`` stays None,
+and every use of it stands behind the reference's own None checks. The
+owning engine sets ``journal``, so every committed role flip records a
+``haRoleFlip`` (a standalone manager leaves it None and skips the audit).
+A server this manager starts runs its token service on the owning
+engine's device.
 """
 
 from __future__ import annotations

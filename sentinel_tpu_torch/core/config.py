@@ -121,6 +121,57 @@ WIRE_INFLIGHT_DEPTH = "csp.sentinel.wire.inflight.depth"
 WIRE_OUTBUF_MAX_BYTES = "csp.sentinel.wire.outbuf.max.bytes"
 WIRE_READ_CHUNK_BYTES = "csp.sentinel.wire.read.chunk.bytes"
 WIRE_WORKERS = "csp.sentinel.wire.workers"
+# SLO engine and alerting (slo/): csp.sentinel.slo.* tunes evaluation,
+# csp.sentinel.alert.* the alert store and the webhook fan-out.
+SLO_BASELINE_ALPHA = "csp.sentinel.slo.baseline.alpha"
+SLO_BASELINE_ZSCORE = "csp.sentinel.slo.baseline.zscore"
+SLO_BASELINE_WARMUP_SECONDS = "csp.sentinel.slo.baseline.warmup.seconds"
+SLO_BASELINE_MIN_EVENTS = "csp.sentinel.slo.baseline.min.events"
+SLO_ROLLOUT_ABORT = "csp.sentinel.slo.rollout.abort"
+ALERT_HISTORY_CAPACITY = "csp.sentinel.alert.history.capacity"
+ALERT_WEBHOOK_URLS = "csp.sentinel.alert.webhook.urls"
+ALERT_WEBHOOK_TIMEOUT_MS = "csp.sentinel.alert.webhook.timeout.ms"
+ALERT_WEBHOOK_RETRIES = "csp.sentinel.alert.webhook.retries"
+# Closed-loop adaptive limiting (adaptive/). enabled: autonomous
+# actuation is opt-in; the loop senses and proposes nothing until it is
+# true (or ``engine.adaptive.enable()``).
+ADAPTIVE_ENABLED = "csp.sentinel.adaptive.enabled"
+ADAPTIVE_INTERVAL_SECONDS = "csp.sentinel.adaptive.interval.seconds"
+ADAPTIVE_STEP_PCT = "csp.sentinel.adaptive.step.pct"
+ADAPTIVE_INCREASE_PCT = "csp.sentinel.adaptive.increase.pct"
+ADAPTIVE_DECREASE_PCT = "csp.sentinel.adaptive.decrease.pct"
+ADAPTIVE_HYSTERESIS_PCT = "csp.sentinel.adaptive.hysteresis.pct"
+ADAPTIVE_COOLDOWN_SECONDS = "csp.sentinel.adaptive.cooldown.seconds"
+ADAPTIVE_FREEZE_STALE_SECONDS = "csp.sentinel.adaptive.freeze.stale.seconds"
+ADAPTIVE_ABORT_BACKOFF_SECONDS = "csp.sentinel.adaptive.abort.backoff.seconds"
+ADAPTIVE_SHADOW_SECONDS = "csp.sentinel.adaptive.shadow.seconds"
+ADAPTIVE_CANARY_SECONDS = "csp.sentinel.adaptive.canary.seconds"
+ADAPTIVE_CANARY_BPS = "csp.sentinel.adaptive.canary.bps"
+ADAPTIVE_HISTORY_CAPACITY = "csp.sentinel.adaptive.history.capacity"
+# Latency waterfall (telemetry/waterfall.py). enabled: per-request stage
+# stamping on the wire path; history.seconds: sealed per-second records
+# retained; exemplar.every: sampling cadence among traced requests;
+# sentry.*: the per-stage budget regression sentry on the SLO windows.
+WATERFALL_ENABLED = "csp.sentinel.waterfall.enabled"
+WATERFALL_HISTORY_SECONDS = "csp.sentinel.waterfall.history.seconds"
+WATERFALL_EXEMPLAR_EVERY = "csp.sentinel.waterfall.exemplar.every"
+WATERFALL_SENTRY_ENABLED = "csp.sentinel.waterfall.sentry.enabled"
+WATERFALL_SENTRY_MIN_EVENTS = "csp.sentinel.waterfall.sentry.min.events"
+# Control-plane audit journal (telemetry/journal.py). path: empty = the
+# in-memory tail only; capacity: the bounded in-memory tail;
+# rotate.bytes: the fsync'd segment rotation threshold of the JSONL file.
+JOURNAL_PATH = "csp.sentinel.journal.path"
+JOURNAL_CAPACITY = "csp.sentinel.journal.capacity"
+JOURNAL_ROTATE_BYTES = "csp.sentinel.journal.rotate.bytes"
+# Fleet telemetry federation (telemetry/fleet.py). history.seconds:
+# fleet-wide seconds the collector retains; stale.ms: how long a leader
+# may go without a successful payload before it reports stale;
+# max.seconds: complete seconds one fleetTelemetry reply page carries.
+FLEET_HISTORY_SECONDS = "csp.sentinel.fleet.history.seconds"
+FLEET_STALE_MS = "csp.sentinel.fleet.stale.ms"
+FLEET_MAX_SECONDS = "csp.sentinel.fleet.max.seconds"
+# The leader's self-reported name on a fleet page (the HA machine id).
+CLUSTER_HA_MACHINE_ID = "csp.sentinel.cluster.ha.machine.id"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_APP_NAME = "sentinel-tpu-app"
@@ -169,6 +220,33 @@ DEFAULT_WIRE_INFLIGHT_DEPTH = 2
 DEFAULT_WIRE_OUTBUF_MAX_BYTES = 1_048_576
 DEFAULT_WIRE_READ_CHUNK_BYTES = 131_072
 DEFAULT_WIRE_WORKERS = 4
+DEFAULT_SLO_BASELINE_ALPHA = 0.2
+DEFAULT_SLO_BASELINE_ZSCORE = 4.0
+DEFAULT_SLO_BASELINE_WARMUP_SECONDS = 30
+DEFAULT_SLO_BASELINE_MIN_EVENTS = 10
+DEFAULT_ALERT_HISTORY_CAPACITY = 256
+DEFAULT_ALERT_WEBHOOK_TIMEOUT_MS = 2_000
+DEFAULT_ALERT_WEBHOOK_RETRIES = 3
+DEFAULT_ADAPTIVE_INTERVAL_SECONDS = 5
+DEFAULT_ADAPTIVE_STEP_PCT = 0.25
+DEFAULT_ADAPTIVE_INCREASE_PCT = 0.10
+DEFAULT_ADAPTIVE_DECREASE_PCT = 0.30
+DEFAULT_ADAPTIVE_HYSTERESIS_PCT = 0.10
+DEFAULT_ADAPTIVE_COOLDOWN_SECONDS = 30
+DEFAULT_ADAPTIVE_FREEZE_STALE_SECONDS = 5
+DEFAULT_ADAPTIVE_ABORT_BACKOFF_SECONDS = 120
+DEFAULT_ADAPTIVE_SHADOW_SECONDS = 5
+DEFAULT_ADAPTIVE_CANARY_SECONDS = 5
+DEFAULT_ADAPTIVE_CANARY_BPS = 1_000
+DEFAULT_ADAPTIVE_HISTORY_CAPACITY = 256
+DEFAULT_WATERFALL_HISTORY_SECONDS = 600
+DEFAULT_WATERFALL_EXEMPLAR_EVERY = 8
+DEFAULT_WATERFALL_SENTRY_MIN_EVENTS = 50
+DEFAULT_JOURNAL_CAPACITY = 512
+DEFAULT_JOURNAL_ROTATE_BYTES = 4 * 1024 * 1024
+DEFAULT_FLEET_HISTORY_SECONDS = 512
+DEFAULT_FLEET_STALE_MS = 5_000
+DEFAULT_FLEET_MAX_SECONDS = 16
 
 
 def _env_key(key: str) -> str:
@@ -391,6 +469,169 @@ class SentinelConfig:
     def wire_workers(self) -> int:
         v = self.get_int(WIRE_WORKERS, DEFAULT_WIRE_WORKERS)
         return v if v > 0 else DEFAULT_WIRE_WORKERS
+
+    def cluster_ha_machine_id(self) -> Optional[str]:
+        return self.get(CLUSTER_HA_MACHINE_ID)
+
+    # SLO and alerting (slo/): the only readers of the csp.sentinel.slo.*
+    # and csp.sentinel.alert.* keys.
+
+    def slo_baseline_alpha(self) -> float:
+        v = self.get_float(SLO_BASELINE_ALPHA, DEFAULT_SLO_BASELINE_ALPHA)
+        return v if 0.0 < v < 1.0 else DEFAULT_SLO_BASELINE_ALPHA
+
+    def slo_baseline_zscore(self) -> float:
+        v = self.get_float(SLO_BASELINE_ZSCORE, DEFAULT_SLO_BASELINE_ZSCORE)
+        return v if v > 0 else DEFAULT_SLO_BASELINE_ZSCORE
+
+    def slo_baseline_warmup_seconds(self) -> int:
+        v = self.get_int(SLO_BASELINE_WARMUP_SECONDS,
+                         DEFAULT_SLO_BASELINE_WARMUP_SECONDS)
+        return v if v >= 0 else DEFAULT_SLO_BASELINE_WARMUP_SECONDS
+
+    def slo_baseline_min_events(self) -> int:
+        v = self.get_int(SLO_BASELINE_MIN_EVENTS,
+                         DEFAULT_SLO_BASELINE_MIN_EVENTS)
+        return v if v >= 0 else DEFAULT_SLO_BASELINE_MIN_EVENTS
+
+    def slo_rollout_abort(self) -> bool:
+        return (self.get(SLO_ROLLOUT_ABORT) or "true").lower() != "false"
+
+    def alert_history_capacity(self) -> int:
+        v = self.get_int(ALERT_HISTORY_CAPACITY,
+                         DEFAULT_ALERT_HISTORY_CAPACITY)
+        return v if v > 0 else DEFAULT_ALERT_HISTORY_CAPACITY
+
+    def alert_webhook_urls(self) -> list:
+        raw = self.get(ALERT_WEBHOOK_URLS) or ""
+        return [u.strip() for u in raw.split(",") if u.strip()]
+
+    def alert_webhook_timeout_ms(self) -> int:
+        v = self.get_int(ALERT_WEBHOOK_TIMEOUT_MS,
+                         DEFAULT_ALERT_WEBHOOK_TIMEOUT_MS)
+        return v if v > 0 else DEFAULT_ALERT_WEBHOOK_TIMEOUT_MS
+
+    def alert_webhook_retries(self) -> int:
+        v = self.get_int(ALERT_WEBHOOK_RETRIES,
+                         DEFAULT_ALERT_WEBHOOK_RETRIES)
+        return v if v >= 0 else DEFAULT_ALERT_WEBHOOK_RETRIES
+
+    # Adaptive limiting (adaptive/): the only readers of the
+    # csp.sentinel.adaptive.* keys.
+
+    def adaptive_enabled(self) -> bool:
+        return (self.get(ADAPTIVE_ENABLED) or "false").lower() == "true"
+
+    def adaptive_interval_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_INTERVAL_SECONDS,
+                         DEFAULT_ADAPTIVE_INTERVAL_SECONDS)
+        return v if v > 0 else DEFAULT_ADAPTIVE_INTERVAL_SECONDS
+
+    def adaptive_step_pct(self) -> float:
+        v = self.get_float(ADAPTIVE_STEP_PCT, DEFAULT_ADAPTIVE_STEP_PCT)
+        return v if 0.0 < v <= 1.0 else DEFAULT_ADAPTIVE_STEP_PCT
+
+    def adaptive_increase_pct(self) -> float:
+        v = self.get_float(ADAPTIVE_INCREASE_PCT,
+                           DEFAULT_ADAPTIVE_INCREASE_PCT)
+        return v if v > 0.0 else DEFAULT_ADAPTIVE_INCREASE_PCT
+
+    def adaptive_decrease_pct(self) -> float:
+        v = self.get_float(ADAPTIVE_DECREASE_PCT,
+                           DEFAULT_ADAPTIVE_DECREASE_PCT)
+        return v if 0.0 < v < 1.0 else DEFAULT_ADAPTIVE_DECREASE_PCT
+
+    def adaptive_hysteresis_pct(self) -> float:
+        v = self.get_float(ADAPTIVE_HYSTERESIS_PCT,
+                           DEFAULT_ADAPTIVE_HYSTERESIS_PCT)
+        return v if v >= 0.0 else DEFAULT_ADAPTIVE_HYSTERESIS_PCT
+
+    def adaptive_cooldown_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_COOLDOWN_SECONDS,
+                         DEFAULT_ADAPTIVE_COOLDOWN_SECONDS)
+        return v if v >= 0 else DEFAULT_ADAPTIVE_COOLDOWN_SECONDS
+
+    def adaptive_freeze_stale_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_FREEZE_STALE_SECONDS,
+                         DEFAULT_ADAPTIVE_FREEZE_STALE_SECONDS)
+        return v if v > 0 else DEFAULT_ADAPTIVE_FREEZE_STALE_SECONDS
+
+    def adaptive_abort_backoff_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_ABORT_BACKOFF_SECONDS,
+                         DEFAULT_ADAPTIVE_ABORT_BACKOFF_SECONDS)
+        return v if v >= 0 else DEFAULT_ADAPTIVE_ABORT_BACKOFF_SECONDS
+
+    def adaptive_shadow_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_SHADOW_SECONDS,
+                         DEFAULT_ADAPTIVE_SHADOW_SECONDS)
+        return v if v >= 0 else DEFAULT_ADAPTIVE_SHADOW_SECONDS
+
+    def adaptive_canary_seconds(self) -> int:
+        v = self.get_int(ADAPTIVE_CANARY_SECONDS,
+                         DEFAULT_ADAPTIVE_CANARY_SECONDS)
+        return v if v >= 0 else DEFAULT_ADAPTIVE_CANARY_SECONDS
+
+    def adaptive_canary_bps(self) -> int:
+        v = self.get_int(ADAPTIVE_CANARY_BPS, DEFAULT_ADAPTIVE_CANARY_BPS)
+        return v if 0 < v <= 10_000 else DEFAULT_ADAPTIVE_CANARY_BPS
+
+    def adaptive_history_capacity(self) -> int:
+        v = self.get_int(ADAPTIVE_HISTORY_CAPACITY,
+                         DEFAULT_ADAPTIVE_HISTORY_CAPACITY)
+        return v if v > 0 else DEFAULT_ADAPTIVE_HISTORY_CAPACITY
+
+    # Latency waterfall (telemetry/waterfall.py): the only readers of the
+    # csp.sentinel.waterfall.* keys.
+
+    def waterfall_enabled(self) -> bool:
+        return (self.get(WATERFALL_ENABLED) or "true").lower() != "false"
+
+    def waterfall_history_seconds(self) -> int:
+        v = self.get_int(WATERFALL_HISTORY_SECONDS,
+                         DEFAULT_WATERFALL_HISTORY_SECONDS)
+        return v if v > 0 else DEFAULT_WATERFALL_HISTORY_SECONDS
+
+    def waterfall_exemplar_every(self) -> int:
+        v = self.get_int(WATERFALL_EXEMPLAR_EVERY,
+                         DEFAULT_WATERFALL_EXEMPLAR_EVERY)
+        return v if v > 0 else DEFAULT_WATERFALL_EXEMPLAR_EVERY
+
+    def waterfall_sentry_enabled(self) -> bool:
+        return (self.get(WATERFALL_SENTRY_ENABLED)
+                or "true").lower() != "false"
+
+    def waterfall_sentry_min_events(self) -> int:
+        v = self.get_int(WATERFALL_SENTRY_MIN_EVENTS,
+                         DEFAULT_WATERFALL_SENTRY_MIN_EVENTS)
+        return v if v > 0 else DEFAULT_WATERFALL_SENTRY_MIN_EVENTS
+
+    # Journal and fleet (telemetry/journal.py, telemetry/fleet.py): the
+    # only readers of the csp.sentinel.journal.* and csp.sentinel.fleet.*
+    # keys.
+
+    def journal_path(self) -> Optional[str]:
+        v = self.get(JOURNAL_PATH)
+        return v if v else None
+
+    def journal_capacity(self) -> int:
+        v = self.get_int(JOURNAL_CAPACITY, DEFAULT_JOURNAL_CAPACITY)
+        return v if v > 0 else DEFAULT_JOURNAL_CAPACITY
+
+    def journal_rotate_bytes(self) -> int:
+        v = self.get_int(JOURNAL_ROTATE_BYTES, DEFAULT_JOURNAL_ROTATE_BYTES)
+        return v if v > 0 else DEFAULT_JOURNAL_ROTATE_BYTES
+
+    def fleet_history_seconds(self) -> int:
+        v = self.get_int(FLEET_HISTORY_SECONDS, DEFAULT_FLEET_HISTORY_SECONDS)
+        return v if v > 0 else DEFAULT_FLEET_HISTORY_SECONDS
+
+    def fleet_stale_ms(self) -> int:
+        v = self.get_int(FLEET_STALE_MS, DEFAULT_FLEET_STALE_MS)
+        return v if v > 0 else DEFAULT_FLEET_STALE_MS
+
+    def fleet_max_seconds(self) -> int:
+        v = self.get_int(FLEET_MAX_SECONDS, DEFAULT_FLEET_MAX_SECONDS)
+        return v if v > 0 else DEFAULT_FLEET_MAX_SECONDS
 
     def reset_for_tests(self) -> None:
         with self._lock:

@@ -34,9 +34,20 @@ The once-per-second fold: the state carries the flight-recorder ring by
 default (``csp.sentinel.telemetry.timeseries.seconds``, 128), written by
 the step at each second's fold; ``_spill_flight`` (run by
 ``timeseries_view`` and ``population_report``) gathers the fresh ring
-slots into the host history (``telemetry/timeseries.py``), then rolls
-the namespace telescope (``telemetry/population.py``, fed from every
-entry dispatch), then runs the slot table's rebalance.
+slots into the host history (``telemetry/timeseries.py``), renders each
+fresh second into the SLO manager (``slo/``), evaluates the burn rules,
+seals the latency waterfall (``telemetry/waterfall.py``), rolls the
+namespace telescope (``telemetry/population.py``, fed from every entry
+dispatch), runs the slot table's rebalance, and ticks the adaptive loop
+(``adaptive/``), which acts only through the rollout manager.
+``slo_refresh`` runs the fold on demand.
+
+The control plane: ``engine.journal`` (``telemetry/journal.py``) records
+every rule load, rollout transition, SLO transition, adaptive decision,
+cluster role flip and clock swap; ``why_query`` and ``explain_trace``
+join those records and the sampled traces with the recorded seconds.
+``engine.fleet`` holds a ``FleetView`` the engine watches, when one is
+attached.
 
 Slot mode (``SentinelEngine(slot_budget=N)``, or
 ``csp.sentinel.slots.budget``): the device state has N rows and the slot
@@ -73,8 +84,8 @@ the rule asks for it, counted in ``resilience_stats()``. Every Nth such
 entry carries a trace context over the wire, and its stitched spans land
 in ``engine.spans``.
 
-What it does not have yet (later slices): the pod and cluster
-checkpoints, and the fold's SLO, waterfall, adaptive and stream hooks.
+What it does not have yet (later slices): the cluster checkpoints, the
+shard rebalancer, and the fold's stream-ledger hook (``llm/``).
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -234,6 +245,7 @@ class SentinelEngine:
     """
 
     def __init__(self, capacity: int = 4096, device=None, clock=None,
+                 journal_path: Optional[str] = None,
                  slot_budget: int = 0):
         self.device = resolve_device(device)
         # The one stream every dispatch and state read runs on (None on
@@ -270,6 +282,20 @@ class SentinelEngine:
         self.system_status = Y.SystemStatusListener()
         self._signals_refreshed_ms = 0
         self._sealed_sec = self.now_ms() // 1000 - 1
+        # Control-plane audit journal (telemetry/journal.py): every rule,
+        # SLO and target load, rollout transition, cluster role flip,
+        # adaptive decision and clock swap appends one seq-numbered,
+        # causally linked record, stamped on now_ms(). Built first among
+        # the observability surfaces: the rule managers, rollout, SLO,
+        # adaptive and cluster layers below write through it, and the SLO
+        # and adaptive logs restore from a file-backed one. journal_path:
+        # None = csp.sentinel.journal.path, "" = memory-only.
+        from sentinel_tpu_torch.telemetry.journal import ControlPlaneJournal
+
+        self.journal = ControlPlaneJournal(self.now_ms, path=journal_path)
+        # Fleet federation (telemetry/fleet.py): a FleetView collector
+        # this engine watches through (None = not watching).
+        self.fleet = None
         # Entries that passed UNGUARDED because a device step failed.
         self.fail_open_count = 0
         self._fail_open_logged_ms = 0
@@ -322,6 +348,17 @@ class SentinelEngine:
             TELEMETRY_TIMESERIES_HISTORY,
             DEFAULT_TELEMETRY_TIMESERIES_HISTORY))
         self._flight_tees: List = []
+        # SLO engine (slo/): burn-rate objectives, anomaly baselines and
+        # health scores over the complete seconds the fold spills.
+        from sentinel_tpu_torch.slo.manager import SloManager
+
+        self.slo = SloManager(self)
+        # Latency waterfall: per-stage log2 histograms sealed by the fold;
+        # built after slo (its sentry fires through
+        # slo.external_transition).
+        from sentinel_tpu_torch.telemetry.waterfall import WaterfallRecorder
+
+        self.waterfall = WaterfallRecorder(self)
         # Namespace telescope, fed from every entry dispatch and rolled by
         # the spill fold.
         self.population = PopulationTracker(self)
@@ -347,6 +384,8 @@ class SentinelEngine:
         from sentinel_tpu_torch.cluster.state import ClusterStateManager
 
         self.cluster = ClusterStateManager()
+        # Role flips journal through this engine's journal.
+        self.cluster.journal = self.journal
         self.cluster.engine = self
         self._cluster_flow_info: Dict[str, list] = {}
         self._cluster_param_info: Dict[str, list] = {}
@@ -390,6 +429,12 @@ class SentinelEngine:
         self._canary_bps: Optional[int] = None
         self._canary_salt = 0
         self.rollout = RolloutManager(self)
+        # Closed-loop adaptive limiting: built after rollout (it registers
+        # a lifecycle listener) and slo (its senses read judgement); it
+        # ticks on the fold and acts only through the rollout manager.
+        from sentinel_tpu_torch.adaptive.loop import AdaptiveLoop
+
+        self.adaptive = AdaptiveLoop(self)
 
     def _seed_window_config(self) -> None:
         """Seed the instant-window geometry (reference: ``IntervalProperty``
@@ -460,9 +505,18 @@ class SentinelEngine:
             self._fastpath = _FastPathState({}, frozenset(),
                                             self.lease_enabled)
             self._rebuild_leases()
-        # The telescope's open churn window carries an old-timebase stamp;
-        # it resets outside the engine locks (it takes its own).
+        # Stamp-bearing subsystem cursors reset outside the engine locks
+        # (each takes its own; the order is adaptive/slo -> engine): the
+        # SLO cursors, series, baselines and alerts, the adaptive loop's
+        # backoff and cooldown stamps, the waterfall's staged seconds, and
+        # the telescope's open churn window.
+        self.slo.reset_timebase()
+        self.adaptive.reset_timebase()
+        self.waterfall.reset_timebase()
         self.population.reset_timebase()
+        # The swap itself, stamped on the NEW timebase (seq stays
+        # monotone even where timestamps step backward).
+        self.journal.record("clockSwap", injected=clock is not None)
 
     def add_flight_tee(self, fn) -> None:
         """Subscribe ``fn(second_dict)`` to every freshly spilled complete
@@ -644,6 +698,34 @@ class SentinelEngine:
                     self.param_rules.get_rules(), with_param_idx=True)
             self._rebuild_leases()
         self._slots_sync_pins()
+        self._journal_rule_load(family)
+
+    def _journal_rule_load(self, family: str) -> None:
+        """One ``ruleLoad`` record per family load: who pushed (the
+        ``acting()`` provenance), what is now in force (rule dicts,
+        capped) and what caused it (a promotion's ``causing()`` seam).
+        Runs outside the config lock: the journal's fsync must not
+        lengthen the time a push holds the config plane."""
+        from sentinel_tpu_torch.datasource import converters as CV
+        from sentinel_tpu_torch.telemetry.journal import MAX_RULES_PER_RECORD
+
+        mgr, to_dict = {
+            "flow": (self.flow_rules, CV.flow_rule_to_dict),
+            "degrade": (self.degrade_rules, CV.degrade_rule_to_dict),
+            "authority": (self.authority_rules, CV.authority_rule_to_dict),
+            "system": (self.system_rules, CV.system_rule_to_dict),
+            "param": (self.param_rules, CV.param_rule_to_dict),
+        }[family]
+        rules = list(mgr.get_rules())
+        dicts = []
+        for r in rules[:MAX_RULES_PER_RECORD]:
+            try:
+                dicts.append(to_dict(r))
+            except Exception:  # noqa: BLE001 — audit must not break loads
+                dicts.append({"resource": getattr(r, "resource", None)})
+        self.journal.record(
+            "ruleLoad", family=family, count=len(rules), rules=dicts,
+            rulesTruncated=len(rules) > MAX_RULES_PER_RECORD)
 
     def _sync_rollout_sources(self) -> None:
         """A rule push may carry staged (candidate-tagged) rules, and the
@@ -956,7 +1038,8 @@ class SentinelEngine:
 
     def close(self) -> None:
         """Stop the background workers: the stats committer, then the
-        pipeline, then the OS sampler and the trace pump.
+        pipeline, the OS sampler, the cluster role, the trace pump, the
+        alert webhook and a watched fleet's clients; close the journal.
 
         The fast path goes off FIRST (one swap under both locks, which
         ``_ensure_committer`` checks), so no new entry takes it; then the
@@ -973,6 +1056,12 @@ class SentinelEngine:
         self.system_status.stop()
         self.cluster.stop()
         self.traces.stop()
+        self.slo.stop()
+        fleet = self.fleet
+        if fleet is not None:
+            self.fleet = None
+            fleet.stop()
+        self.journal.close()
 
     # -- runtime retuning ----------------------------------------------------
 
@@ -1696,12 +1785,9 @@ class SentinelEngine:
         """One ops view of every degradation channel: fail-open passes,
         cluster-rule local fallbacks, the token client's breaker, the
         embedded server's overload and wire snapshots, the rollout
-        guardrail, the cluster role, and the registered health probes
-        with last-success ages. Lock-free: plain counter and snapshot
-        reads.
-
-        ``adaptive`` is None: the closed-loop adaptive limiter
-        (``sentinel_tpu/adaptive/``) is not ported yet."""
+        guardrail, the adaptive loop, the cluster role, and the
+        registered health probes with last-success ages. Lock-free: plain
+        counter and snapshot reads."""
         from sentinel_tpu_torch import resilience
 
         now = self.now_ms()
@@ -1717,7 +1803,7 @@ class SentinelEngine:
             "wire": self.cluster.wire_stats(),
             "rollout": self.rollout.guardrail_state(),
             "clusterHA": self.cluster.ha_stats(),
-            "adaptive": None,
+            "adaptive": self.adaptive.guardrail_state(),
             "probes": {},
         }
         client = self.cluster.token_client
@@ -1780,11 +1866,14 @@ class SentinelEngine:
 
     def _spill_flight(self, now_ms: Optional[int] = None) -> None:
         """Pull completed seconds off the device ring into the host
-        history, then roll the telescope and run the slot table's
-        rebalance on the same fold (the reference's order; its SLO,
-        waterfall, adaptive and stream hooks are not ported). The ring
-        read gathers ONLY the slots newer than the last spilled stamp, in
-        one gather and one device-to-host copy under the engine lock."""
+        history, then run the hooks that ride the same fold in the
+        reference's order: each fresh second into the SLO manager, burn
+        evaluation, the waterfall's seal, the telescope's roll, the slot
+        table's rebalance and the adaptive loop's tick (the reference's
+        stream-ledger hook waits for ``llm/``). The ring read gathers
+        ONLY the slots newer than the last spilled stamp, in one gather
+        and one device-to-host copy under the engine lock; the hooks are
+        host work outside it."""
         now = now_ms if now_ms is not None else self.now_ms()
         fresh = []
         with self._lock, self._on_stream():
@@ -1822,21 +1911,33 @@ class SentinelEngine:
                 # Pin the tenancy this second spilled under: history renders
                 # a reused slot's PAST seconds under the evicted occupant.
                 slots_tbl.remember_metas(stamp, metas)
-            if self._flight_tees:
-                sec_dict = second_to_dict(rec, metas)
-                for tee in list(self._flight_tees):
-                    try:
-                        tee(sec_dict)
-                    except Exception:  # noqa: BLE001 — a tee can't stall spill
-                        record_log.warn("flight tee %r failed; detaching",
-                                        tee)
-                        self.remove_flight_tee(tee)
+            # Judgement rides the spill: every complete second, rendered
+            # once, feeds the SLO manager's series and baselines, then the
+            # tees (outside the engine lock).
+            sec_dict = second_to_dict(rec, metas)
+            self.slo.ingest(stamp, sec_dict["resources"])
+            for tee in list(self._flight_tees):
+                try:
+                    tee(sec_dict)
+                except Exception:  # noqa: BLE001 — a tee can't stall spill
+                    record_log.warn("flight tee %r failed; detaching", tee)
+                    self.remove_flight_tee(tee)
+        # Burn rules re-evaluate at the newest complete second boundary on
+        # EVERY spill, fresh seconds or not (idle decay resolves alerts).
+        self.slo.evaluate(now)
+        # The waterfall seals its staged seconds after the evaluation, so
+        # its sentry's transitions land in the freshly evaluated store.
+        self.waterfall.roll(now)
         # The telescope folds its staged observations on the same cadence;
         # the slot table's rebalance follows (the telescope's top-k ranks
         # the challengers), 1/s-throttled and freeze-gated inside.
         self.population.roll(now)
         if slots_tbl is not None:
             slots_tbl.on_spill(now)
+        # The adaptive loop last, once judgement is current (its freeze
+        # gate and proposal gate read it); interval-gated and reentry-safe
+        # inside.
+        self.adaptive.on_spill(now)
 
     def _observe_population(self, host, batch) -> None:
         """Stage one admission batch's (row, tokens) traffic for the
@@ -1874,6 +1975,14 @@ class SentinelEngine:
         self._flush_committer()
         self._spill_flight(now_ms)
         return self.population.report(slot_budget)
+
+    def slo_refresh(self, now_ms: Optional[int] = None) -> None:
+        """Bring SLO judgement current: land leased commits, then fold and
+        spill the completed flight-recorder seconds (which feeds the SLO
+        manager) and re-evaluate the burn rules at the newest complete
+        second boundary."""
+        self._flush_committer()
+        self._spill_flight(now_ms)
 
     def timeseries_view(self, resource: Optional[str] = None,
                         start_ms: Optional[int] = None,
@@ -1916,6 +2025,73 @@ class SentinelEngine:
             "retainedSeconds": self.timeseries.retained(),
             "recorderSeconds": self.flight_seconds,
         }
+
+    def explain_trace(self, resource: Optional[str] = None,
+                      index: int = 0,
+                      now_ms: Optional[int] = None) -> Optional[Dict]:
+        """Join one sampled blocked-entry trace with the flight-recorder
+        second it occurred in: the verdict (reason and rule slot), that
+        resource's traffic in that second, and the loaded rules of the
+        blocking family. Reconstruction from recorded data, no step
+        re-run. None when there is no trace at ``index``."""
+        from sentinel_tpu_torch.datasource import converters as CV
+
+        self.traces.drain()
+        traces = self.traces.snapshot()["traces"]
+        if resource is not None:
+            traces = [t for t in traces if t["resource"] == resource]
+        index = max(0, int(index))
+        if index >= len(traces):
+            return None
+        tr = traces[index]
+        sec_start = tr["timestamp"] - tr["timestamp"] % 1000
+        view = self.timeseries_view(resource=tr["resource"],
+                                    start_ms=sec_start,
+                                    end_ms=sec_start + 1000,
+                                    now_ms=now_ms)
+        second = view["seconds"][0] if view["seconds"] else None
+        fam_rules = {
+            "FLOW": (self.flow_rules, CV.flow_rule_to_dict),
+            "DEGRADE": (self.degrade_rules, CV.degrade_rule_to_dict),
+            "AUTHORITY": (self.authority_rules, CV.authority_rule_to_dict),
+            "PARAM_FLOW": (self.param_rules, CV.param_rule_to_dict),
+            "SYSTEM": (self.system_rules, CV.system_rule_to_dict),
+        }.get(tr["reason"])
+        matched = []
+        if fam_rules is not None:
+            mgr, to_dict = fam_rules
+            matched = [to_dict(r) for r in mgr.get_rules()
+                       if getattr(r, "resource", tr["resource"])
+                       == tr["resource"]]
+        res_second = (second or {}).get("resources", {}).get(
+            tr["resource"], {})
+        return {
+            "trace": tr,
+            # The full second the entry fell in (None when it predates
+            # retention or recording is off).
+            "second": second,
+            "occupancy": {
+                "passThatSecond": res_second.get("pass", 0),
+                "blockThatSecond": res_second.get("block", 0),
+                "occupiedPassThatSecond": res_second.get("occupiedPass", 0),
+                "windowAtTrace": tr.get("window", {}),
+            },
+            "verdict": {
+                "reason": tr["reason"],
+                "ruleSlot": tr["ruleSlot"],
+                "matchedRules": matched,
+            },
+        }
+
+    def why_query(self, resource: str,
+                  stamp_ms: Optional[int] = None) -> Dict:
+        """Forensic "why": join the flight-recorder second at ``stamp_ms``
+        with the journal records in force then (the blocking rule and its
+        load provenance with the causeSeq chain, the rollout candidate,
+        the shard map); see ``telemetry/journal.py:forensic_why``."""
+        from sentinel_tpu_torch.telemetry.journal import forensic_why
+
+        return forensic_why(self, resource, stamp_ms)
 
     # -- slot-table admission (core/slots.py) --------------------------------
 

@@ -348,6 +348,10 @@ class Pipeline:
             depth=len(self._inflight) + 1,
             queue_wait_ms=rec.queue_wait_ms,
             device_wait_ms=device_wait_ms)
+        # The same split feeds the latency waterfall's pipeline lane (the
+        # device wait ends after the verdicts' copy reached the host).
+        self.engine.waterfall.observe_pipeline(rec.queue_wait_ms,
+                                               device_wait_ms)
         for kind, buf in rec.bufs:
             self.pool.release(kind, buf)
 

@@ -8,9 +8,10 @@ for the reference parse unchanged. Any rule may carry the staged-rollout
 tags ``candidateSet`` and ``rolloutStage``; they travel both ways, and an
 untagged rule keeps the reference's wire schema byte for byte.
 
-Still to port with the subsystems that own them: the TPS converters
-(``llm/``), the cluster-map and shard-map converters (the cluster stack),
-and the SLO and adaptive-target converters.
+The SLO-objective (``slo/``) and adaptive-target (``adaptive/``)
+converters are here too. Still to port with the subsystems that own
+them: the TPS converters (``llm/``) and the cluster-map and shard-map
+converters (the cluster stack).
 """
 
 from __future__ import annotations
@@ -292,3 +293,132 @@ def param_rules_from_json(source) -> List[ParamFlowRule]:
 
 def param_rules_to_json(rules: List[ParamFlowRule]) -> str:
     return json.dumps([param_rule_to_dict(r) for r in rules])
+
+
+# -- SLO objectives (slo/ — datasource-driven judgement) --------------------
+#
+# The ``sloRules`` converter: one JSON array of objective objects, pushed
+# through any datasource (file/Redis/HTTP/push) with
+# ``slo_objectives_from_json`` as the converter and
+# ``engine.slo.load_objectives`` as the sink, so objectives hot-reload
+# exactly like flow rules. Absent fields take the shipped defaults
+# (docs/OPERATIONS.md "SLOs & alerting" has the full schema + window
+# table):
+#
+#     [{"resource": "getUser", "sli": "availability", "objective": 0.999,
+#       "minEvents": 10,
+#       "windows": [{"longSeconds": 60, "shortSeconds": 5,
+#                    "burnRate": 14.4, "severity": "page"},
+#                   {"longSeconds": 300, "shortSeconds": 60,
+#                    "burnRate": 6, "severity": "ticket"}]},
+#      {"resource": "getUser", "sli": "latency", "objective": 0.99,
+#       "latencyMs": 64, "name": "getUser-rt"}]
+
+
+def slo_objective_from_dict(d: dict) -> "object":
+    from sentinel_tpu_torch.slo.objectives import (
+        BurnWindow, DEFAULT_BURN_WINDOWS, DEFAULT_MIN_EVENTS, SloObjective)
+
+    if not isinstance(d, dict):
+        raise ValueError(f"SLO objective must be a JSON object, got {d!r}")
+    raw_windows = d.get("windows")
+    if raw_windows is None:
+        windows = DEFAULT_BURN_WINDOWS
+    else:
+        if not isinstance(raw_windows, list) or not raw_windows:
+            raise ValueError(
+                f"'windows' must be a non-empty list, got {raw_windows!r}")
+        windows = tuple(
+            BurnWindow(
+                long_s=int(w.get("longSeconds", 0)),
+                short_s=int(w.get("shortSeconds", 0)),
+                burn=float(w.get("burnRate", 0)),
+                severity=str(w.get("severity", "page")),
+            )
+            for w in raw_windows
+        )
+    return SloObjective(
+        resource=str(d.get("resource", "")),
+        sli=str(d.get("sli", "availability")),
+        objective=float(d.get("objective", 0.99)),
+        latency_ms=int(d.get("latencyMs", 256)),
+        min_events=int(d.get("minEvents", DEFAULT_MIN_EVENTS)),
+        windows=windows,
+        name=str(d.get("name", "")),
+    ).validate()
+
+
+def slo_objective_to_dict(o) -> dict:
+    d = {
+        "resource": o.resource,
+        "sli": o.sli,
+        "objective": o.objective,
+        "minEvents": o.min_events,
+        "windows": [{"longSeconds": w.long_s, "shortSeconds": w.short_s,
+                     "burnRate": w.burn, "severity": w.severity}
+                    for w in o.windows],
+    }
+    if o.sli == "latency":
+        d["latencyMs"] = o.latency_ms
+        # What the RT histogram actually enforces (log2 bucket edges).
+        d["effectiveLatencyMs"] = o.snapped_latency_ms
+    if o.name:
+        d["name"] = o.name
+    return d
+
+
+def slo_objectives_from_json(source) -> List["object"]:
+    return [slo_objective_from_dict(d) for d in _loads(source)]
+
+
+def slo_objectives_to_json(objectives) -> str:
+    return json.dumps([slo_objective_to_dict(o) for o in objectives])
+
+
+# -- adaptive targets (adaptive/ — closed-loop limiting) --------------------
+#
+# The ``adaptiveTargets`` converter: one JSON array of target objects,
+# pushed through any datasource with ``adaptive_targets_from_json`` as
+# the converter and ``engine.adaptive.load_targets`` as the sink (the
+# ``adaptive`` command's ``op=set`` shares the schema). Absent fields
+# take the dataclass defaults (docs/OPERATIONS.md "Adaptive limiting"):
+#
+#     [{"resource": "getUser", "maxBlockRate": 0.05, "rtP99Ms": 250,
+#       "floor": 50, "ceiling": 5000, "minEntries": 32}]
+
+
+def adaptive_target_from_dict(d: dict) -> "object":
+    from sentinel_tpu_torch.adaptive.controller import (
+        DEFAULT_MIN_ENTRIES, AdaptiveTarget)
+
+    if not isinstance(d, dict):
+        raise ValueError(f"adaptive target must be a JSON object, got {d!r}")
+    defaults = AdaptiveTarget(resource="_")
+    return AdaptiveTarget(
+        resource=str(d.get("resource", "")),
+        max_block_rate=float(d.get("maxBlockRate",
+                                   defaults.max_block_rate)),
+        rt_p99_ms=float(d.get("rtP99Ms", defaults.rt_p99_ms)),
+        floor=float(d.get("floor", defaults.floor)),
+        ceiling=float(d.get("ceiling", defaults.ceiling)),
+        min_entries=int(d.get("minEntries", DEFAULT_MIN_ENTRIES)),
+    ).validate()
+
+
+def adaptive_target_to_dict(t) -> dict:
+    return {
+        "resource": t.resource,
+        "maxBlockRate": t.max_block_rate,
+        "rtP99Ms": t.rt_p99_ms,
+        "floor": t.floor,
+        "ceiling": t.ceiling,
+        "minEntries": t.min_entries,
+    }
+
+
+def adaptive_targets_from_json(source) -> List["object"]:
+    return [adaptive_target_from_dict(d) for d in _loads(source)]
+
+
+def adaptive_targets_to_json(targets) -> str:
+    return json.dumps([adaptive_target_to_dict(t) for t in targets])

@@ -30,6 +30,9 @@ Named fault points:
   the rename publishes it (a power cut midway through the data blocks),
   error mode aborts before the rename (a crash before publishing; the
   previous file survives).
+* ``journal.disk.full`` -- fired before every durable journal append
+  (``telemetry/journal.py``); an armed error is the disk-full / EIO path:
+  the journal degrades to its in-memory tail, loudly.
 
 A :class:`FaultInjector` arms specs per point -- ``error`` (raise),
 ``delay`` (sleep), ``garbage`` (replace bytes) -- triggered by a schedule
@@ -64,6 +67,7 @@ FAULT_POINTS = (
     "slots.evict.storm",
     "slots.spill.torn",
     "checkpoint.torn.write",
+    "journal.disk.full",
 )
 
 

@@ -33,9 +33,12 @@ staging a rollout cannot stall admissions behind a compile. ``tick`` and
 ``diff`` read ``engine.shadow_counts()``, which takes the dispatch lock
 for its one copy. Lifecycle listeners fire under the config lock.
 
-The journal and SLO hooks stay behind the reference's own
-``getattr(engine, "journal" / "slo", None)`` guards: the engine has
-neither yet, so no record is written and no SLO page aborts a candidate.
+Every transition records into the engine's journal (staging, stage
+flips, promote, abort, each linked to the staging record), and a
+promote's rule loads run under ``journal.causing(promote_seq)``, so their
+``ruleLoad`` records link back to it. ``tick`` runs the SLO abort gate:
+an active page-severity burn alert on a touched resource aborts the
+candidate (``csp.sentinel.slo.rollout.abort`` turns it off).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from dataclasses import dataclass, field, replace as dc_replace
 from typing import Dict, List, Optional
 
 from sentinel_tpu_torch.datasource import converters as CV
+from sentinel_tpu_torch.telemetry import journal as journal_mod
 from sentinel_tpu_torch.ops import step as S
 from sentinel_tpu_torch.rollout.canary import CANARY_BPS_MAX
 
@@ -281,16 +285,15 @@ class RolloutManager:
         tear the shadow world down."""
         with self._lock():
             cand = self._require_active(name)
-            # The promote record lands BEFORE the rule loads it fires.
+            # The promote record lands BEFORE the rule loads it fires,
+            # and the loads run under causing(seq): the resulting
+            # ruleLoad records carry causeSeq -> this promote.
             j = getattr(self.engine, "journal", None)
-            if j is not None:
-                j.record("rolloutPromote", name=cand.name,
-                         cause_seq=cand.journal_seq)
+            jseq = j.record("rolloutPromote", name=cand.name,
+                            cause_seq=cand.journal_seq) if j else None
             loaded = {}
-            # The reference runs the loads under the journal's
-            # causing(seq) seam, so their records link back to this
-            # promote; with no journal here there is nothing to link.
-            with contextlib.nullcontext():
+            with (journal_mod.causing(jseq) if j is not None
+                  else contextlib.nullcontext()):
                 for fam in cand.families():
                     merged = self.merged_rules(fam, cand)
                     detagged = [self._detag(r) for r in merged]

@@ -107,6 +107,23 @@ def rt_bucket_index(rt_ms: torch.Tensor) -> torch.Tensor:
     return (rt_ms[:, None] > edges[None, :]).sum(dim=1).to(torch.int32)
 
 
+# The latency waterfall's ladder (telemetry/waterfall.py): sub-millisecond
+# resolution on the same log2 / +Inf convention, 2^-6 ms .. 2^12 ms.
+WF_BUCKET_EDGES_MS: Tuple[float, ...] = tuple(
+    float(2.0 ** k) for k in range(-6, 13))
+NUM_WF_BUCKETS = len(WF_BUCKET_EDGES_MS) + 1  # + overflow (+Inf)
+
+
+def bucket_index_of(value_ms: float,
+                    edges: Sequence[float] = WF_BUCKET_EDGES_MS) -> int:
+    """Host-side bucket index for one observation (``le`` semantics:
+    bucket b holds ``value <= edge_b``; past the last edge -> overflow)."""
+    for b, edge in enumerate(edges):
+        if value_ms <= edge:
+            return b
+    return len(edges)
+
+
 def histogram_quantile_edges(counts: Sequence[float], q: float,
                              edges: Sequence[float]) -> float:
     """Estimate the q-quantile (0..1) from per-bucket counts over an

@@ -219,7 +219,8 @@ def test_cluster_verdicts_counters_and_stats_match(pair):
     assert p.eng.cluster_degraded_thresholds() == \
         j.eng.cluster_degraded_thresholds() == {FLOW_ID: (3.0, 1000)}
     snap = p.eng.resilience_stats()
-    assert snap["adaptive"] is None
+    assert snap["adaptive"] == j.eng.resilience_stats()["adaptive"]
+    assert snap["adaptive"]["enabled"] is False
     assert snap["tokenClientBreaker"]["state"] == "CLOSED"
     assert snap["clusterHA"]["roleName"] == "CLIENT"
 

@@ -21,7 +21,8 @@ fallback) when the build or a launch fails, and a port server on the card
 answering a client as one on the CPU does; and the pod: four shards on the
 card deciding as on the CPU, leaf for leaf, and the distributed driver
 over NCCL at world size 1 equal to gloo on the CPU and to the one-process
-driver.
+driver; and the control plane: the SLO evaluation, the waterfall's seal
+and the adaptive tick add no sync or launch to a step.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1223,3 +1224,68 @@ def test_dist_pod_over_nccl_equals_gloo_and_one_process(cuda, tmp_path):
             cs.pod_states_equal(out["nccl"][1], out[name][1], name)
     finally:
         dist.destroy_process_group()
+
+
+# -- the control plane that rides the fold ------------------------------------
+
+
+def _control_fold_run(cuda, hooks):
+    """Eight seconds of width-2048 steps on the card, one fold a second:
+    per-step syncs and launches, and the step timer's dispatches. With
+    ``hooks``: objectives on the ruled resources, enabled idle targets,
+    and wire observations for the waterfall to seal."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.adaptive.controller import AdaptiveTarget
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np, to_device
+    from sentinel_tpu_torch.ops import prefix_cuda
+    from sentinel_tpu_torch.slo.objectives import BurnWindow, SloObjective
+    from sentinel_tpu_torch.utils.device import SYNCS
+
+    clock = cs.Clock(cs.NOW0)
+    eng = _served_engine(cuda, clock)
+    if hooks:
+        eng.slo.load_objectives([SloObjective(
+            resource=f"r{i}", objective=0.99, min_events=1,
+            windows=(BurnWindow(10, 2, 2.0, "page"),))
+            for i in range(0, 20, 2)])
+        eng.adaptive.load_targets([AdaptiveTarget(
+            resource=f"r{i}", max_block_rate=0.99, min_entries=8)
+            for i in range(0, 20, 2)])
+        eng.adaptive.enable()
+    b = make_entry_batch_np(2048)
+    b["cluster_row"][:] = [eng.registry.cluster_row(f"r{i % 20}")
+                           for i in range(2048)]
+    b["count"][:] = 1
+    batch = to_device(b, cuda)
+    steps = []
+    for second in range(8):
+        for k in range(4):
+            clock.now = cs.NOW0 + second * 1000 + k * 250
+            torch.cuda.synchronize()
+            s0, l0 = SYNCS.count, prefix_cuda.launches
+            eng.harvest_decisions(eng.check_batch(batch))
+            steps.append((SYNCS.count - s0, prefix_cuda.launches - l0))
+            if hooks:
+                eng.waterfall.observe_wire([0.1] * 8)
+        clock.now = cs.NOW0 + (second + 1) * 1000
+        eng.slo_refresh(now_ms=clock.now)
+    disp = {k: v["dispatches"] for k, v in eng.step_timer.snapshot().items()}
+    sealed = eng.waterfall.snapshot()["sealedSeconds"]
+    evaluated = eng.slo.status()["evaluatedThroughMs"]
+    ticked = eng.adaptive.status()["senses"]
+    eng.close()
+    return steps, disp, sealed, evaluated, ticked
+
+
+def test_control_hooks_add_no_sync_or_launch_to_a_step(cuda):
+    """The SLO evaluation, the waterfall's seal and the adaptive loop's
+    tick ride the fold as host work: with them loaded, every step has the
+    syncs and launches it has without, and the engine dispatches the same
+    steps (the references' A/B guards, ``tests/test_slo.py:641``,
+    ``test_waterfall.py:340``, ``test_adaptive.py:693``)."""
+    plain = _control_fold_run(cuda, hooks=False)
+    hooked = _control_fold_run(cuda, hooks=True)
+    assert hooked[0] == plain[0]
+    assert hooked[1] == plain[1]
+    assert hooked[2] > 0 and hooked[3] > 0 and hooked[4]
+    assert all(launches == 2 for _, launches in plain[0])

@@ -152,11 +152,6 @@ class Twin:
                          journal_path="", **kw)
         self.p = PEngine(capacity=capacity, device="cpu", clock=self.clock,
                          **kw)
-        # The reference's tick first runs slo_refresh (its SLO gate), whose
-        # fold moves the staged second into w60 early; the port has no SLO
-        # subsystem yet, so the gate is off here (the reference's own
-        # csp.sentinel.slo.rollout.abort switch) and the folds stay equal.
-        self.j.slo.rollout_abort_enabled = False
         self.engines = (self.j, self.p)
 
     def close(self):
