@@ -234,8 +234,36 @@ Phases (any failure raises and exits non-zero; none is caught):
    launches. (g) No thread the phase started is alive after its engines
    close. The phase must end within 60 s. Prints one ``{"control": ...}``
    line.
-14. The smoke's wall time, the kernels line (both kernels, with the pod
-   and control paths' prefix launches), the card line, and the final
+14. HA: the HA token cluster (``cluster/ha.py``, ``cluster/sharding.py``,
+   ``cluster/rebalance.py``, ``chaos/``). (1) Failover, on the card and
+   then on the CPU under the port's frozen clock: a 3-seat ``ClusterMap``
+   in process, eight GLOBAL flows of 40 a second; leader A grants 17 of
+   each, publishes its cluster checkpoint, grants 3 more; the
+   ``cluster.ha.leader.crash`` seam kills it on a wire request; an epoch-2
+   map promotes B, which restores A's 8 rows and admits: every flow
+   admits exactly 40 + 3 across the handoff (the grants since the
+   publish), every grant equal on card and CPU, and the role flip journals
+   its map apply as cause. Prints rows restored, promote, save and
+   restore ms and the file's bytes. (2) BENCH_19's shard_mesh on
+   loopback on the card: 3 leaders each owning a third of a 64-slice ring
+   (WRONG_SLICE checks and slice epochs live), 6 threads x 11
+   connections with 256 requests in flight each, a settle and two 2.5 s
+   windows: acquires/s in total and per leader, no WRONG_SLICE. A map
+   push to the rebalance drill's skew (A owning slices 0-31) re-seats the
+   leaders 0.25 s before the clients route: WRONG_SLICE answers in that
+   lag, none once every thread's burst follows the new map. (3) The
+   rebalance drill on that mesh: ``propose`` moves slices 0-3 off A,
+   ``certify`` (campaign seed 0) on the card and on the CPU gives the
+   bench record's verdict sha256 on both, ``apply`` pushes the map (with
+   its WRONG_SLICE lag and heal) under the journal chain apply ->
+   certify -> propose, a window after the move, ``rollback``. (4) The
+   chaos campaign (seed 14), its first 10 episodes on the card and on
+   the CPU: every episode's verdict and fault sha256 equal, 0 violations,
+   episodes/s. Acquire launches are zeroed before each card run and read
+   after it; no thread the phase started is left. The phase must end
+   within 90 s. Prints one ``{"ha": ...}`` line.
+15. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control and HA paths' launches), the card line, and the final
    ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
@@ -5042,6 +5070,580 @@ def control_phase(dev):
             "acquire_by_width": wf_counts["acquire_by_width"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the HA token cluster
+# ---------------------------------------------------------------------------
+
+HA_PHASE_LIMIT_S = 90.0
+HA_DIR = Path(__file__).resolve().parent / "smoke_logs" / "ha"
+HA_FLOWS = tuple(range(9000, 9008))   # eight GLOBAL flows on the leaders
+HA_THRESHOLD = 40                     # a second's quota per flow
+HA_BEFORE = 17                        # grants per flow before the publish
+HA_MARGIN = 3                         # grants per flow after it (lost)
+HA_SLICES = 64                        # BENCH_19's shard_mesh ring
+HA_LEADERS = ("A", "B", "C")
+HA_THREADS_PER_LEADER = 2
+HA_CONNS_PER_THREAD = 11              # 66 connections
+HA_INFLIGHT = 256                     # a connection's burst, even split
+HA_SETTLE_S = 2.0
+HA_WINDOW_S = 2.5
+HA_ROUTE_LAG_S = 0.25                 # servers re-seat before clients route
+HA_HEAL_S = 1.0
+HA_EPISODES = 10                      # chaos campaign seed 14, first K
+HA_CAMPAIGN_SEED = 14
+# The bench record's rebalance drill (3 leaders, 64 slices, A owning
+# 0-31): the plan it applied and the certify verdict sha256 it recorded.
+HA_DRILL_MOVES = {0: "A->B", 1: "A->C", 2: "A->B", 3: "A->C"}
+HA_DRILL_VERDICT = \
+    "edb88a7434f6109a761faf92025a91d2c3efd80e927f66a5b7e1f135073ea917"
+
+
+class _HaHost:
+    """The engine stand-in an HA seat journals through."""
+
+    def __init__(self, journal, thresholds_fn):
+        self.journal = journal
+        self.cluster_degraded_thresholds = thresholds_fn
+        self.spans = None
+
+
+def _ha_rule(fid, count):
+    return F.FlowRule(resource=f"ha{fid}", count=count, cluster_mode=True,
+                      cluster_config={"flowId": fid, "thresholdType": 1})
+
+
+def ha_failover(dev):
+    """Leader A publishes its cluster checkpoint, the
+    ``cluster.ha.leader.crash`` seam kills it on a wire request, B is
+    promoted by an epoch-2 map, restores A's rows and admits. Every grant
+    is returned for the card = CPU check; across the handoff each flow
+    admits exactly its threshold plus the grants made after the publish
+    (the Claim-2 margin)."""
+    import shutil
+
+    from sentinel_tpu_torch.cluster import ha
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus
+    from sentinel_tpu_torch.cluster.state import (
+        CLUSTER_SERVER,
+        ClusterStateManager,
+    )
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import checkpoint as ckpt
+    from sentinel_tpu_torch.resilience import FaultInjector
+    from sentinel_tpu_torch.telemetry.journal import ControlPlaneJournal
+
+    work = HA_DIR / dev.type
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path = str(work / "leader.ck")
+    time_util.freeze_time(NOW0)
+    seats = {}
+    try:
+        for mid in HA_LEADERS:
+            state = ClusterStateManager(device=dev)
+            state.server_rules().load_rules(
+                "default", [_ha_rule(f, HA_THRESHOLD) for f in HA_FLOWS])
+            host = _HaHost(ControlPlaneJournal(time_util.current_time_millis,
+                                               path=None),
+                           state.server_rules().thresholds)
+            state.journal = host.journal
+            seats[mid] = ha.ClusterHAManager(
+                engine=host, state=state, machine_id=mid,
+                checkpoint_path=path, checkpoint_period_s=3600.0,
+                server_host="127.0.0.1", device=dev)
+        specs = tuple(ha.ClusterServerSpec(m, "127.0.0.1", 0)
+                      for m in HA_LEADERS)
+        m1 = ha.ClusterMap(epoch=1, servers=specs, clients=("X",))
+        for seat in seats.values():
+            seat.apply_map(m1)
+        a = seats["A"]
+        if a.state.mode != CLUSTER_SERVER:
+            raise AssertionError("ha failover: A did not lead epoch 1")
+        svc_a = a.state.token_server.service
+        verdicts = []
+
+        def grant(svc, n):
+            got = svc.request_tokens([(f, 1, False) for f in HA_FLOWS
+                                      for _ in range(n)])
+            verdicts.extend((int(r.status), r.remaining, r.wait_ms,
+                             r.epoch) for r in got)
+            return got
+
+        grant(svc_a, HA_BEFORE)
+        t0 = time.perf_counter()
+        a.publish_checkpoint()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        file_bytes = os.path.getsize(path)
+        grant(svc_a, HA_MARGIN)
+        # The crash seam fires in A's batcher, before the device step of
+        # the one wire request: listener and connections die, no drain.
+        with FaultInjector(seed=11) as inj:
+            inj.arm("cluster.ha.leader.crash", "error", times=1)
+            client = ClusterTokenClient(
+                "127.0.0.1", a.state.token_server.bound_port,
+                request_timeout_s=2.0, health_gate=None).start()
+            try:
+                deadline = time.perf_counter() + 5
+                while not client.is_connected() \
+                        and time.perf_counter() < deadline:
+                    time.sleep(0.01)
+                crash_reply = int(client.request_token(HA_FLOWS[0]).status)
+            finally:
+                client.stop()
+        if not a.state.token_server.crashed \
+                or crash_reply != TokenResultStatus.FAIL:
+            raise AssertionError(f"ha failover: crash seam did not fire "
+                                 f"(reply {crash_reply})")
+        m2 = ha.ClusterMap(epoch=2, servers=(specs[1], specs[0], specs[2]),
+                           clients=("X",))
+        t0 = time.perf_counter()
+        seats["B"].apply_map(m2)
+        promote_ms = (time.perf_counter() - t0) * 1e3
+        for mid in ("A", "C"):
+            seats[mid].apply_map(m2)
+        b = seats["B"]
+        if b.state.mode != CLUSTER_SERVER or b.rows_restored != len(HA_FLOWS):
+            raise AssertionError(f"ha failover: B mode {b.state.mode}, "
+                                 f"{b.rows_restored} rows restored")
+        got = grant(b.state.token_server.service, HA_THRESHOLD)
+        post = {f: sum(1 for i, r in enumerate(got)
+                       if r.status == 0 and HA_FLOWS[i // HA_THRESHOLD] == f)
+                for f in HA_FLOWS}
+        across = {f: HA_BEFORE + HA_MARGIN + post[f] for f in HA_FLOWS}
+        if set(across.values()) != {HA_THRESHOLD + HA_MARGIN}:
+            raise AssertionError(f"ha failover: grants across the handoff "
+                                 f"{across}, want threshold {HA_THRESHOLD}"
+                                 f" + margin {HA_MARGIN}")
+        restore_ms = []
+        for _ in range(3):
+            fresh = DefaultTokenService(rules=b.state.server_rules(),
+                                        device=dev)
+            fresh._ensure_compiled()
+            t0 = time.perf_counter()
+            ckpt.restore_cluster_checkpoint(fresh, path)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        journal = b.engine.journal.tail(limit=100)
+        flip = [r for r in journal if r["kind"] == "haRoleFlip"][-1]
+        apply = [r for r in journal if r["kind"] == "clusterMapApply"][-1]
+        if flip["causeSeq"] != apply["seq"] or flip["role"] != "SERVER":
+            raise AssertionError(f"ha failover: journal {journal}")
+        return {
+            "verdicts": verdicts,
+            "out": {"rows_restored": b.rows_restored,
+                    "grants_across_handoff": across[HA_FLOWS[0]],
+                    "threshold": HA_THRESHOLD, "margin": HA_MARGIN,
+                    "promote_ms": promote_ms, "save_ms": save_ms,
+                    "restore_ms": sorted(restore_ms)[1],
+                    "file_bytes": file_bytes,
+                    "journal": [r["kind"] for r in journal]}}
+    finally:
+        for seat in seats.values():
+            seat.stop()
+        time_util.unfreeze_time()
+
+
+def ha_mesh(dev):
+    """BENCH_19's shard_mesh on loopback (3 leaders, 64 slices, 66
+    connections, 256 requests in flight on each) with the rebalance drill
+    on it: two windows at the even split; a map push to the drill's skew
+    (A owning 0-31) with the servers re-seated before the clients route
+    (WRONG_SLICE answers) and the heal; ``propose`` -> ``certify``
+    (seed 0, on the card and on the CPU) -> ``apply`` -> a window ->
+    ``rollback``."""
+    import socket as _socket
+
+    from sentinel_tpu_torch.cluster import ha
+    from sentinel_tpu_torch.cluster.constants import (
+        MSG_FLOW,
+        TokenResultStatus,
+    )
+    from sentinel_tpu_torch.cluster.rebalance import ShardRebalancer
+    from sentinel_tpu_torch.cluster.rules import ClusterFlowRuleManager
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.sharding import (
+        ShardMap,
+        ShardState,
+        slice_of,
+    )
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.simulator.clock import SimClock
+    from sentinel_tpu_torch.telemetry.journal import ControlPlaneJournal
+
+    n = HA_SLICES
+    fid_of_slice, fid = {}, 9000
+    while len(fid_of_slice) < n:
+        fid_of_slice.setdefault(slice_of(fid, n), fid)
+        fid += 1
+    rules = [_ha_rule(f, 1e9) for f in fid_of_slice.values()]
+    even = tuple(HA_LEADERS[i % 3] for i in range(n))
+    skew = tuple("A" if i < 32 else ("B" if i < 48 else "C")
+                 for i in range(n))
+    services, servers = {}, {}
+    for mid in HA_LEADERS:
+        mgr = ClusterFlowRuleManager()
+        mgr.load_rules("default", list(rules))
+        svc = DefaultTokenService(mgr, max_allowed_qps=1e12, device=dev)
+        svc.set_shard(ShardState(n, 1, {sl: 1 for sl in range(n)
+                                        if even[sl] == mid}))
+        warm = next(fid_of_slice[sl] for sl in range(n) if even[sl] == mid)
+        for w in (HA_INFLIGHT, 1024, 4096):
+            svc.request_tokens([(warm, 1, False)] * w)
+        services[mid] = svc
+        servers[mid] = ClusterTokenServer(svc, host="127.0.0.1",
+                                          port=0).start()
+    specs = tuple(ha.ClusterServerSpec(m, "127.0.0.1",
+                                       servers[m].bound_port)
+                  for m in HA_LEADERS)
+    cur = {"map": ShardMap(version=1, n_slices=n, servers=specs,
+                           slice_owner=even, slice_epoch=(1,) * n)}
+    owner_now = list(even)
+    gen = [0]
+    stop, paused = threading.Event(), threading.Event()
+    n_threads = len(HA_LEADERS) * HA_THREADS_PER_LEADER
+    replies = [0] * n_threads
+    ok = [0] * n_threads
+    wrong = [0] * n_threads
+    statuses = [{} for _ in range(n_threads)]
+    done_gen = [-1] * n_threads  # the routing of each thread's last burst
+    errors = []
+    barrier = threading.Barrier(n_threads + 1)
+
+    def worker(tid):
+        mid = HA_LEADERS[tid % 3]
+        conns = []
+        try:
+            for _ in range(HA_CONNS_PER_THREAD):
+                s = _socket.create_connection(
+                    ("127.0.0.1", servers[mid].bound_port), timeout=10)
+                s.settimeout(10)
+                s.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+                conns.append((s, ccodec.FrameReader()))
+            my_gen, frames, expect = -1, b"", 0
+            barrier.wait()
+            while not stop.is_set():
+                if paused.is_set():
+                    time.sleep(0.005)
+                    continue
+                if my_gen != gen[0]:
+                    my_gen = gen[0]
+                    fids = [fid_of_slice[sl] for sl in range(n)
+                            if owner_now[sl] == mid]
+                    expect = max(1, round(HA_INFLIGHT * 3 * len(fids) / n))
+                    frames = b"".join(
+                        ccodec.encode_request(
+                            x + 1, MSG_FLOW, ccodec.encode_flow_request(
+                                fids[(tid * expect + x) % len(fids)], 1,
+                                False))
+                        for x in range(expect))
+                for s, _ in conns:
+                    s.sendall(frames)
+                for s, reader in conns:
+                    got = 0
+                    while got < expect:
+                        data = s.recv(65536)
+                        if not data:
+                            raise AssertionError("ha mesh: connection "
+                                                 "closed")
+                        for body in reader.feed(data):
+                            status = ccodec.decode_response(body).status
+                            got += 1
+                            replies[tid] += 1
+                            ok[tid] += status == 0
+                            wrong[tid] += (status
+                                           == TokenResultStatus.WRONG_SLICE)
+                            statuses[tid][status] = \
+                                statuses[tid].get(status, 0) + 1
+                done_gen[tid] = my_gen
+        except Exception as ex:  # noqa: BLE001 -- reported below
+            errors.append(repr(ex))
+            barrier.abort()
+        finally:
+            for s, _ in conns:
+                s.close()
+
+    def window(seconds):
+        r0, w0 = list(replies), sum(wrong)
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        dt = time.perf_counter() - t0
+        by = [a - b for a, b in zip(replies, r0)]
+        return {"acquires_per_s": sum(by) / dt,
+                "per_leader_acquires_per_s": {
+                    m: sum(by[t] for t in range(n_threads)
+                           if HA_LEADERS[t % 3] == m) / dt
+                    for m in HA_LEADERS},
+                "wrong_slice": sum(wrong) - w0}
+
+    def push(smap):
+        """Re-seat the live shards, then (a lag later) route clients."""
+        w0 = sum(wrong)
+        for mid in HA_LEADERS:
+            services[mid].set_shard(ShardState(
+                n, smap.version, {sl: smap.slice_epoch[sl] for sl in range(n)
+                                  if smap.slice_owner[sl] == mid}))
+        cur["map"] = smap
+        time.sleep(HA_ROUTE_LAG_S)
+        for sl in range(n):
+            owner_now[sl] = smap.slice_owner[sl]
+        gen[0] += 1
+        # Healed once every thread has finished a burst routed by the new
+        # map: no frame of the old routing is left in flight.
+        deadline = time.perf_counter() + 20
+        while min(done_gen) < gen[0] and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        healed = window(HA_HEAL_S)
+        return {"wrong_slice": sum(wrong) - w0 - healed["wrong_slice"],
+                "wrong_slice_after_heal": healed["wrong_slice"]}
+
+    class _Seat:
+        @property
+        def shard_map(self):
+            return cur["map"]
+
+        def transition_pending(self):
+            return False
+
+    clock = SimClock(NOW0)
+
+    class _Fleet:
+        """Uniform offered load per slice: what the workers send."""
+
+        def settled_through_ms(self):
+            return clock.now_ms() - 1000
+
+        def status(self):
+            return {"leaders": {m: {"stale": False, "epochRegressed": False}
+                                for m in HA_LEADERS}}
+
+        def slice_loads(self, flow_of, n_slices, window_seconds=None,
+                        settled_only=True):
+            return {"nSlices": n_slices, "seconds": 4,
+                    "settledThroughMs": self.settled_through_ms(),
+                    "slices": {sl: 1000 for sl in range(n_slices)},
+                    "observedByLeader": {}, "unattributed": 0}
+
+    def rebalancer(device):
+        return ShardRebalancer(
+            ha=_Seat(), fleet=_Fleet(),
+            journal=ControlPlaneJournal(clock.now_ms, path=None),
+            flow_of=lambda r: None, clock=clock.now_ms, apply_via=push_plan,
+            device=device)
+
+    pushes = []
+
+    def push_plan(smap):
+        pushes.append(push(smap))
+
+    out = {"leaders": len(HA_LEADERS), "n_slices": n,
+           "connections": n_threads * HA_CONNS_PER_THREAD,
+           "pipelined_per_conn": HA_INFLIGHT}
+    zero_cluster_counts()
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_threads)]
+    try:
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=60)
+        time.sleep(HA_SETTLE_S)
+        wins = [window(HA_WINDOW_S), window(HA_WINDOW_S)]
+        out["windows"] = wins
+        best = max(wins, key=lambda w: w["acquires_per_s"])
+        out["acquires_per_s"] = best["acquires_per_s"]
+        out["per_leader_acquires_per_s"] = best["per_leader_acquires_per_s"]
+        if any(w["wrong_slice"] for w in wins):
+            raise AssertionError(f"ha mesh: WRONG_SLICE on a settled map: "
+                                 f"{wins}")
+        # The drill's skewed placement, as a map push.
+        skew_map = cur["map"].with_moves(
+            {sl: skew[sl] for sl in range(n)})
+        out["skew_push"] = push(skew_map)
+        paused.set()
+        rb = rebalancer(dev)
+        proposed = rb.propose()
+        if not proposed.get("ok"):
+            raise AssertionError(f"ha drill: propose vetoed {proposed}")
+        pid = proposed["plan"]["planId"]
+        plan = rb.plans[pid]
+        moves = {sl: f"{a}->{b}" for sl, (a, b) in plan.moves.items()}
+        t0 = time.perf_counter()
+        cert = rb.certify(pid, campaign_seed=0)
+        certify_s = time.perf_counter() - t0
+        rb_cpu = rebalancer(torch.device("cpu"))
+        cert_cpu = rb_cpu.certify(rb_cpu.propose()["plan"]["planId"],
+                                  campaign_seed=0)
+        paused.clear()
+        if not cert["ok"] or moves != HA_DRILL_MOVES:
+            raise AssertionError(f"ha drill: moves {moves}, cert {cert}")
+        shas = (cert["cert"]["verdictSha256"], cert["cert"]["faultSha256"])
+        if shas != (cert_cpu["cert"]["verdictSha256"],
+                    cert_cpu["cert"]["faultSha256"]) \
+                or shas[0] != HA_DRILL_VERDICT:
+            raise AssertionError(f"ha drill: certify sha card {shas}, cpu "
+                                 f"{cert_cpu['cert']['verdictSha256']}")
+        applied = rb.apply(pid)
+        if not applied.get("ok"):
+            raise AssertionError(f"ha drill: apply vetoed {applied}")
+        after = window(HA_WINDOW_S)
+        chain = [r["kind"] for r in rb._journal().chain(applied["applySeq"])]
+        if chain[:3] != ["rebalanceApply", "rebalanceCertify",
+                         "rebalancePropose"]:
+            raise AssertionError(f"ha drill: journal chain {chain}")
+        skew_after = rb.sense()["skew"]
+        rolled = rb.rollback()
+        if not rolled.get("ok") or cur["map"].slice_owner != skew:
+            raise AssertionError(f"ha drill: rollback {rolled}")
+        out["drill"] = {
+            "moves": moves, "slices_moved": len(moves),
+            "skew_before": plan.skew_before, "skew_after": skew_after,
+            "certified": True, "certify_seed": cert["cert"]["seed"],
+            "certify_verdict_sha256": shas[0],
+            "certify_fault_sha256": shas[1],
+            "certify_card_equals_cpu": True,
+            "certify_s": certify_s,
+            "handoff_margin_grants": cert["cert"]["handoffMarginGrants"],
+            "journal_chain": chain,
+            "apply_push": pushes[0], "rollback_push": pushes[1],
+            "acquires_per_s_after_move": after["acquires_per_s"],
+            "per_leader_after_move": after["per_leader_acquires_per_s"]}
+        for p in [out["skew_push"]] + pushes:
+            if p["wrong_slice"] <= 0 or p["wrong_slice_after_heal"] != 0:
+                raise AssertionError(f"ha mesh: push {p}: no WRONG_SLICE "
+                                     "in the lag, or not healed after")
+    finally:
+        stop.set()
+        paused.clear()
+        for t in threads:
+            t.join(timeout=30)
+        for srv in servers.values():
+            srv.stop()
+    counts = read_cluster_counts()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"ha mesh workers failed: {errors}")
+    by_status = {}
+    for d in statuses:
+        for k, v in d.items():
+            by_status[int(k)] = by_status.get(int(k), 0) + v
+    out["replies"] = sum(replies)
+    out["ok_replies"] = sum(ok)
+    out["wrong_slice_replies"] = sum(wrong)
+    # The leaders' admission queues may shed a burst that waited past
+    # their deadline: OVERLOADED, the server's documented overload reply.
+    out["overloaded_replies"] = by_status.get(
+        int(TokenResultStatus.OVERLOADED), 0)
+    out["replies_by_status"] = {str(k): v for k, v
+                                in sorted(by_status.items())}
+    if set(by_status) - {0, int(TokenResultStatus.WRONG_SLICE),
+                         int(TokenResultStatus.OVERLOADED)}:
+        raise AssertionError(f"ha mesh: replies by status {by_status}")
+    out["counts"] = counts
+    return out
+
+
+def ha_campaign(dev):
+    """The chaos campaign (seed 14) on ``dev``: the first HA_EPISODES
+    episodes; every episode's verdict and fault sha256s, and episodes/s."""
+    from sentinel_tpu_torch.chaos.campaign import ChaosCampaign
+
+    camp = ChaosCampaign(campaign_seed=HA_CAMPAIGN_SEED,
+                         episodes=HA_EPISODES, device=dev)
+    t0 = time.perf_counter()
+    eps = [camp.run_episode(i) for i in range(HA_EPISODES)]
+    wall = time.perf_counter() - t0
+    return {"shas": [(e.verdict_sha256, e.fault_sha256) for e in eps],
+            "violations": sum(len(e.violations) for e in eps),
+            "ops": sum(e.ops for e in eps),
+            "grants": sum(e.grants for e in eps),
+            "episodes_per_s": len(eps) / wall, "wall_s": wall}
+
+
+def ha_phase(dev):
+    """The HA token cluster on the card: (1) failover with a cluster
+    checkpoint, card and CPU; (2) the sharded mesh with (3) the rebalance
+    drill on the card (its certification on card and CPU); (4) the chaos
+    campaign's first episodes on card and CPU. Prints one ``{"ha": ...}``
+    line; returns the acquire launches of the card's runs."""
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = {t.ident for t in threading.enumerate()}
+    out, parts = {}, {}
+    cpu = torch.device("cpu")
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        result = fn(*args)
+        parts[f"{name}_s"] = time.perf_counter() - t1
+        return result
+
+    zero_cluster_counts()
+    card = part("failover_card", ha_failover, dev)
+    fo_counts = read_cluster_counts()
+    host = part("failover_cpu", ha_failover, cpu)
+    if card["verdicts"] != host["verdicts"]:
+        raise AssertionError("ha failover: card and CPU grants differ")
+    out["failover"] = dict(card["out"], grants=len(card["verdicts"]),
+                           card_equals_cpu=True,
+                           cpu_promote_ms=host["out"]["promote_ms"])
+    mesh = part("mesh", ha_mesh, dev)
+    mesh_counts = mesh.pop("counts")
+    out["mesh"] = mesh
+    zero_cluster_counts()
+    camp_card = part("campaign_card", ha_campaign, dev)
+    camp_counts = read_cluster_counts()
+    camp_cpu = part("campaign_cpu", ha_campaign, cpu)
+    if camp_card["shas"] != camp_cpu["shas"] or camp_card["violations"] \
+            or camp_cpu["violations"]:
+        raise AssertionError("ha campaign: card and CPU episodes differ or "
+                             "violate")
+    out["campaign"] = {
+        "seed": HA_CAMPAIGN_SEED, "episodes": HA_EPISODES,
+        "violations": 0, "card_equals_cpu": True,
+        "episode_shas": camp_card["shas"], "ops": camp_card["ops"],
+        "grants": camp_card["grants"],
+        "episodes_per_s": camp_card["episodes_per_s"],
+        "cpu_episodes_per_s": camp_cpu["episodes_per_s"]}
+    runs = {"failover": fo_counts, "mesh": mesh_counts,
+            "campaign": camp_counts}
+    if dev.type == "cuda":
+        for run, c in runs.items():
+            if c["acquire"] <= 0:
+                raise AssertionError(f"ha {run} run launched the acquire "
+                                     "kernel no time")
+    by_width = {}
+    for c in runs.values():
+        for w, k in c["acquire_by_width"].items():
+            by_width[w] = by_width.get(w, 0) + k
+    out["acquire_launches"] = sum(c["acquire"] for c in runs.values())
+    out["acquire_launches_by_run"] = {run: c["acquire"]
+                                      for run, c in runs.items()}
+    out["acquire_launches_by_width"] = {str(w): k for w, k
+                                        in sorted(by_width.items())}
+    alive = []
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in before and t.is_alive()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    if alive:
+        raise AssertionError(f"ha: threads alive after the phase: {alive}")
+    out["threads_left"] = 0
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"ha": out}), flush=True)
+    if out["phase_s"] > HA_PHASE_LIMIT_S:
+        raise AssertionError(f"ha phase took {out['phase_s']:.1f} s, over "
+                             f"{HA_PHASE_LIMIT_S} s")
+    return {"acquire": out["acquire_launches"],
+            "acquire_by_width": out["acquire_launches_by_width"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5086,6 +5688,7 @@ def main() -> int:
     cluster = cluster_phase(dev)
     pod = pod_phase(dev)
     control_launches = control_phase(dev)
+    ha_launches = ha_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -5116,7 +5719,10 @@ def main() -> int:
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[
-                "acquire_by_width"])]}), flush=True)
+                "acquire_by_width"],
+            ha_path_launches=ha_launches["acquire"],
+            ha_path_launches_by_width=ha_launches["acquire_by_width"])]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

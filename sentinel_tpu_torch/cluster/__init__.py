@@ -10,8 +10,10 @@ serial admission is the hand-written kernel of ``ops/cluster_acquire.py``
 on a card. The client side plugs into the engine's flow checker with the
 reference's ``fallbackToLocalOrPass`` semantics.
 
-Not ported yet: ``ha.py``, ``sharding.py``, ``rebalance.py`` and
-``__main__.py``.
+``ha.py`` drives a seat's role from cluster and shard maps (failover,
+epoch fencing, cluster checkpoints), ``sharding.py`` partitions the flowId
+space into hash slices, and ``rebalance.py`` governs slice placement.
+Not ported yet: ``__main__.py`` (the standalone participant).
 """
 
 from sentinel_tpu_torch.cluster.constants import (
@@ -31,11 +33,19 @@ from sentinel_tpu_torch.cluster.token_service import (
 from sentinel_tpu_torch.cluster.client import ClusterTokenClient
 from sentinel_tpu_torch.cluster.server import ClusterTokenServer
 from sentinel_tpu_torch.cluster.state import ClusterStateManager, EpochFence
+from sentinel_tpu_torch.cluster.ha import (
+    ClusterHAManager,
+    ClusterMap,
+    ClusterServerSpec,
+    DegradedQuota,
+    FailoverTokenClient,
+)
 
 __all__ = [
-    "ClusterFlowEvent", "ClusterFlowRuleManager", "ClusterStateManager",
+    "ClusterFlowEvent", "ClusterFlowRuleManager", "ClusterHAManager",
+    "ClusterMap", "ClusterServerSpec", "ClusterStateManager",
     "ClusterTokenClient", "ClusterTokenServer", "DefaultTokenService",
-    "EpochFence", "MSG_FLOW", "MSG_PARAM_FLOW", "MSG_PING",
-    "THRESHOLD_AVG_LOCAL", "THRESHOLD_GLOBAL", "TokenResult",
-    "TokenResultStatus",
+    "DegradedQuota", "EpochFence", "FailoverTokenClient", "MSG_FLOW",
+    "MSG_PARAM_FLOW", "MSG_PING", "THRESHOLD_AVG_LOCAL", "THRESHOLD_GLOBAL",
+    "TokenResult", "TokenResultStatus",
 ]

@@ -12,9 +12,9 @@ latency still takes at most ``batch_linger_s``.
 The ``MSG_FLEET`` branch serves this leader's fleet telemetry page
 (``telemetry/fleet.py``). Not ported yet: the ``MSG_STREAM_TICK`` branch
 (``llm/``), answered with the FAIL frame the reference sends when its
-handler raises. The JAX package's
-sharded leaders (``cluster/sharding.py``) are not ported either, so no
-verdict here is WRONG_SLICE.
+handler raises. A sharded leader (``cluster/sharding.py``) answers a
+flow outside its slices WRONG_SLICE: no epoch TLV, the shard-map version
+in a TLV of its own (and in ``waitMs`` of a flow reply).
 """
 
 from __future__ import annotations
@@ -368,11 +368,17 @@ def stamp_epoch(server: "ClusterTokenServer", entity: bytes,
                 epoch: Optional[int] = None) -> bytes:
     """Append the leader's epoch TLV (the HA fence) to a token response
     entity; epoch 0 (pre-HA) keeps the wire format byte-identical.
-    ``epoch`` overrides the service epoch with a verdict's own. The
-    payload passes the ``cluster.ha.stale.epoch`` mutate seam so a test
-    can replay a deposed epoch."""
+    ``epoch`` overrides the stamped value with a PER-SLICE term
+    (cluster/sharding.py: each verdict carries the fencing epoch of the
+    slice it was granted under). With no override, a SHARDED service
+    stamps nothing — its flat service epoch is the max over owned
+    slices, and stamping that under another slice's fence lane would
+    poison honest lower-epoch slices. The payload passes the
+    ``cluster.ha.stale.epoch`` mutate seam so a test can replay a
+    deposed epoch."""
     if epoch is None:
-        epoch = server.service.epoch
+        epoch = 0 if getattr(server.service, "shard", None) is not None \
+            else server.service.epoch
     if not epoch:
         return entity
     return codec.append_epoch_tlv(entity, faults.mutate(
@@ -409,8 +415,17 @@ def build_flow_reply(server: "ClusterTokenServer", xid: int, result,
         entity = codec.append_trace_tlv(
             entity, codec.encode_span_info(
                 sp["spanId"], sp["startMs"], sp["durationUs"]))
+    if result.status == TokenResultStatus.WRONG_SLICE:
+        # Out-of-slice (cluster/sharding.py): no epoch TLV — this
+        # leader holds no term for the slice, and stamping one would
+        # poison the client's per-slice fence lane. The shard-map
+        # version rides a dedicated TLV (and mirrors in waitMs) so the
+        # mis-routed client can tell how stale its map is.
+        entity = codec.append_map_version_tlv(entity, result.wait_ms)
+        return codec.encode_response(xid, MSG_FLOW, result.status, entity)
     # Epoch AFTER the span TLV: pre-HA clients read the span at a
-    # fixed offset.
+    # fixed offset. Sharded verdicts stamp their PER-SLICE epoch
+    # (TokenResult.epoch); unsharded replies keep the service epoch.
     entity = stamp_epoch(server, entity, getattr(result, "epoch", None))
     return codec.encode_response(xid, MSG_FLOW, result.status, entity)
 
@@ -444,7 +459,14 @@ def process_control_frame(server: "ClusterTokenServer", req: codec.Request,
             entity = codec.append_trace_tlv(
                 b"", codec.encode_span_info(
                     sp["spanId"], sp["startMs"], sp["durationUs"]))
-        entity = stamp_epoch(server, entity, getattr(result, "epoch", None))
+        if result.status == TokenResultStatus.WRONG_SLICE:
+            # Param responses have no waitMs field: the map-version TLV
+            # is the ONLY carrier here (no epoch TLV — see
+            # build_flow_reply's out-of-slice note).
+            entity = codec.append_map_version_tlv(entity, result.wait_ms)
+        else:
+            entity = stamp_epoch(server, entity,
+                                 getattr(result, "epoch", None))
         return (codec.encode_response(
             req.xid, MSG_PARAM_FLOW, result.status, entity), namespace)
     if req.msg_type == MSG_ENTRY:

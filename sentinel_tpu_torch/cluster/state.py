@@ -3,12 +3,13 @@ reference: ``core:cluster/ClusterStateManager.java`` — SURVEY.md §2.4): an
 instance is NOT_STARTED, a token CLIENT, or an (embedded) token SERVER;
 the ops plane can flip roles at runtime.
 
-The HA manager (``cluster/ha.py``) is not ported yet: ``ha`` stays None,
-and every use of it stands behind the reference's own None checks. The
+A ``ClusterHAManager`` (``cluster/ha.py``) sets ``ha`` when it drives
+this instance from a cluster or shard map; it publishes the outgoing
+leader's checkpoint at teardown and reports under ``ha_stats``. The
 owning engine sets ``journal``, so every committed role flip records a
 ``haRoleFlip`` (a standalone manager leaves it None and skips the audit).
-A server this manager starts runs its token service on the owning
-engine's device.
+A server this manager starts from its staged config runs its token
+service on ``device`` when given, else on the owning engine's device.
 """
 
 from __future__ import annotations
@@ -97,8 +98,11 @@ class SliceEpochFence:
 
 
 class ClusterStateManager:
-    def __init__(self):
+    def __init__(self, device=None):
         self._lock = threading.RLock()
+        # The device of a service built from the staged server config
+        # (None: the owning engine's, else cuda).
+        self.device = device
         self.mode = CLUSTER_NOT_STARTED
         self.token_client = None
         self.token_server = None
@@ -182,7 +186,8 @@ class ClusterStateManager:
                 service = DefaultTokenService(
                     rules=self.server_rules(),
                     max_allowed_qps=float(self.server_config["maxAllowedQps"]),
-                    device=getattr(self.engine, "device", None))
+                    device=(self.device if self.device is not None
+                            else getattr(self.engine, "device", None)))
                 self.set_to_server(port=int(self.server_config["port"]),
                                    service=service)
             elif mode == CLUSTER_NOT_STARTED:
@@ -241,6 +246,12 @@ class ClusterStateManager:
         """
         from sentinel_tpu_torch.cluster.server import ClusterTokenServer
 
+        if service is None and self.device is not None:
+            from sentinel_tpu_torch.cluster.token_service import (
+                DefaultTokenService,
+            )
+
+            service = DefaultTokenService(device=self.device)
         with self._lock:
             self._teardown()
             self.mode = CLUSTER_NOT_STARTED

@@ -79,6 +79,7 @@ class TokenTicket(NamedTuple):
     t0: float           # dispatch perf_counter (span timing)
     sync_results: object = None  # pre-resolved results (synchronous path)
     event: object = None  # torch.cuda.Event after the copies, or None
+    shard: object = None  # ShardState snapshot at dispatch (slice epochs)
 
 
 class TokenResult(NamedTuple):
@@ -88,9 +89,11 @@ class TokenResult(NamedTuple):
     the server-side token-service span's identity + timing, shipped back
     over the wire so the client can stitch per-hop latency.
 
-    ``epoch``: a per-verdict fencing epoch the TCP frontend stamps into
-    the reply's epoch TLV instead of the service-global one (the JAX
-    package's sharded leaders set it). None stamps ``service.epoch``."""
+    ``epoch`` (cluster/sharding.py): the PER-SLICE fencing epoch this
+    verdict was granted under — the TCP frontend stamps it into the
+    reply's epoch TLV instead of the service-global epoch, so each
+    slice's leadership fences independently. None keeps the unsharded
+    behavior (the frontend stamps ``service.epoch``)."""
 
     status: int
     remaining: int = 0
@@ -259,6 +262,13 @@ class DefaultTokenService:
         # frontend so deposed leaders' replies are fenced; 0 (default)
         # keeps the pre-HA wire format byte-identical.
         self.epoch = int(epoch)
+        # Sharded ownership (cluster/sharding.py): when set, requests
+        # for flows hashing outside the owned slices are answered
+        # WRONG_SLICE (carrying the map version) instead of a verdict,
+        # and verdicts carry their slice's fencing epoch. Replaced
+        # wholesale by set_shard, read lock-free on the dispatch path.
+        self._shard = None
+        self.wrong_slice_count = 0
         self.connections = ConnectionManager()
         self.limiter = GlobalRequestLimiter(max_allowed_qps)
         self.max_occupy_ratio = max_occupy_ratio
@@ -280,6 +290,42 @@ class DefaultTokenService:
         # flowId-axis observation point. Bound to the engine's tracker
         # by ClusterStateManager.set_to_server; None disables it.
         self.population = None
+
+    # -- sharded ownership (cluster/sharding.py) ---------------------------
+
+    @property
+    def shard(self):
+        return self._shard
+
+    def set_shard(self, shard) -> None:
+        """Adopt a new slice-ownership view (a ``sharding.ShardState``;
+        None returns to unsharded single-leader behavior). The service
+        epoch becomes the max owned slice epoch for the epoch-keyed
+        consumers that take the SERVICE term when no per-slice one is in
+        play — checkpoint-save fencing (``save_cluster_checkpoint``'s
+        ``getattr(service, "epoch")`` default) and the flat teardown
+        publish. Wire replies are NOT among them: ``stamp_epoch`` stamps
+        sharded replies only from each verdict's own slice epoch (sheds
+        and pings from a sharded leader go out unstamped)."""
+        self._shard = shard
+        if shard is not None and shard.epochs:
+            self.epoch = int(max(shard.epochs.values()))
+
+    def shard_snapshot(self) -> Optional[dict]:
+        """The leader-side shard block of ``ha_stats``; lock-free like
+        every stats read."""
+        shard = self._shard
+        if shard is None:
+            return None
+        return {
+            "mode": "server",
+            "mapVersion": shard.version,
+            "nSlices": shard.n_slices,
+            "slicesOwned": len(shard.epochs),
+            "sliceEpochs": {str(sl): int(ep)
+                            for sl, ep in sorted(shard.epochs.items())},
+            "wrongSliceRejected": self.wrong_slice_count,
+        }
 
     def _device_ctx(self):
         if self._stream is None:
@@ -372,6 +418,7 @@ class DefaultTokenService:
         traces = tuple(r[3] if len(r) > 3 else None for r in requests)
         population = self.population
         pop_rows = [] if population is not None else None
+        shard = self._shard
         n = len(requests)
         with self._lock:
             pre: List[Optional[TokenResult]] = [None] * n
@@ -385,12 +432,32 @@ class DefaultTokenService:
                         flow_id = int(flow_id)
                     except (TypeError, ValueError):
                         continue  # slot stays -1 -> NO_RULE_EXISTS
+                    slice_epoch = None
+                    if shard is not None:
+                        slice_epoch = shard.epoch_for_flow(flow_id)
+                        if slice_epoch is None:
+                            # Out-of-slice: this leader does not own the
+                            # flow's hash slice — answered WRONG_SLICE on
+                            # the host with the current map version (NOT
+                            # a verdict; the routing client walks the
+                            # other leaders and self-heals). Decided
+                            # before the limiter and the device step; the
+                            # lane rides the step as an unknown slot (-1),
+                            # so it never consumes quota here.
+                            self.wrong_slice_count += 1
+                            pre[i] = TokenResult(
+                                CC.TokenResultStatus.WRONG_SLICE,
+                                wait_ms=shard.version)
+                            continue
                     ns = self._ns_of.get(flow_id)
                     if pop_rows is not None:
+                        # Offered load on OWNED slices only (a mis-routed
+                        # request is counted by the leader that admits it).
                         pop_rows.append((ns, flow_id, count))
                     if ns is not None and not self.limiter.try_pass(ns, now):
                         pre[i] = TokenResult(
-                            CC.TokenResultStatus.TOO_MANY_REQUEST)
+                            CC.TokenResultStatus.TOO_MANY_REQUEST,
+                            epoch=slice_epoch)
                         continue
                     host[0, i] = self._slot_of.get(flow_id, -1)
                     host[1, i] = count
@@ -430,7 +497,8 @@ class DefaultTokenService:
             if pop_rows:
                 population.observe_flows(pop_rows)
             return TokenTicket(tuple(requests), traces, tuple(pre),
-                               out[0], out[1], now, t0, event=event)
+                               out[0], out[1], now, t0, event=event,
+                               shard=shard)
 
     def harvest_tokens(self, ticket: TokenTicket) -> List[TokenResult]:
         """Resolve a dispatched batch to concrete TokenResults. The wait
@@ -464,6 +532,12 @@ class DefaultTokenService:
                     result = TokenResult(s, wait_ms=int(extra[i]))
                 else:
                     result = TokenResult(s, remaining=int(extra[i]))
+                if ticket.shard is not None:
+                    # Stamp the verdict with ITS slice's fencing epoch
+                    # (the ticket's snapshot — a concurrent rebalance
+                    # must not retag an already-granted verdict).
+                    result = result._replace(
+                        epoch=ticket.shard.epoch_for_flow(req[0]))
             if ticket.traces[i] is not None:
                 result = result._replace(server_span=self._record_span(
                     ticket.traces[i], req[0], ticket.now_ms, step_us,
@@ -502,12 +576,27 @@ class DefaultTokenService:
             flow_id = int(flow_id)  # one bucket key space for "123" and 123
         except (TypeError, ValueError):
             return TokenResult(CC.TokenResultStatus.NO_RULE_EXISTS)
+        shard = self._shard
+        slice_epoch = None
+        if shard is not None:
+            slice_epoch = shard.epoch_for_flow(flow_id)
+            if slice_epoch is None:
+                # Out-of-slice, same contract as the flow path: checked
+                # before the rule lookup and limiter so a mis-routed
+                # param request never consumes a bucket here.
+                self.wrong_slice_count += 1
+                return TokenResult(CC.TokenResultStatus.WRONG_SLICE,
+                                   wait_ms=shard.version)
         rule = self.rules.rule_by_flow_id(flow_id)
         if rule is None:
-            return TokenResult(CC.TokenResultStatus.NO_RULE_EXISTS)
+            # Every owned-slice reply carries ITS slice's epoch (None
+            # when unsharded).
+            return TokenResult(CC.TokenResultStatus.NO_RULE_EXISTS,
+                               epoch=slice_epoch)
         ns = self.rules.namespace_of_flow_id(flow_id)
         if ns is not None and not self.limiter.try_pass(ns, now):
-            return TokenResult(CC.TokenResultStatus.TOO_MANY_REQUEST)
+            return TokenResult(CC.TokenResultStatus.TOO_MANY_REQUEST,
+                               epoch=slice_epoch)
         # AVG_LOCAL scales the per-value threshold by the namespace's live
         # client count, mirroring the flow-token path (reference:
         # ClusterParamFlowChecker.calcGlobalThreshold).
@@ -534,7 +623,8 @@ class DefaultTokenService:
                     break
                 pending[key] = within + count
             if blocked:
-                return TokenResult(CC.TokenResultStatus.BLOCKED)
+                return TokenResult(CC.TokenResultStatus.BLOCKED,
+                                   epoch=slice_epoch)
             for key, add in pending.items():
                 start, used = self._param_buckets.get(key, (window_start, 0.0))
                 if start != window_start:
@@ -542,7 +632,7 @@ class DefaultTokenService:
                 self._param_buckets[key] = (window_start, used + add)
             if len(self._param_buckets) > 100_000:  # bounded key space
                 self._param_buckets.clear()
-        return TokenResult(CC.TokenResultStatus.OK)
+        return TokenResult(CC.TokenResultStatus.OK, epoch=slice_epoch)
 
     # -- introspection -----------------------------------------------------
 

@@ -23,9 +23,18 @@ header with ``version`` and ``n_leaves`` and ``leaf_{i}`` in
 dropped), the param owner keys as uint32. Either package restores the
 other's files.
 
-The cluster checkpoints of the reference are not part of this package
-yet; neither is the LLM stream ledger, so a header's ``llm_streams`` is
-written empty and a non-empty one is refused.
+Cluster checkpoints (``save_cluster_checkpoint`` /
+``restore_cluster_checkpoint``) snapshot a token service's per-flow
+window rows (``counts`` int32, ``starts`` int64, ``bucket_ms`` int64) keyed
+by flowId: the JAX package's ``.npz``, so either package's leader
+warm-starts from the other's file. On the card the snapshot copies the
+three window tensors to the host in one copy on the service's stream,
+under the service lock; the restore grafts the matching rows back on that
+stream, in the window's own dtypes (an int64 start never passes through a
+float).
+
+The LLM stream ledger is not part of this package yet, so a header's
+``llm_streams`` is written empty and a non-empty one is refused.
 """
 
 from __future__ import annotations
@@ -352,11 +361,186 @@ def restore_pod_checkpoint(like, path: str):
         for got, (_, want) in zip(loaded, leaves)))
 
 
+# ---------------------------------------------------------------------------
+# Cluster token-server window checkpoint (cluster/ha.py state-preserving
+# recovery): the leader snapshots its per-flow global sliding windows so a
+# successor warm-starts from them instead of handing the whole fleet a
+# fresh window of quota at failover. Rows are keyed by flowId (slot layout
+# is a compile artifact that differs across processes); a flow whose bucket
+# geometry changed starts cold, same stance as the service's own rule-push
+# carry-over. Param-flow buckets are NOT checkpointed: they are 1-second
+# QPS buckets, so skipping them bounds their over-admission to at most one
+# second of per-key quota (docs/SEMANTICS.md "Degraded-quota bound").
+# ---------------------------------------------------------------------------
+
+CLUSTER_CHECKPOINT_VERSION = 1
+
+
+def _peek_header_epoch(path: str) -> Optional[int]:
+    """The existing checkpoint's header epoch, or None when there is no
+    readable checkpoint (missing/corrupted files never block a save)."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            header = json.loads(bytes(z["__header__"]).decode("utf-8"))
+        return int(header.get("epoch", 0))
+    except Exception:  # noqa: BLE001 — any unreadable file: overwritable
+        return None
+
+
+def _slice_filter(slices, n_slices, what: str):
+    """flowId -> kept? for a slice-filtered save/restore (None: keep all)."""
+    if slices is None:
+        return None
+    from sentinel_tpu_torch.cluster.sharding import slice_of
+
+    n = int(n_slices) if n_slices is not None else 0
+    if n <= 0:
+        raise ValueError(f"slice-filtered {what} needs n_slices > 0")
+    wanted = {int(s) for s in slices}
+    return lambda fid: slice_of(fid, n) in wanted
+
+
+def save_cluster_checkpoint(service, path: str, slices=None,
+                            n_slices: Optional[int] = None,
+                            epoch: Optional[int] = None) -> None:
+    """Atomically snapshot a ``DefaultTokenService``'s flow windows.
+
+    ``slices``/``n_slices`` (cluster/sharding.py rebalancing): restrict
+    the snapshot to flows hashing into those slices of an ``n_slices``
+    ring — a slice HANDOFF publishes exactly the donor's rows for the
+    moving slice, nothing else. ``epoch`` overrides the header's fencing
+    epoch with the slice's own term (per-slice epochs, not the
+    service-global max).
+
+    The shared file is epoch-fenced like the wire: a save from a service
+    whose epoch is BELOW the file's is refused, so a deposed leader's
+    still-running CheckpointTimer cannot clobber the successor's
+    published state. The peek-and-replace is held under an exclusive
+    sidecar flock so two same-host writers cannot interleave between the
+    epoch check and the rename; filesystems without flock fall back to
+    the unlocked check. Epoch-0 services (pre-HA, no fencing) keep
+    last-writer-wins."""
+    keep = _slice_filter(slices, n_slices, "save")
+    # Snapshot first (service lock only) — never hold the file lock
+    # while waiting on the device.
+    with service._lock:
+        service._ensure_compiled()
+        win = service._state.win
+        header = {
+            "version": CLUSTER_CHECKPOINT_VERSION,
+            "epoch": int(epoch if epoch is not None
+                         else getattr(service, "epoch", 0)),
+            "flows": {str(fid): slot
+                      for fid, slot in service._slot_of.items()
+                      if keep is None or keep(fid)},
+        }
+        if slices is not None:
+            header["slices"] = sorted(int(s) for s in slices)
+            header["nSlices"] = int(n_slices)
+        with service._device_ctx():
+            arrays = to_host({"counts": win.counts, "starts": win.starts,
+                              "bucket_ms": win.bucket_ms})
+
+    epoch = header["epoch"]
+    if not epoch:
+        _atomic_savez(path, header, arrays)
+        return
+    with open(path + ".lock", "a+b") as lk:
+        try:
+            import fcntl
+
+            fcntl.flock(lk, fcntl.LOCK_EX)
+        except (ImportError, OSError):
+            pass  # no flock here: keep the (unlocked) epoch check
+        try:
+            existing = _peek_header_epoch(path)
+            if existing is not None and existing > epoch:
+                raise ValueError(
+                    f"refusing to overwrite checkpoint {path!r} from epoch "
+                    f"{existing} with state from deposed epoch {epoch}")
+            _atomic_savez(path, header, arrays)
+        finally:
+            try:
+                import fcntl
+
+                fcntl.flock(lk, fcntl.LOCK_UN)
+            except (ImportError, OSError):
+                pass
+
+
+def restore_cluster_checkpoint(service, path: str, slices=None,
+                               n_slices: Optional[int] = None) -> int:
+    """Warm-start ``service``'s flow windows from a leader's snapshot.
+
+    Grafts each surviving flowId's window row into the service's OWN
+    compiled layout; rows whose bucket geometry differs (rule edit
+    between leaders) or whose flowId is unknown here start cold.
+    ``slices``/``n_slices`` restrict the graft to flows hashing into
+    those slices (a handoff recipient warm-starts ONLY the slice it
+    gained — rows for slices it does not own must not shadow their true
+    owner's state). Returns the number of rows restored. A corrupted or
+    truncated file raises ``ValueError`` before any service state is
+    touched."""
+    keep = _slice_filter(slices, n_slices, "restore")
+    header, arrays = _load_npz(path)
+    if header.get("version") != CLUSTER_CHECKPOINT_VERSION:
+        raise ValueError(
+            f"unsupported cluster checkpoint version {header.get('version')}")
+    for name, nd in (("counts", 3), ("starts", 2), ("bucket_ms", 1)):
+        got = arrays.get(name)
+        if got is None or got.ndim != nd:
+            raise ValueError(
+                f"corrupted or truncated checkpoint {path!r}: bad {name}")
+    old_counts, old_starts = arrays["counts"], arrays["starts"]
+    old_bucket = arrays["bucket_ms"]
+    flows = header.get("flows") or {}
+
+    with service._lock:
+        service._ensure_compiled()
+        win = service._state.win
+        new_bucket = win.bucket_ms.cpu().numpy()
+        dst, src = [], []
+        for fid_str, old_slot in flows.items():
+            try:
+                fid, old_slot = int(fid_str), int(old_slot)
+            except (TypeError, ValueError):
+                continue
+            if keep is not None and not keep(fid):
+                continue
+            new_slot = service._slot_of.get(fid)
+            # old_slot must index EVERY old array (a corrupted file can
+            # carry inconsistent leading dims — never an IndexError out
+            # of a leader promotion).
+            if (new_slot is None
+                    or not 0 <= old_slot < min(old_counts.shape[0],
+                                               old_starts.shape[0],
+                                               old_bucket.shape[0])
+                    or old_counts.shape[1:] != tuple(win.counts.shape[1:])
+                    or old_starts.shape[1:] != tuple(win.starts.shape[1:])
+                    or old_bucket[old_slot] != new_bucket[new_slot]):
+                continue
+            dst.append(new_slot)
+            src.append(old_slot)
+        if dst:  # distinct: one slot per flowId
+            rows = np.asarray(src, np.int64)
+            with service._device_ctx():
+                idx = torch.tensor(dst, dtype=torch.int64,
+                                   device=win.counts.device)
+                win.counts[idx] = torch.from_numpy(np.ascontiguousarray(
+                    old_counts[rows], dtype=np.int32)).to(
+                        win.counts.device, win.counts.dtype)
+                win.starts[idx] = torch.from_numpy(np.ascontiguousarray(
+                    old_starts[rows], dtype=np.int64)).to(
+                        win.starts.device, win.starts.dtype)
+    return len(dst)
+
+
 class CheckpointTimer:
     """Low-rate background checkpointer (off unless started).
 
     ``save`` picks the snapshot function: :func:`save_checkpoint` by
-    default (``target`` an engine). A failed save is logged, never
+    default (``target`` an engine), or :func:`save_cluster_checkpoint`
+    (``target`` a token service: the HA leader's periodic publish). A failed save is logged, never
     raised, and the timer keeps going."""
 
     def __init__(self, engine, path: str, period_s: float = 30.0,

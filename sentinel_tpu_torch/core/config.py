@@ -100,13 +100,15 @@ TELEMETRY_SPANS_CAPACITY = "csp.sentinel.telemetry.spans.capacity"
 # The token server's admission queue (cluster/server.py): its bound in
 # groups, the watermark past which submissions shed OVERLOADED, the
 # deadline a queued group may wait, the retry-after hint of a shed, the
-# per-connection burst cap and the idle-connection reap.
+# per-connection burst cap and the idle-connection reap; client.backoff:
+# the least time an HA / sharded client skips a leader that shed it.
 OVERLOAD_QUEUE_MAX_GROUPS = "csp.sentinel.overload.queue.max.groups"
 OVERLOAD_QUEUE_WATERMARK_PCT = "csp.sentinel.overload.queue.watermark.pct"
 OVERLOAD_DEADLINE_MS = "csp.sentinel.overload.deadline.ms"
 OVERLOAD_RETRY_AFTER_MS = "csp.sentinel.overload.retry.after.ms"
 OVERLOAD_CONN_MAX_BURST = "csp.sentinel.overload.conn.max.burst"
 OVERLOAD_IDLE_TIMEOUT_S = "csp.sentinel.overload.idle.timeout.s"
+OVERLOAD_CLIENT_BACKOFF_MS = "csp.sentinel.overload.client.backoff.ms"
 # The token server's wire path (cluster/reactor.py). reactor.enabled: the
 # selectors-based multiplexing frontend (false = the thread-per-connection
 # socketserver); coalesce.max.batch: max requests folded into one group;
@@ -172,6 +174,37 @@ FLEET_STALE_MS = "csp.sentinel.fleet.stale.ms"
 FLEET_MAX_SECONDS = "csp.sentinel.fleet.max.seconds"
 # The leader's self-reported name on a fleet page (the HA machine id).
 CLUSTER_HA_MACHINE_ID = "csp.sentinel.cluster.ha.machine.id"
+# Cluster HA (cluster/ha.py): the failover client's deadline before it
+# serves degraded-quota verdicts, its reconnect cadence, the degraded
+# share divisor when the map lists no clients, and the leader's shared
+# checkpoint file and publish period.
+CLUSTER_HA_FAILOVER_DEADLINE_MS = "csp.sentinel.cluster.ha.failover.deadline.ms"
+CLUSTER_HA_RECONNECT_MS = "csp.sentinel.cluster.ha.reconnect.ms"
+CLUSTER_HA_DEGRADED_DIVISOR = "csp.sentinel.cluster.ha.degraded.divisor"
+CLUSTER_HA_CHECKPOINT_PATH = "csp.sentinel.cluster.ha.checkpoint.path"
+CLUSTER_HA_CHECKPOINT_PERIOD_MS = "csp.sentinel.cluster.ha.checkpoint.period.ms"
+# Sharded leaders (cluster/sharding.py): the per-slice handoff files'
+# base path (the HA checkpoint path when unset).
+CLUSTER_SHARD_HANDOFF_PATH = "csp.sentinel.cluster.shard.handoff.path"
+# Chaos campaign (chaos/): the program clock's origin, the default
+# episode count, driven seconds per episode, faults per schedule, and the
+# ops surface's episode cap.
+CHAOS_EPOCH_MS = "csp.sentinel.chaos.epoch.ms"
+CHAOS_EPISODES = "csp.sentinel.chaos.episodes"
+CHAOS_SECONDS_PER_EPISODE = "csp.sentinel.chaos.seconds.per.episode"
+CHAOS_MAX_FAULTS = "csp.sentinel.chaos.max.faults"
+CHAOS_MAX_EPISODES = "csp.sentinel.chaos.max.episodes"
+# Shard rebalancer (cluster/rebalance.py): slices moved per applied plan,
+# per-slice cooldown, the skew deadband, the fleet staleness that
+# freezes it, the backoff after a failed certification, driven seconds
+# per certification, and the sensing window.
+REBALANCE_MAX_SLICES = "csp.sentinel.rebalance.max.slices.per.epoch"
+REBALANCE_COOLDOWN_MS = "csp.sentinel.rebalance.cooldown.ms"
+REBALANCE_DEADBAND_PCT = "csp.sentinel.rebalance.skew.deadband.pct"
+REBALANCE_STALE_MS = "csp.sentinel.rebalance.stale.ms"
+REBALANCE_BACKOFF_MS = "csp.sentinel.rebalance.abort.backoff.ms"
+REBALANCE_CERTIFY_SECONDS = "csp.sentinel.rebalance.certify.seconds"
+REBALANCE_WINDOW_SECONDS = "csp.sentinel.rebalance.window.seconds"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_APP_NAME = "sentinel-tpu-app"
@@ -185,6 +218,25 @@ DEFAULT_PIPELINE_LINGER_US = 100
 DEFAULT_TELEMETRY_TIMESERIES_SECONDS = 128
 DEFAULT_TELEMETRY_TIMESERIES_HISTORY = 1024
 DEFAULT_CLUSTER_SHARD_SLICES = 64
+DEFAULT_CLUSTER_HA_FAILOVER_DEADLINE_MS = 3_000
+DEFAULT_CLUSTER_HA_RECONNECT_MS = 250
+# 1 = the full global threshold locally (single-client deployments);
+# fleets list their clients in the map for the sum-of-shares bound.
+DEFAULT_CLUSTER_HA_DEGRADED_DIVISOR = 1
+DEFAULT_CLUSTER_HA_CHECKPOINT_PERIOD_MS = 5_000
+# Two days past epoch 0: campaign stamps stay far from the wall clock.
+DEFAULT_CHAOS_EPOCH_MS = 172_800_000
+DEFAULT_CHAOS_EPISODES = 25
+DEFAULT_CHAOS_SECONDS_PER_EPISODE = 12
+DEFAULT_CHAOS_MAX_FAULTS = 6
+DEFAULT_CHAOS_MAX_EPISODES = 50
+DEFAULT_REBALANCE_MAX_SLICES = 4
+DEFAULT_REBALANCE_COOLDOWN_MS = 60_000
+DEFAULT_REBALANCE_DEADBAND_PCT = 0.25
+DEFAULT_REBALANCE_STALE_MS = 10_000
+DEFAULT_REBALANCE_BACKOFF_MS = 120_000
+DEFAULT_REBALANCE_CERTIFY_SECONDS = 8
+DEFAULT_REBALANCE_WINDOW_SECONDS = 30
 DEFAULT_POPULATION_TOPK = 64
 DEFAULT_POPULATION_CMS_DEPTH = 4
 DEFAULT_POPULATION_CMS_WIDTH = 512
@@ -215,6 +267,7 @@ DEFAULT_OVERLOAD_DEADLINE_MS = 2_000
 DEFAULT_OVERLOAD_RETRY_AFTER_MS = 100
 DEFAULT_OVERLOAD_CONN_MAX_BURST = 1024
 DEFAULT_OVERLOAD_IDLE_TIMEOUT_S = 300
+DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS = 250
 DEFAULT_WIRE_COALESCE_MAX_BATCH = 1024
 DEFAULT_WIRE_INFLIGHT_DEPTH = 2
 DEFAULT_WIRE_OUTBUF_MAX_BYTES = 1_048_576
@@ -441,6 +494,11 @@ class SentinelConfig:
                          DEFAULT_OVERLOAD_IDLE_TIMEOUT_S)
         return v if v > 0 else DEFAULT_OVERLOAD_IDLE_TIMEOUT_S
 
+    def overload_client_backoff_ms(self) -> int:
+        v = self.get_int(OVERLOAD_CLIENT_BACKOFF_MS,
+                         DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS)
+        return v if v > 0 else DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS
+
     # The wire path (cluster/reactor.py): the only readers of the
     # csp.sentinel.wire.* keys.
 
@@ -470,8 +528,90 @@ class SentinelConfig:
         v = self.get_int(WIRE_WORKERS, DEFAULT_WIRE_WORKERS)
         return v if v > 0 else DEFAULT_WIRE_WORKERS
 
+    # Cluster HA, sharding, chaos and rebalancer (cluster/ha.py,
+    # cluster/sharding.py, chaos/, cluster/rebalance.py): the only
+    # readers of their keys.
+
     def cluster_ha_machine_id(self) -> Optional[str]:
         return self.get(CLUSTER_HA_MACHINE_ID)
+
+    def cluster_ha_failover_deadline_ms(self) -> int:
+        v = self.get_int(CLUSTER_HA_FAILOVER_DEADLINE_MS,
+                         DEFAULT_CLUSTER_HA_FAILOVER_DEADLINE_MS)
+        return v if v > 0 else DEFAULT_CLUSTER_HA_FAILOVER_DEADLINE_MS
+
+    def cluster_ha_reconnect_ms(self) -> int:
+        v = self.get_int(CLUSTER_HA_RECONNECT_MS,
+                         DEFAULT_CLUSTER_HA_RECONNECT_MS)
+        return v if v > 0 else DEFAULT_CLUSTER_HA_RECONNECT_MS
+
+    def cluster_ha_degraded_divisor(self) -> int:
+        v = self.get_int(CLUSTER_HA_DEGRADED_DIVISOR,
+                         DEFAULT_CLUSTER_HA_DEGRADED_DIVISOR)
+        return v if v > 0 else DEFAULT_CLUSTER_HA_DEGRADED_DIVISOR
+
+    def cluster_ha_checkpoint_path(self) -> Optional[str]:
+        return self.get(CLUSTER_HA_CHECKPOINT_PATH)
+
+    def cluster_ha_checkpoint_period_ms(self) -> int:
+        v = self.get_int(CLUSTER_HA_CHECKPOINT_PERIOD_MS,
+                         DEFAULT_CLUSTER_HA_CHECKPOINT_PERIOD_MS)
+        return v if v > 0 else DEFAULT_CLUSTER_HA_CHECKPOINT_PERIOD_MS
+
+    def cluster_shard_handoff_path(self) -> Optional[str]:
+        return self.get(CLUSTER_SHARD_HANDOFF_PATH)
+
+    def chaos_epoch_ms(self) -> int:
+        v = self.get_int(CHAOS_EPOCH_MS, DEFAULT_CHAOS_EPOCH_MS)
+        return v if v > 0 else DEFAULT_CHAOS_EPOCH_MS
+
+    def chaos_episodes(self) -> int:
+        v = self.get_int(CHAOS_EPISODES, DEFAULT_CHAOS_EPISODES)
+        return v if v > 0 else DEFAULT_CHAOS_EPISODES
+
+    def chaos_seconds_per_episode(self) -> int:
+        v = self.get_int(CHAOS_SECONDS_PER_EPISODE,
+                         DEFAULT_CHAOS_SECONDS_PER_EPISODE)
+        return v if v > 0 else DEFAULT_CHAOS_SECONDS_PER_EPISODE
+
+    def chaos_max_faults(self) -> int:
+        v = self.get_int(CHAOS_MAX_FAULTS, DEFAULT_CHAOS_MAX_FAULTS)
+        return v if v > 0 else DEFAULT_CHAOS_MAX_FAULTS
+
+    def chaos_max_episodes(self) -> int:
+        v = self.get_int(CHAOS_MAX_EPISODES, DEFAULT_CHAOS_MAX_EPISODES)
+        return v if v > 0 else DEFAULT_CHAOS_MAX_EPISODES
+
+    def rebalance_max_slices_per_epoch(self) -> int:
+        v = self.get_int(REBALANCE_MAX_SLICES, DEFAULT_REBALANCE_MAX_SLICES)
+        return v if v > 0 else DEFAULT_REBALANCE_MAX_SLICES
+
+    def rebalance_cooldown_ms(self) -> int:
+        v = self.get_int(REBALANCE_COOLDOWN_MS, DEFAULT_REBALANCE_COOLDOWN_MS)
+        return v if v > 0 else DEFAULT_REBALANCE_COOLDOWN_MS
+
+    def rebalance_skew_deadband_pct(self) -> float:
+        v = self.get_float(REBALANCE_DEADBAND_PCT,
+                           DEFAULT_REBALANCE_DEADBAND_PCT)
+        return v if 0.0 < v <= 10.0 else DEFAULT_REBALANCE_DEADBAND_PCT
+
+    def rebalance_stale_ms(self) -> int:
+        v = self.get_int(REBALANCE_STALE_MS, DEFAULT_REBALANCE_STALE_MS)
+        return v if v > 0 else DEFAULT_REBALANCE_STALE_MS
+
+    def rebalance_abort_backoff_ms(self) -> int:
+        v = self.get_int(REBALANCE_BACKOFF_MS, DEFAULT_REBALANCE_BACKOFF_MS)
+        return v if v >= 0 else DEFAULT_REBALANCE_BACKOFF_MS
+
+    def rebalance_certify_seconds(self) -> int:
+        v = self.get_int(REBALANCE_CERTIFY_SECONDS,
+                         DEFAULT_REBALANCE_CERTIFY_SECONDS)
+        return v if v > 1 else DEFAULT_REBALANCE_CERTIFY_SECONDS
+
+    def rebalance_window_seconds(self) -> int:
+        v = self.get_int(REBALANCE_WINDOW_SECONDS,
+                         DEFAULT_REBALANCE_WINDOW_SECONDS)
+        return v if v > 0 else DEFAULT_REBALANCE_WINDOW_SECONDS
 
     # SLO and alerting (slo/): the only readers of the csp.sentinel.slo.*
     # and csp.sentinel.alert.* keys.

@@ -84,8 +84,12 @@ the rule asks for it, counted in ``resilience_stats()``. Every Nth such
 entry carries a trace context over the wire, and its stitched spans land
 in ``engine.spans``.
 
-What it does not have yet (later slices): the cluster checkpoints, the
-shard rebalancer, and the fold's stream-ledger hook (``llm/``).
+``engine.rebalancer`` (``cluster/rebalance.py``) governs shard placement
+when ``engine.cluster.ha`` follows shard maps; ``set_clock`` resets its
+cooldown ledger and abort backoff with the other timebases.
+
+What it does not have yet (later slices): the fold's stream-ledger hook
+(``llm/``).
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -435,6 +439,14 @@ class SentinelEngine:
         from sentinel_tpu_torch.adaptive.loop import AdaptiveLoop
 
         self.adaptive = AdaptiveLoop(self)
+        # Governed shard placement (cluster/rebalance.py): senses the
+        # fleet plane, proposes minimal-movement map diffs, certifies
+        # them on a chaos mesh on this engine's device, and applies
+        # through the journal-audited HA path. Pure control plane — no
+        # background thread and nothing on the step.
+        from sentinel_tpu_torch.cluster.rebalance import ShardRebalancer
+
+        self.rebalancer = ShardRebalancer(self)
 
     def _seed_window_config(self) -> None:
         """Seed the instant-window geometry (reference: ``IntervalProperty``
@@ -508,10 +520,12 @@ class SentinelEngine:
         # Stamp-bearing subsystem cursors reset outside the engine locks
         # (each takes its own; the order is adaptive/slo -> engine): the
         # SLO cursors, series, baselines and alerts, the adaptive loop's
-        # backoff and cooldown stamps, the waterfall's staged seconds, and
+        # backoff and cooldown stamps, the rebalancer's cooldown ledger
+        # and abort backoff, the waterfall's staged seconds, and
         # the telescope's open churn window.
         self.slo.reset_timebase()
         self.adaptive.reset_timebase()
+        self.rebalancer.reset_timebase()
         self.waterfall.reset_timebase()
         self.population.reset_timebase()
         # The swap itself, stamped on the NEW timebase (seq stays

@@ -9,9 +9,10 @@ tags ``candidateSet`` and ``rolloutStage``; they travel both ways, and an
 untagged rule keeps the reference's wire schema byte for byte.
 
 The SLO-objective (``slo/``) and adaptive-target (``adaptive/``)
-converters are here too. Still to port with the subsystems that own
-them: the TPS converters (``llm/``) and the cluster-map and shard-map
-converters (the cluster stack).
+converters are here too, and the cluster-map and shard-map converters
+of the HA token cluster (``cluster/ha.py``, ``cluster/sharding.py``).
+Still to port with the subsystem that owns them: the TPS converters
+(``llm/``).
 """
 
 from __future__ import annotations
@@ -293,6 +294,248 @@ def param_rules_from_json(source) -> List[ParamFlowRule]:
 
 def param_rules_to_json(rules: List[ParamFlowRule]) -> str:
     return json.dumps([param_rule_to_dict(r) for r in rules])
+
+
+# -- cluster map (cluster/ha.py — datasource-driven leader assignment) ------
+#
+# The HA analog of the reference's cluster-assign config: one JSON object
+# naming the leadership epoch, the ordered token-server seats (leader
+# first) and the client membership that sizes the degraded-quota share.
+#
+#     {"epoch": 3, "namespace": "default",
+#      "servers": [{"machineId": "node-a", "host": "10.0.0.1", "port": 18730},
+#                  {"machineId": "node-b", "host": "10.0.0.2", "port": 18730}],
+#      "clients": ["node-c", "node-d"],
+#      "leader": "node-a",            // optional; default servers[0]
+#      "requestTimeoutMs": 2000}      // optional
+#
+# Push it through any datasource with ``cluster_map_from_json`` as the
+# converter and hand the property to ``ClusterHAManager.watch``.
+
+
+def cluster_map_from_dict(d: dict) -> "object":
+    from sentinel_tpu_torch.cluster.ha import ClusterMap, ClusterServerSpec
+
+    if not isinstance(d, dict):
+        raise ValueError("cluster map must be a JSON object")
+    try:
+        epoch = int(d.get("epoch", 0))
+    except (TypeError, ValueError):
+        raise ValueError(f"cluster map epoch {d.get('epoch')!r} not an int")
+    raw_servers = d.get("servers")
+    if not isinstance(raw_servers, list) or not raw_servers:
+        raise ValueError("cluster map needs a non-empty 'servers' list")
+    servers = []
+    for s in raw_servers:
+        if not isinstance(s, dict) or not s.get("machineId") \
+                or not s.get("host"):
+            raise ValueError(f"bad cluster map server entry: {s!r}")
+        try:
+            port = int(s["port"])
+        except (KeyError, TypeError, ValueError):
+            raise ValueError(f"bad cluster map server port in: {s!r}")
+        servers.append(ClusterServerSpec(str(s["machineId"]),
+                                         str(s["host"]), port))
+    leader = d.get("leader")
+    if leader:
+        ordered = [s for s in servers if s.machine_id == str(leader)]
+        if not ordered:
+            raise ValueError(
+                f"cluster map leader {leader!r} not in the servers list")
+        ordered += [s for s in servers if s.machine_id != str(leader)]
+        servers = ordered
+    raw_clients = d.get("clients") or []
+    if not isinstance(raw_clients, (list, tuple)):
+        # A bare string would iterate character-wise into a silently
+        # wrong degraded-quota divisor — reject like every other field.
+        raise ValueError(
+            f"cluster map 'clients' must be a list, got {raw_clients!r}")
+    clients = tuple(str(c) for c in raw_clients)
+    try:
+        timeout_ms = int(d.get("requestTimeoutMs", 2000))
+    except (TypeError, ValueError):
+        timeout_ms = 2000
+    return ClusterMap(epoch=epoch, servers=tuple(servers), clients=clients,
+                      namespace=str(d.get("namespace") or "default"),
+                      request_timeout_ms=max(1, timeout_ms))
+
+
+def cluster_map_from_json(source) -> "object":
+    data = json.loads(source) if isinstance(source, str) else source
+    return cluster_map_from_dict(data)
+
+
+def cluster_map_to_dict(m) -> dict:
+    return {
+        "epoch": m.epoch,
+        "namespace": m.namespace,
+        "servers": [{"machineId": s.machine_id, "host": s.host,
+                     "port": s.port} for s in m.servers],
+        "clients": list(m.clients),
+        "requestTimeoutMs": m.request_timeout_ms,
+    }
+
+
+# -- shard maps (cluster/sharding.py — sharded multi-leader) ---------------
+#
+#     {"version": 4, "nSlices": 64, "namespace": "default",
+#      "servers": [{"machineId": "a", "host": "10.0.0.1", "port": 18730},
+#                  {"machineId": "b", "host": "10.0.0.2", "port": 18730}],
+#      "sliceOwners": {"a": [0, 1, ...], "b": [32, 33, ...]},
+#      "sliceEpochs": {"0": 4, "32": 7},   // optional; absent -> version
+#      "clients": ["node-c"],
+#      "requestTimeoutMs": 2000}
+#
+# ``sliceOwners`` must cover every slice exactly once; ``sliceEpochs``
+# defaults each slice's fencing term to the map version (correct but
+# coarse — a rebalance SHOULD bump only the moved slices' epochs so
+# standing leaders' in-flight replies stay honest). Push through any
+# datasource with ``shard_map_from_json`` and hand the property to
+# ``ClusterHAManager.watch`` — apply_map dispatches on the map type.
+
+
+def shard_map_from_dict(d: dict) -> "object":
+    from sentinel_tpu_torch.cluster.ha import ClusterServerSpec
+    from sentinel_tpu_torch.cluster.sharding import ShardMap
+    from sentinel_tpu_torch.core.config import config as _cfg
+
+    if not isinstance(d, dict):
+        raise ValueError("shard map must be a JSON object")
+    try:
+        version = int(d.get("version", 0))
+    except (TypeError, ValueError):
+        raise ValueError(f"shard map version {d.get('version')!r} not an int")
+    try:
+        n_slices = int(d.get("nSlices", _cfg.cluster_shard_slices()))
+    except (TypeError, ValueError):
+        raise ValueError(f"shard map nSlices {d.get('nSlices')!r} not an int")
+    if n_slices <= 0:
+        raise ValueError(f"shard map nSlices must be positive: {n_slices}")
+    raw_servers = d.get("servers")
+    if not isinstance(raw_servers, list) or not raw_servers:
+        raise ValueError("shard map needs a non-empty 'servers' list")
+    servers = []
+    for s in raw_servers:
+        if not isinstance(s, dict) or not s.get("machineId") \
+                or not s.get("host"):
+            raise ValueError(f"bad shard map server entry: {s!r}")
+        try:
+            port = int(s["port"])
+        except (KeyError, TypeError, ValueError):
+            raise ValueError(f"bad shard map server port in: {s!r}")
+        servers.append(ClusterServerSpec(str(s["machineId"]),
+                                         str(s["host"]), port))
+    known = {s.machine_id for s in servers}
+    raw_owners = d.get("sliceOwners")
+    owner = [None] * n_slices
+    if isinstance(raw_owners, dict):
+        for mid, slist in raw_owners.items():
+            if str(mid) not in known:
+                raise ValueError(
+                    f"sliceOwners names unknown server {mid!r}")
+            if not isinstance(slist, (list, tuple)):
+                raise ValueError(
+                    f"sliceOwners[{mid!r}] must be a list of slice ids")
+            for sl in slist:
+                try:
+                    sl = int(sl)
+                except (TypeError, ValueError):
+                    raise ValueError(f"bad slice id {sl!r} for {mid!r}")
+                if not 0 <= sl < n_slices:
+                    raise ValueError(
+                        f"slice {sl} out of ring [0, {n_slices})")
+                if owner[sl] is not None:
+                    raise ValueError(f"slice {sl} assigned twice")
+                owner[sl] = str(mid)
+    elif isinstance(raw_owners, list):
+        if len(raw_owners) != n_slices:
+            raise ValueError(
+                f"sliceOwners list has {len(raw_owners)} entries, "
+                f"ring has {n_slices}")
+        for sl, mid in enumerate(raw_owners):
+            if str(mid) not in known:
+                raise ValueError(
+                    f"sliceOwners[{sl}] names unknown server {mid!r}")
+            owner[sl] = str(mid)
+    else:
+        raise ValueError("shard map needs 'sliceOwners' (dict or list)")
+    missing = [i for i, m in enumerate(owner) if m is None]
+    if missing:
+        raise ValueError(
+            f"{len(missing)} slice(s) unowned (first: {missing[:5]}) — "
+            "every slice needs exactly one owner")
+    raw_epochs = d.get("sliceEpochs")
+    epochs = [version] * n_slices
+    if raw_epochs is not None:
+        if isinstance(raw_epochs, dict):
+            for sl, ep in raw_epochs.items():
+                try:
+                    sl, ep = int(sl), int(ep)
+                except (TypeError, ValueError):
+                    raise ValueError(
+                        f"bad sliceEpochs entry {sl!r}: {ep!r}")
+                if not 0 <= sl < n_slices:
+                    raise ValueError(
+                        f"sliceEpochs slice {sl} out of ring [0, {n_slices})")
+                epochs[sl] = ep
+        elif isinstance(raw_epochs, list):
+            if len(raw_epochs) != n_slices:
+                raise ValueError(
+                    f"sliceEpochs list has {len(raw_epochs)} entries, "
+                    f"ring has {n_slices}")
+            try:
+                epochs = [int(e) for e in raw_epochs]
+            except (TypeError, ValueError):
+                raise ValueError("sliceEpochs entries must be ints")
+        else:
+            raise ValueError("'sliceEpochs' must be a dict or list")
+    raw_clients = d.get("clients") or []
+    if not isinstance(raw_clients, (list, tuple)):
+        raise ValueError(
+            f"shard map 'clients' must be a list, got {raw_clients!r}")
+    try:
+        timeout_ms = int(d.get("requestTimeoutMs", 2000))
+    except (TypeError, ValueError):
+        timeout_ms = 2000
+    return ShardMap(
+        version=version, n_slices=n_slices, servers=tuple(servers),
+        slice_owner=tuple(owner), slice_epoch=tuple(epochs),
+        clients=tuple(str(c) for c in raw_clients),
+        namespace=str(d.get("namespace") or "default"),
+        request_timeout_ms=max(1, timeout_ms))
+
+
+def shard_map_from_json(source) -> "object":
+    data = json.loads(source) if isinstance(source, str) else source
+    return shard_map_from_dict(data)
+
+
+def shard_map_to_dict(m) -> dict:
+    owners: dict = {}
+    for sl, mid in enumerate(m.slice_owner):
+        owners.setdefault(mid, []).append(sl)
+    return {
+        "version": m.version,
+        "nSlices": m.n_slices,
+        "namespace": m.namespace,
+        "servers": [{"machineId": s.machine_id, "host": s.host,
+                     "port": s.port} for s in m.servers],
+        "sliceOwners": owners,
+        "sliceEpochs": {str(i): int(e)
+                        for i, e in enumerate(m.slice_epoch)},
+        "clients": list(m.clients),
+        "requestTimeoutMs": m.request_timeout_ms,
+    }
+
+
+def any_cluster_map_from_json(source) -> "object":
+    """Converter accepting EITHER map flavor (the standalone
+    participant's file watcher): a ``sliceOwners`` key selects the
+    shard-map schema, anything else parses as a plain cluster map."""
+    data = json.loads(source) if isinstance(source, str) else source
+    if isinstance(data, dict) and "sliceOwners" in data:
+        return shard_map_from_dict(data)
+    return cluster_map_from_dict(data)
 
 
 # -- SLO objectives (slo/ — datasource-driven judgement) --------------------

@@ -33,6 +33,20 @@ Named fault points:
 * ``journal.disk.full`` -- fired before every durable journal append
   (``telemetry/journal.py``); an armed error is the disk-full / EIO path:
   the journal degrades to its in-memory tail, loudly.
+* ``cluster.shard.handoff.stall`` -- fired (delay mode) before each
+  per-slice handoff-checkpoint publish (``cluster/ha.py``): a stalled
+  publish widens the recipient's warm-start margin to grants since the
+  PREVIOUS publish, which stays bounded.
+* ``cluster.shard.map.split`` -- fired at the top of every shard-map
+  apply; an armed error makes that seat sit the push out, splitting the
+  fleet across map versions.
+* ``cluster.shard.donor.zombie`` -- fired on a donor losing slices; an
+  armed error makes it neither publish nor fence, and every client's
+  per-slice fence must reject its late replies.
+* ``datasource.flap`` -- fired per map push in the chaos mesh
+  (``chaos/mesh.py``); an armed error makes that seat miss the push.
+* ``cluster.leader.clock.skew`` -- fired by the chaos mesh when a
+  scheduled per-leader clock skew is applied; an armed error vetoes it.
 
 A :class:`FaultInjector` arms specs per point -- ``error`` (raise),
 ``delay`` (sleep), ``garbage`` (replace bytes) -- triggered by a schedule
@@ -68,6 +82,11 @@ FAULT_POINTS = (
     "slots.spill.torn",
     "checkpoint.torn.write",
     "journal.disk.full",
+    "cluster.shard.handoff.stall",
+    "cluster.shard.map.split",
+    "cluster.shard.donor.zombie",
+    "datasource.flap",
+    "cluster.leader.clock.skew",
 )
 
 

@@ -33,8 +33,9 @@ usually handed ``engine.now_ms``) — ``tests/test_torch_fleet.py`` pins
 that no wall clock is read in this module, the same determinism stance
 as the journal.
 
-``FleetView.slice_loads`` (the shard rebalancer's per-slice fold) comes
-with the port of ``cluster/sharding.py``.
+``FleetView.slice_loads`` is the shard rebalancer's per-slice fold
+(``cluster/rebalance.py``), attributed through ``cluster/sharding.py:
+slice_of``.
 """
 
 from __future__ import annotations
@@ -473,6 +474,52 @@ class FleetView:
                 continue
             out.append({"timestamp": stamp, "resources": resources})
         return out
+
+    def slice_loads(self, flow_of, n_slices: int,
+                    window_seconds: Optional[int] = None,
+                    settled_only: bool = True) -> Dict:
+        """Fold the federated series to SLICE granularity:
+        per-slice offered load (pass + block) over the newest
+        ``window_seconds`` settled seconds, attributed through
+        ``flow_of(resource) -> flowId`` and the one ``slice_of``
+        implementation — no second hash. Resources without a flowId
+        (local-only rules) are counted in ``unattributed`` rather than
+        silently dropped, so a skew computed from this fold can always
+        be audited against the raw series. ``observedByLeader`` is the
+        load each leader actually SERVED over the window (historical
+        routing, not current ownership — the rebalancer recomputes
+        leader loads from slice loads x the current map)."""
+        from sentinel_tpu_torch.cluster.sharding import slice_of
+
+        n = int(n_slices)
+        horizon = self.settled_through_ms() if settled_only else None
+        secs = self.series()
+        if horizon is not None and horizon >= 0:
+            secs = [s for s in secs if s["timestamp"] <= horizon]
+        if window_seconds is not None and window_seconds > 0:
+            secs = secs[-int(window_seconds):]
+        slices: Dict[int, int] = {}
+        by_leader: Dict[str, int] = {}
+        unattributed = 0
+        for sec in secs:
+            for res, cell in sec["resources"].items():
+                fid = flow_of(res)
+                sl = slice_of(int(fid), n) if fid is not None else None
+                for mid, c in (cell.get("leaders") or {}).items():
+                    load = int(c.get("pass", 0)) + int(c.get("block", 0))
+                    by_leader[mid] = by_leader.get(mid, 0) + load
+                    if sl is None:
+                        unattributed += load
+                    else:
+                        slices[sl] = slices.get(sl, 0) + load
+        return {
+            "nSlices": n,
+            "seconds": len(secs),
+            "settledThroughMs": horizon if horizon is not None else -1,
+            "slices": slices,
+            "observedByLeader": by_leader,
+            "unattributed": unattributed,
+        }
 
     def _stale(self, ls: _LeaderState, now: int) -> bool:
         """Stale = out of CONTACT (no successful payload inside the

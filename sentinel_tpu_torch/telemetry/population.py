@@ -28,8 +28,7 @@ Space-Saving union with summed floors). Every sketch consumes the same
 64-bit ``sketch_hash`` (BLAKE2b, independent of ``PYTHONHASHSEED``), so
 this package and the JAX package map a key to the same cells and produce
 bit-identical pages for the same stream. Keys without a flowId derive a
-slice from the sketch hash through :func:`slice_of` (a copy of
-``cluster/sharding.py:slice_of``).
+slice from the sketch hash through ``cluster/sharding.py:slice_of``.
 
 Clock: the tracker stamps with the engine timebase only; ``perf_counter``
 is a duration source for the fold-overhead measurement alone.
@@ -53,10 +52,9 @@ from typing import Callable, Deque, Dict, Iterable, List, Optional, Tuple
 
 import heapq
 
-_MASK64 = 0xFFFFFFFFFFFFFFFF
+from sentinel_tpu_torch.cluster.sharding import slice_of
 
-# 64-bit golden-ratio (Fibonacci) multiplier of ``slice_of``.
-_SLICE_MIX = 0x9E3779B97F4A7C15
+_MASK64 = 0xFFFFFFFFFFFFFFFF
 
 # Finalizer constant (splitmix64's first multiplier) used to derive the
 # per-row CMS indices from the one sketch hash.
@@ -67,14 +65,6 @@ _PAGE_VERSION = 1
 # Windows shipped per population page: enough for the fleet view to
 # chart recent churn without blowing the 64 KB entity budget.
 _PAGE_WINDOWS = 8
-
-
-def slice_of(flow_id: int, n_slices: int) -> int:
-    """flowId -> slice in ``[0, n_slices)`` by Fibonacci hashing (stable
-    across processes and Python versions; no ``hash()``)."""
-    x = (int(flow_id) * _SLICE_MIX) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    return int(x % int(n_slices))
 
 
 def sketch_hash(key) -> int:

@@ -22,7 +22,11 @@ answering a client as one on the CPU does; and the pod: four shards on the
 card deciding as on the CPU, leaf for leaf, and the distributed driver
 over NCCL at world size 1 equal to gloo on the CPU and to the one-process
 driver; and the control plane: the SLO evaluation, the waterfall's seal
-and the adaptive tick add no sync or launch to a step.
+and the adaptive tick add no sync or launch to a step; and the HA token
+cluster: a cluster checkpoint saved on the card restoring bit-equal on
+the CPU (and back), a 3-leader chaos-mesh episode on the card with the
+CPU's verdict and fault sha256s, and a promotion on the card that raises
+(no leader bound) when the acquire library cannot load.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1289,3 +1293,120 @@ def test_control_hooks_add_no_sync_or_launch_to_a_step(cuda):
     assert hooked[1] == plain[1]
     assert hooked[2] > 0 and hooked[3] > 0 and hooked[4]
     assert all(launches == 2 for _, launches in plain[0])
+
+
+# ---------------------------------------------------------------------------
+# The HA token cluster on the card
+# ---------------------------------------------------------------------------
+
+
+def _ha_service(dev, epoch=0):
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.models.flow import FlowRule
+
+    svc = DefaultTokenService(device=dev, epoch=epoch)
+    svc.rules.load_rules("default", [
+        FlowRule(resource=f"r{f}", count=50, cluster_mode=True,
+                 cluster_config={"flowId": f, "thresholdType": 1,
+                                 **({"windowIntervalMs": 2000,
+                                     "sampleCount": 4} if f == 42 else {})})
+        for f in (9003, 9001, 9000, 42, 77)])
+    return svc
+
+
+def _ha_drive(svc):
+    out = []
+    for step in range(6):
+        for i, f in enumerate((9003, 9001, 9000, 42, 77)):
+            out += [(int(r.status), r.remaining, r.wait_ms)
+                    for r in svc.request_tokens(
+                        [(f, 1 + (i + step) % 3, False)] * (1 + i),
+                        now_ms=1_700_000_000_000 + 350 * step)]
+    return out
+
+
+def _ha_window(svc):
+    w = svc._state.win
+    return [t.cpu().numpy() for t in (w.counts, w.starts, w.bucket_ms)]
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_cluster_checkpoint_crosses_devices_bit_equal(cuda, tmp_path, src,
+                                                      dst):
+    """The same stream on the card and the CPU leaves the same windows;
+    a cluster checkpoint saved on one restores on the other bit for bit,
+    and the next verdicts agree."""
+    from sentinel_tpu_torch.core import checkpoint as ckpt
+
+    a, b = _ha_service(torch.device(src)), _ha_service(torch.device(src))
+    assert _ha_drive(a) == _ha_drive(_ha_service(torch.device(dst)))
+    path = str(tmp_path / "c.npz")
+    ckpt.save_cluster_checkpoint(a, path)
+    fresh = _ha_service(torch.device(dst))
+    assert ckpt.restore_cluster_checkpoint(fresh, path) == 5
+    assert ckpt.restore_cluster_checkpoint(b, path) == 5
+    for x, y in zip(_ha_window(b), _ha_window(fresh)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    nxt = [(9003, 1, False), (42, 2, True), (77, 1, False)] * 3
+    t = 1_700_000_000_000 + 2_500
+    assert [tuple(r[:3]) for r in fresh.request_tokens(nxt, now_ms=t)] == \
+        [tuple(r[:3]) for r in b.request_tokens(nxt, now_ms=t)]
+
+
+def test_chaos_mesh_episode_on_cuda_matches_cpu():
+    """One campaign episode (seed 14) with its 3-leader mesh on the card:
+    the schedule, fault log and verdict and fault sha256s equal the CPU's,
+    with no violation, and the card's leaders launched the acquire
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    from sentinel_tpu_torch.chaos.campaign import ChaosCampaign
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    before = CA.launches
+    card = ChaosCampaign(campaign_seed=14, episodes=1,
+                         device="cuda").run_episode(2)
+    launched = CA.launches - before
+    host = ChaosCampaign(campaign_seed=14, episodes=1,
+                         device="cpu").run_episode(2)
+    assert launched > 0
+    assert card.violations == [] and host.violations == []
+    assert (card.schedule, card.fault_log, card.verdict_sha256,
+            card.fault_sha256, card.grants) == (
+        host.schedule, host.fault_log, host.verdict_sha256,
+        host.fault_sha256, host.grants)
+
+
+def test_promotion_raises_when_the_acquire_library_cannot_load(
+        cuda, tmp_path, monkeypatch):
+    """The pre-bind warm-up is not best-effort on the card: with the
+    kernel's source pointed at a missing file (and nothing loaded yet),
+    ``_become_server`` raises, and the seat binds no server."""
+    from sentinel_tpu_torch.cluster import ha
+    from sentinel_tpu_torch.cluster.state import (
+        CLUSTER_SERVER,
+        ClusterStateManager,
+    )
+    from sentinel_tpu_torch.models.flow import FlowRule
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    state = ClusterStateManager(device=cuda)
+    state.server_rules().load_rules("default", [FlowRule(
+        resource="r", count=5, cluster_mode=True,
+        cluster_config={"flowId": 1, "thresholdType": 1})])
+    mgr = ha.ClusterHAManager(state=state, machine_id="A",
+                              server_host="127.0.0.1", device=cuda)
+    monkeypatch.setattr(CA, "_lib", None)
+    monkeypatch.setattr(CA, "SOURCE", tmp_path / "missing" / "acquire.cu")
+    cmap = ha.ClusterMap(epoch=1, servers=(
+        ha.ClusterServerSpec("A", "127.0.0.1", 0),))
+    try:
+        with pytest.raises((OSError, RuntimeError)):
+            mgr._become_server(cmap, cmap.servers[0])
+        assert state.mode != CLUSTER_SERVER and state.token_server is None
+        monkeypatch.undo()
+        mgr._become_server(cmap, cmap.servers[0])
+        assert state.mode == CLUSTER_SERVER
+        assert state.token_server.service.request_token(1).status == 0
+    finally:
+        mgr.stop()

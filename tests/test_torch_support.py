@@ -514,3 +514,83 @@ class PodTwin:
         self.pstate = self.pexit(self.pstate, self.prules,
                                  to_device(buf, "cpu"), now)
         self.check_state()
+
+
+# ---------------------------------------------------------------------------
+# The HA token cluster: one namespace per package
+# ---------------------------------------------------------------------------
+
+
+class ClusterPkg:
+    """One package's HA cluster stack (``cluster/ha.py``, ``sharding.py``,
+    ``rebalance.py``, ``chaos/`` and what they build on), so a scenario
+    written once against ``P.<module>`` runs on both packages. ``kw`` is
+    the device keyword every constructor that builds a token service
+    takes in the port (``device="cpu"``) and not in the JAX package."""
+
+    MODULES = {
+        "ha": "cluster.ha", "sharding": "cluster.sharding",
+        "rebalance": "cluster.rebalance", "state": "cluster.state",
+        "ts": "cluster.token_service", "server": "cluster.server",
+        "client": "cluster.client", "rules": "cluster.rules",
+        "codec": "cluster.codec", "CC": "cluster.constants",
+        "ckpt": "core.checkpoint", "conv": "datasource.converters",
+        "campaign": "chaos.campaign", "inv": "chaos.invariants",
+        "mesh": "chaos.mesh", "sched": "chaos.scheduler",
+        "shrink": "chaos.shrink", "regressions": "chaos.regressions",
+        "slot_storm": "chaos.slot_storm", "faults": "resilience.faults",
+        "resilience": "resilience", "journal": "telemetry.journal",
+        "fleet": "telemetry.fleet", "tu": "utils.time_util",
+        "flow": "models.flow", "clock": "simulator.clock",
+        "envelope": "adaptive.envelope",
+    }
+
+    def __init__(self, root: str):
+        import importlib
+
+        self.name = "jax" if root == "sentinel_tpu" else "port"
+        self.root = importlib.import_module(root)
+        for attr, mod in self.MODULES.items():
+            setattr(self, attr, importlib.import_module(f"{root}.{mod}"))
+        self.kw = {} if self.name == "jax" else {"device": "cpu"}
+        self.chaos = importlib.import_module(f"{root}.chaos")
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def service(self, rules=None, **kw):
+        return self.ts.DefaultTokenService(rules=rules, **kw, **self.kw)
+
+    def rule(self, flow_id, count, **cc):
+        return self.flow.FlowRule(
+            resource=f"res-{flow_id}", count=count, cluster_mode=True,
+            cluster_config={"flowId": flow_id,
+                            "thresholdType": self.CC.THRESHOLD_GLOBAL, **cc})
+
+
+_CLUSTER_PKGS = []
+
+
+def cluster_pkgs():
+    """(JAX, port) namespaces, built once per process."""
+    if not _CLUSTER_PKGS:
+        _CLUSTER_PKGS.extend((ClusterPkg("sentinel_tpu"),
+                              ClusterPkg("sentinel_tpu_torch")))
+    return tuple(_CLUSTER_PKGS)
+
+
+def tr_tuple(r):
+    """A TokenResult as the parity tests compare it: status, remaining,
+    wait_ms and epoch (the span is wall-clock timing)."""
+    return (int(r.status), int(r.remaining), int(r.wait_ms),
+            None if r.epoch is None else int(r.epoch))
+
+
+def strip_keys(obj, keys=("port",)):
+    """``obj`` without the keys that carry ephemeral ports."""
+    if isinstance(obj, dict):
+        return {k: strip_keys(v, keys) for k, v in obj.items()
+                if k not in keys}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(strip_keys(v, keys) for v in obj)
+    return obj
