@@ -262,9 +262,34 @@ Phases (any failure raises and exits non-zero; none is caught):
    episodes/s. Acquire launches are zeroed before each card run and read
    after it; no thread the phase started is left. The phase must end
    within 90 s. Prints one ``{"ha": ...}`` line.
-15. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control and HA paths' launches), the card line, and the final
-   ``{"ok": true, ...}``.
+15. LLM admission and the trace-replay simulator (``llm/``,
+   ``simulator/``, ``adapters/llm_gateway.py``), each part on the card
+   and then on the same machine's CPU. (1) bench.py:675-760's
+   llm_admission shape as it is, under the port's frozen clock: capacity
+   1,024, 8 models at 1e9 tokens/s lowered onto ``llm:*`` flow rules,
+   6,000 mixed 1/4/16-token acquires, then 400 gateway cycles (open 64,
+   the mock server's SSE ticks, close): mixed acquires/s, tokens/s,
+   cycles/s, admit p50/p99 and the reconciliation delta (must be 0); a
+   cut of 600 acquires and 40 cycles gives the same verdicts, ledger
+   stats and state on card and CPU. (2) bench.py:551's replay,
+   ``flash_crowd`` 600 s seed 7, at the main path's 32,768 rows, widths
+   warmed: the card's verdict sha256, series, counts and ``rt_hist``
+   equal the CPU's; the sha is printed beside the JAX package's
+   (``d0a27aec…``), with trace seconds per wall second and the steps.
+   (3) ``run_demo(60, 0)``: the same verdict sha, objective, stream
+   counts, final counts and promotions on card and CPU, the ledger
+   drained, no silent drop, at least one TPS promotion; printed beside
+   ``478b073c…``. (4) Open reservations saved on the card restore into a
+   CPU engine with equal ledger rows and windows. (5) ``MSG_STREAM_TICK``
+   (open, tick, close, block, unknown stream, bad sub-op, truncated
+   frame, abort) through both frontends: the same reply bytes on card
+   and CPU and on both frontends. Prefix launches are zeroed before each
+   card run and read after it (llm: parts 1, 4, 5; sim: parts 2, 3); no
+   thread left. The phase must end within 180 s. Prints one ``{"llm":
+   ...}`` line.
+16. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM and simulator paths' launches), the card line, and
+   the final ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -309,6 +334,7 @@ from sentinel_tpu_torch.models import system as Y
 from sentinel_tpu_torch.native import build_error
 from sentinel_tpu_torch.ops import prefix_cuda
 from sentinel_tpu_torch.ops.segment import segmented_prefix_plain
+from sentinel_tpu_torch.simulator.replay import ReplayEngine
 from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import SYNCS
 
@@ -5644,6 +5670,393 @@ def ha_phase(dev):
             "acquire_by_width": out["acquire_launches_by_width"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: LLM admission and the trace-replay simulator
+# ---------------------------------------------------------------------------
+
+LLM_PHASE_LIMIT_S = 180.0
+LLM_DIR = Path(__file__).resolve().parent / "smoke_logs" / "llm"
+LLM_MODELS = 8                  # bench.py:700's models at 1e9 tokens/s
+LLM_ACQUIRES = 6000             # mixed 1/4/16-token acquires
+LLM_CYCLES = 400                # gateway cycles of 64 tokens
+LLM_CUT_ACQUIRES = 600          # the card = CPU cut
+LLM_CUT_CYCLES = 40
+SIM_SECONDS = 600               # bench.py:551's replay: flash_crowd seed 7
+SIM_SEED = 7
+# The JAX package's replay and demo shas as it runs in this repository
+# (ROADMAP C17).
+SIM_ANCHOR = \
+    "d0a27aec0ec0b6beb9b74a462d4371779988fbe33d9ada5319c524fa631bcba4"
+DEMO_ANCHOR = \
+    "478b073cd1254f6758e6c7841f65f4b84b962001a15bc0c0e65e20ddc17ed46a"
+
+
+def zero_prefix_counts():
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+
+
+def read_prefix_counts():
+    if prefix_cuda.tile_launches:
+        raise AssertionError(f"llm phase: {prefix_cuda.tile_launches} "
+                             "tile-walk launches")
+    return {"launches": prefix_cuda.launches,
+            "by_shape": {f"K={k},N={n},M={m}": c for (k, n, m), c
+                         in sorted(prefix_cuda.launches_by_shape.items())}}
+
+
+def _fresh_llm_engine(dev, capacity=1024):
+    from sentinel_tpu_torch.core import context as ctx_mod
+
+    # A pooled context of an earlier engine on this thread holds that
+    # engine's rows: retire it.
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    return SentinelEngine(capacity=capacity, device=dev)
+
+
+def llm_admission(dev, n_acquires, n_cycles):
+    """bench.py:675-760's llm_admission shape on ``dev`` under the port's
+    frozen clock: 8 models at 1e9 tokens/s, ``n_acquires`` mixed
+    1/4/16-token acquires on the lowered ``llm:*`` resources, then
+    ``n_cycles`` gateway cycles (open 64, the mock server's SSE ticks,
+    close). Returns the rates, the admit latencies, and what the card =
+    CPU check compares: every verdict, the ledger's stats and the
+    engine's state."""
+    from sentinel_tpu_torch.adapters.llm_gateway import (
+        LLMGateway,
+        MockInferenceServer,
+    )
+    from sentinel_tpu_torch.llm import TpsRule
+
+    time_util.freeze_time(NOW0)
+    eng = _fresh_llm_engine(dev)
+    try:
+        eng.tps_rules.load_rules([TpsRule(model=f"m{i}",
+                                          tokens_per_second=1e9)
+                                  for i in range(LLM_MODELS)])
+        counts = (1, 4, 16)
+        verdicts = []
+        for i in range(64):  # warm the leased path
+            eng.entry(f"llm:m{i % LLM_MODELS}", count=counts[i % 3]).exit()
+        t0 = time.perf_counter()
+        tokens = 0
+        for i in range(n_acquires):
+            c = counts[i % 3]
+            try:
+                eng.entry(f"llm:m{i % LLM_MODELS}", count=c).exit()
+                verdicts.append(0)
+            except st.BlockException as ex:
+                verdicts.append(type(ex).__name__)
+            tokens += c
+        dt_entries = time.perf_counter() - t0
+        eng._flush_committer()
+        gw = LLMGateway(engine=eng, server=MockInferenceServer(seed=1))
+        admit_us, streamed = [], 0
+        t0 = time.perf_counter()
+        for i in range(n_cycles):
+            rid, model = f"bench-{i}", f"m{i % LLM_MODELS}"
+            ta = time.perf_counter()
+            lease = eng.stream_open(rid, model, 64)
+            admit_us.append((time.perf_counter() - ta) * 1e6)
+            verdicts.append(("open", lease.reserved, lease.debited))
+            for line in gw.server.stream(rid, model, 64):
+                if line.startswith("data: {"):
+                    n = json.loads(line[len("data: "):])["tokens"]
+                    verdicts.append(eng.stream_tick(rid, n))
+                    streamed += n
+            verdicts.append(eng.stream_close(rid))
+        dt_streams = time.perf_counter() - t0
+        stats = eng.streams.stats()
+        eng._flush_committer()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        admit_us.sort()
+        return {
+            "verdicts": verdicts, "stats": stats,
+            "state": convert.state_to_numpy(eng.state),
+            "out": {
+                "mixed_acquires_per_s": n_acquires / dt_entries,
+                "mixed_acquire_tokens_per_s": tokens / dt_entries,
+                "stream_cycles_per_s": n_cycles / dt_streams,
+                "streamed_tokens_per_s": streamed / dt_streams,
+                "admit_p50_us": admit_us[len(admit_us) // 2],
+                "admit_p99_us": admit_us[int(0.99 * (len(admit_us) - 1))],
+                "reconciliation_delta": stats["outstandingTokens"],
+                "steps": eng.step_timer.snapshot()}}
+    finally:
+        eng.close()
+        time_util.unfreeze_time()
+
+
+def llm_checkpoint(dev, dst_dev=torch.device("cpu")):
+    """Open reservations on a ``dev`` engine, saved and restored into a
+    fresh ``dst_dev`` engine: the ledger rows, the windows and the
+    leases' closes equal."""
+    from sentinel_tpu_torch.core import checkpoint as ckpt
+    from sentinel_tpu_torch.llm import TpsRule
+
+    LLM_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(LLM_DIR / f"streams-{dev.type}.npz")
+    rules = [TpsRule(model="m", tokens_per_second=200),
+             TpsRule(model="n", tokens_per_second=50)]
+    time_util.freeze_time(NOW0)
+    src = _fresh_llm_engine(dev)
+    try:
+        src.tps_rules.load_rules(list(rules))
+        src.stream_open("live", "m", 120)
+        src.stream_tick("live", 30)
+        src.stream_open("other", "n", 40)
+        src.stream_tick("other", 45)
+        rows = src.streams.checkpoint_rows()
+        ckpt.save_checkpoint(src, path)
+        src_state = convert.state_to_numpy(src.state)
+    finally:
+        src.close()
+    dst = _fresh_llm_engine(dst_dev)
+    try:
+        dst.tps_rules.load_rules(list(rules))
+        ckpt.restore_checkpoint(dst, path)
+        got = dst.streams.checkpoint_rows()
+        compare_states({k: src_state[k] for k in ("w1", "w60", "sec")},
+                       {k: v for k, v in convert.state_to_numpy(
+                           dst.state).items() if k in ("w1", "w60", "sec")})
+        closes = [dst.stream_close("live"),
+                  dst.stream_close("other", aborted=True)]
+    finally:
+        dst.close()
+        time_util.unfreeze_time()
+    if got != rows or closes != [90.0, 0.0]:
+        raise AssertionError(f"llm checkpoint: rows {got} != {rows} or "
+                             f"closes {closes}")
+    return {"rows": len(rows), "file_bytes": os.path.getsize(path)}
+
+
+def llm_wire(dev):
+    """MSG_STREAM_TICK through both frontends against a ``dev`` engine:
+    open, tick, close, a second open, a blocked third, an unknown
+    stream's tick and abort, an unknown sub-op, a truncated entity, the
+    second stream's abort. One frame at a time; the raw replies."""
+    from sentinel_tpu_torch.cluster.constants import (
+        MSG_STREAM_TICK,
+        STREAM_OP_ABORT,
+        STREAM_OP_CLOSE,
+        STREAM_OP_OPEN,
+        STREAM_OP_TICK,
+    )
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.llm import TpsRule
+    import socket as _socket
+
+    enc = ccodec.encode_stream_request
+    script = [enc(STREAM_OP_OPEN, "w1", "m", 60),
+              enc(STREAM_OP_TICK, "w1", "", 25), enc(STREAM_OP_CLOSE, "w1"),
+              enc(STREAM_OP_OPEN, "w2", "m", 60),
+              enc(STREAM_OP_OPEN, "w3", "m", 60),
+              enc(STREAM_OP_TICK, "ghost", "", 5),
+              enc(STREAM_OP_ABORT, "ghost"), enc(9, "w2"), b"\x00\x03ab",
+              enc(STREAM_OP_ABORT, "w2")]
+    out = {}
+    for reactor in (True, False):
+        time_util.freeze_time(NOW0)
+        eng = _fresh_llm_engine(dev)
+        server = None
+        try:
+            eng.tps_rules.load_rules([TpsRule(model="m",
+                                              tokens_per_second=100)])
+            server = ClusterTokenServer(
+                DefaultTokenService(device=dev), host="127.0.0.1", port=0,
+                reactor=reactor, engine=eng).start()
+            raw = []
+            with _socket.create_connection(
+                    ("127.0.0.1", server.bound_port), timeout=15) as sock:
+                sock.settimeout(15)
+                reader = ccodec.FrameReader()
+                for xid, entity in enumerate(script, 1):
+                    sock.sendall(ccodec.encode_request(
+                        xid, MSG_STREAM_TICK, entity))
+                    frames = []
+                    while not frames:
+                        data = sock.recv(65536)
+                        if not data:
+                            raise AssertionError("llm wire: closed")
+                        frames = reader.feed(data)
+                    raw.append(bytes(frames[0]).hex())
+            out["reactor" if reactor else "socketserver"] = raw
+        finally:
+            if server is not None:
+                server.stop()
+            eng.close()
+            time_util.unfreeze_time()
+    if out["reactor"] != out["socketserver"]:
+        raise AssertionError("llm wire: the two frontends answer apart")
+    return out
+
+
+class KeptReplay(ReplayEngine):
+    """A ``ReplayEngine`` that keeps its engine for the step counts."""
+
+    def _build_engine(self, clock):
+        self.eng = super()._build_engine(clock)
+        return self.eng
+
+
+def sim_replay(dev):
+    """bench.py:551's replay (flash_crowd, 600 s, seed 7) at the main
+    path's 32,768 rows on ``dev``, ladder widths warmed first."""
+    from sentinel_tpu_torch.simulator import build_scenario
+
+    trace = build_scenario("flash_crowd", seconds=SIM_SECONDS, seed=SIM_SEED)
+    rep = KeptReplay(trace, capacity=CAPACITY, device=dev)
+    r = rep.run(warmup=True)
+    steps = rep.eng.step_timer.snapshot()
+    return {"verdict_sha256": r.verdict_sha256, "series": r.series,
+            "offered": r.offered, "passed": r.passed,
+            "blocked": r.blocked, "rt_hist": list(r.rt_hist),
+            "out": {"trace_seconds": r.seconds,
+                    "replay_wall_s": r.replay_wall_s,
+                    "total_wall_s": r.total_wall_s,
+                    "trace_s_per_wall_s": r.seconds / r.replay_wall_s,
+                    "steps": {k: v["dispatches"] for k, v in steps.items()},
+                    "step_p50_ms": {k: v.get("stepP50Ms")
+                                    for k, v in steps.items()}}}
+
+
+def llm_phase(dev):
+    """LLM admission and the trace-replay simulator on the card, each
+    part against the same machine's CPU: (1) bench.py's llm_admission
+    shape, and its frozen-clock cut card = CPU; (2) the 600-second
+    flash_crowd replay at 32,768 rows; (3) ``run_demo(60, 0)``; (4) a
+    save with open reservations restored on the CPU; (5)
+    ``MSG_STREAM_TICK`` through both frontends. Prints one ``{"llm": ...}``
+    line; returns the prefix launches of the card's llm and sim paths."""
+    from sentinel_tpu_torch.adapters.llm_gateway import run_demo
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = {t.ident for t in threading.enumerate()}
+    cpu = torch.device("cpu")
+    out, parts, llm_runs, sim_runs = {}, {}, {}, {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        result = fn(*args)
+        parts[f"{name}_s"] = time.perf_counter() - t1
+        return result
+
+    zero_prefix_counts()
+    bench = part("admission_card", llm_admission, dev, LLM_ACQUIRES,
+                 LLM_CYCLES)
+    llm_runs["admission"] = read_prefix_counts()
+    if bench["out"]["reconciliation_delta"] != 0:
+        raise AssertionError("llm admission: reservation tokens neither "
+                             "streamed nor released")
+    zero_prefix_counts()
+    cut_card = part("cut_card", llm_admission, dev, LLM_CUT_ACQUIRES,
+                    LLM_CUT_CYCLES)
+    llm_runs["cut"] = read_prefix_counts()
+    cut_cpu = part("cut_cpu", llm_admission, cpu, LLM_CUT_ACQUIRES,
+                   LLM_CUT_CYCLES)
+    if cut_card["verdicts"] != cut_cpu["verdicts"] \
+            or cut_card["stats"] != cut_cpu["stats"]:
+        raise AssertionError("llm admission cut: card and CPU differ")
+    compare_states(cut_card["state"], cut_cpu["state"], "llm.cut")
+    out["admission"] = dict(bench["out"], models=LLM_MODELS,
+                            acquires=LLM_ACQUIRES, cycles=LLM_CYCLES,
+                            cut={"acquires": LLM_CUT_ACQUIRES,
+                                 "cycles": LLM_CUT_CYCLES,
+                                 "card_equals_cpu": True,
+                                 "cpu_mixed_acquires_per_s": cut_cpu["out"][
+                                     "mixed_acquires_per_s"]})
+
+    zero_prefix_counts()
+    rep_card = part("replay_card", sim_replay, dev)
+    sim_runs["replay"] = read_prefix_counts()
+    rep_cpu = part("replay_cpu", sim_replay, cpu)
+    same = {k: rep_card[k] == rep_cpu[k] for k in (
+        "verdict_sha256", "series", "offered", "passed", "blocked",
+        "rt_hist")}
+    if not all(same.values()):
+        raise AssertionError(f"sim replay: card and CPU differ: {same}")
+    out["replay"] = dict(
+        rep_card["out"], scenario="flash_crowd", seed=SIM_SEED,
+        capacity=CAPACITY, verdict_sha256=rep_card["verdict_sha256"],
+        anchor_sha256=SIM_ANCHOR,
+        matches_anchor=rep_card["verdict_sha256"] == SIM_ANCHOR,
+        offered=rep_card["offered"], passed=rep_card["passed"],
+        card_equals_cpu=True,
+        cpu_trace_s_per_wall_s=rep_cpu["out"]["trace_s_per_wall_s"],
+        cpu_replay_wall_s=rep_cpu["out"]["replay_wall_s"])
+
+    zero_prefix_counts()
+    demo_card = part("demo_card", run_demo, 60, 0, 0.4, 0.2, dev)
+    sim_runs["demo"] = read_prefix_counts()
+    demo_cpu = part("demo_cpu", run_demo, 60, 0, 0.4, 0.2, cpu)
+    for key in ("verdictSha256", "objective", "streams", "finalCounts",
+                "tpsPromotes"):
+        if demo_card[key] != demo_cpu[key]:
+            raise AssertionError(f"llm demo: {key} card {demo_card[key]} "
+                                 f"cpu {demo_cpu[key]}")
+    if not demo_card["ledgerDrained"] or demo_card["silentDrops"] \
+            or demo_card["tpsPromotes"] < 1:
+        raise AssertionError(f"llm demo: {demo_card}")
+    out["demo"] = dict(demo_card, anchor_sha256=DEMO_ANCHOR,
+                       matches_anchor=demo_card["verdictSha256"]
+                       == DEMO_ANCHOR, card_equals_cpu=True)
+
+    zero_prefix_counts()
+    out["checkpoint"] = dict(part("checkpoint", llm_checkpoint, dev),
+                             card_to_cpu_rows_equal=True)
+    llm_runs["checkpoint"] = read_prefix_counts()
+    zero_prefix_counts()
+    wire_card = part("wire_card", llm_wire, dev)
+    llm_runs["wire"] = read_prefix_counts()
+    wire_cpu = part("wire_cpu", llm_wire, cpu)
+    if wire_card != wire_cpu:
+        raise AssertionError("llm wire: card and CPU replies differ")
+    out["wire"] = {"frames": len(wire_card["reactor"]),
+                   "card_equals_cpu": True, "frontends_equal": True}
+
+    def total(runs):
+        by = {}
+        for c in runs.values():
+            for s, k in c["by_shape"].items():
+                by[s] = by.get(s, 0) + k
+        return {"launches": sum(c["launches"] for c in runs.values()),
+                "by_shape": dict(sorted(by.items())), "by_run": runs}
+
+    llm_total, sim_total = total(llm_runs), total(sim_runs)
+    if dev.type == "cuda":
+        for run, c in list(llm_runs.items()) + list(sim_runs.items()):
+            if run != "checkpoint" and c["launches"] <= 0:
+                raise AssertionError(f"llm {run} run launched the prefix "
+                                     "kernel no time")
+    out["prefix_launches"] = {"llm": llm_total, "sim": sim_total}
+    alive = []
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in before and t.is_alive()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    if alive:
+        raise AssertionError(f"llm: threads alive after the phase: {alive}")
+    out["threads_left"] = 0
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"llm": out}), flush=True)
+    if out["phase_s"] > LLM_PHASE_LIMIT_S:
+        raise AssertionError(f"llm phase took {out['phase_s']:.1f} s, over "
+                             f"{LLM_PHASE_LIMIT_S} s")
+    return {"llm": llm_total, "sim": sim_total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5689,6 +6102,7 @@ def main() -> int:
     pod = pod_phase(dev)
     control_launches = control_phase(dev)
     ha_launches = ha_phase(dev)
+    llm_launches = llm_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -5716,6 +6130,10 @@ def main() -> int:
         "pod_path_launches_per_step":
             pod["full"]["prefix_launches_per_pod_step"],
         "control_path_launches": control_launches["prefix"],
+        "llm_path_launches": llm_launches["llm"]["launches"],
+        "llm_path_launches_by_shape": llm_launches["llm"]["by_shape"],
+        "sim_path_launches": llm_launches["sim"]["launches"],
+        "sim_path_launches_by_shape": llm_launches["sim"]["by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[

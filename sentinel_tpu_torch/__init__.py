@@ -31,6 +31,12 @@ engine a token client or an embedded token server, and entries on
 cluster-mode rules ask the server first; ``resilience`` holds the retry,
 breaker and deadline-budget layer those remote calls run under.
 
+LLM admission (``llm/``): ``load_tps_rules`` loads tokens-per-second
+rules, lowered onto flow rules, and the engine's ``stream_open`` /
+``stream_tick`` / ``stream_close`` run streaming reservations. The
+trace-replay simulator (``simulator/``) drives an engine through recorded
+or synthetic seconds on a program clock.
+
 This package imports ``torch`` and ``numpy`` only: never ``jax`` and
 nothing of ``sentinel_tpu``.
 """
@@ -77,6 +83,7 @@ from sentinel_tpu_torch.models.degrade import DegradeRule
 from sentinel_tpu_torch.models.flow import FlowRule
 from sentinel_tpu_torch.models.param_flow import ParamFlowItem, ParamFlowRule
 from sentinel_tpu_torch.models.system import SystemRule
+from sentinel_tpu_torch.llm import TpsRule
 from sentinel_tpu_torch import resilience
 
 __version__ = "0.1.0"
@@ -161,6 +168,10 @@ def load_param_flow_rules(rules) -> None:
     get_engine().param_rules.load_rules(list(rules))
 
 
+def load_tps_rules(rules) -> None:
+    get_engine().tps_rules.load_rules(list(rules))
+
+
 __all__ = [
     "AuthorityException", "AuthorityRule", "BlockException", "BlockReason",
     "CheckpointTimer", "restore_checkpoint", "save_checkpoint",
@@ -168,10 +179,10 @@ __all__ = [
     "EntryInfo", "EntryType", "FlowException", "FlowRule", "MetricEvent",
     "ParamFlowException", "ParamFlowItem", "ParamFlowRule", "ProcessorSlot",
     "ResourceType", "SentinelEngine", "SystemBlockException", "SystemRule",
-    "constants", "context_enter", "entry", "entry_ok", "exit_context",
-    "get_context", "get_engine", "init_func", "load_authority_rules",
-    "load_degrade_rules", "load_flow_rules", "load_param_flow_rules",
-    "load_system_rules", "register_device_checker", "register_slot",
-    "reset", "resilience", "trace", "unregister_device_checker",
-    "unregister_slot",
+    "TpsRule", "constants", "context_enter", "entry", "entry_ok",
+    "exit_context", "get_context", "get_engine", "init_func",
+    "load_authority_rules", "load_degrade_rules", "load_flow_rules",
+    "load_param_flow_rules", "load_system_rules", "load_tps_rules",
+    "register_device_checker", "register_slot", "reset", "resilience",
+    "trace", "unregister_device_checker", "unregister_slot",
 ]

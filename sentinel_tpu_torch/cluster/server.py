@@ -10,11 +10,12 @@ amortizes across clients (SURVEY.md §7 hard part #1). Single-request
 latency still takes at most ``batch_linger_s``.
 
 The ``MSG_FLEET`` branch serves this leader's fleet telemetry page
-(``telemetry/fleet.py``). Not ported yet: the ``MSG_STREAM_TICK`` branch
-(``llm/``), answered with the FAIL frame the reference sends when its
-handler raises. A sharded leader (``cluster/sharding.py``) answers a
-flow outside its slices WRONG_SLICE: no epoch TLV, the shard-map version
-in a TLV of its own (and in ``waitMs`` of a flow reply).
+(``telemetry/fleet.py``), and the ``MSG_STREAM_TICK`` branch lets a
+remote gateway drive the engine's streaming reservations (``llm/``):
+open, tick, close and abort. A sharded leader (``cluster/sharding.py``)
+answers a flow outside its slices WRONG_SLICE: no epoch TLV, the
+shard-map version in a TLV of its own (and in ``waitMs`` of a flow
+reply).
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ from sentinel_tpu_torch.cluster.constants import (
     MSG_PARAM_FLOW,
     MSG_PING,
     MSG_STREAM_TICK,
+    STREAM_OP_ABORT,
+    STREAM_OP_CLOSE,
+    STREAM_OP_OPEN,
+    STREAM_OP_TICK,
     TokenResultStatus,
 )
 from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
@@ -512,17 +517,49 @@ def process_control_frame(server: "ClusterTokenServer", req: codec.Request,
             return (codec.encode_response(
                 req.xid, MSG_FLEET, TokenResultStatus.FAIL), namespace)
     if req.msg_type == MSG_STREAM_TICK:
-        # Not ported yet (llm/): a malformed frame is BAD_REQUEST as in
-        # the reference, a well-formed one the FAIL frame the reference
-        # answers when its reservation handler raises.
+        # Streaming reservations (llm/): a remote gateway drives the
+        # engine's reservation ledger over the token wire. Shared by both
+        # frontends; a tick must never kill the connection.
+        from sentinel_tpu_torch.core.exceptions import BlockException
+
         try:
-            codec.decode_stream_request(req.entity)
+            op, sid, model, tokens = codec.decode_stream_request(req.entity)
         except (IndexError, ValueError, struct.error):
             return (codec.encode_response(
                 req.xid, MSG_STREAM_TICK,
                 TokenResultStatus.BAD_REQUEST), namespace)
+        eng = server.engine
+        if eng is None:
+            return (codec.encode_response(
+                req.xid, MSG_STREAM_TICK, TokenResultStatus.FAIL), namespace)
+        try:
+            if op == STREAM_OP_OPEN:
+                lease = eng.stream_open(
+                    sid, model, None if tokens < 0 else tokens)
+                remaining = int(lease.remaining)
+            elif op == STREAM_OP_TICK:
+                remaining = int(eng.stream_tick(sid, max(0, tokens)))
+            elif op in (STREAM_OP_CLOSE, STREAM_OP_ABORT):
+                remaining = int(eng.stream_close(
+                    sid, aborted=op == STREAM_OP_ABORT))
+            else:
+                return (codec.encode_response(
+                    req.xid, MSG_STREAM_TICK,
+                    TokenResultStatus.BAD_REQUEST), namespace)
+        except BlockException:
+            return (codec.encode_response(
+                req.xid, MSG_STREAM_TICK, TokenResultStatus.BLOCKED,
+                codec.encode_stream_response(0)), namespace)
+        except (KeyError, ValueError, OverflowError):
+            return (codec.encode_response(
+                req.xid, MSG_STREAM_TICK,
+                TokenResultStatus.BAD_REQUEST), namespace)
+        except Exception:  # noqa: BLE001 — a tick must never kill the conn
+            return (codec.encode_response(
+                req.xid, MSG_STREAM_TICK, TokenResultStatus.FAIL), namespace)
         return (codec.encode_response(
-            req.xid, MSG_STREAM_TICK, TokenResultStatus.FAIL), namespace)
+            req.xid, MSG_STREAM_TICK, TokenResultStatus.OK,
+            codec.encode_stream_response(remaining)), namespace)
     if req.msg_type == MSG_EXIT:
         entry_id, error, count = codec.decode_exit_request(req.entity)
         handle = remote_entries.pop(entry_id, None)

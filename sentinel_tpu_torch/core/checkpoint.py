@@ -33,8 +33,9 @@ under the service lock; the restore grafts the matching rows back on that
 stream, in the window's own dtypes (an int64 start never passes through a
 float).
 
-The LLM stream ledger is not part of this package yet, so a header's
-``llm_streams`` is written empty and a non-empty one is refused.
+The LLM stream ledger (``llm/streams.py``) travels in the header's
+``llm_streams``: streamId-keyed JSON rows, grafted after the windows on a
+restore (survivors graft, unknown streams start cold).
 """
 
 from __future__ import annotations
@@ -183,9 +184,9 @@ def save_checkpoint(engine, path: str) -> None:
             # window from a 2 s / 2 one.
             "w1_interval_ms": engine._spec1.interval_ms,
             "w1_sample_count": engine._spec1.buckets,
-            # The reference's streaming-reservation ledger; this package
-            # has none, so it never holds a row.
-            "llm_streams": [],
+            # Streaming-reservation leases: streamId-keyed host rows (the
+            # ledger is never on the device), grafted on a restore.
+            "llm_streams": engine.streams.checkpoint_rows(),
         }
         # Slot mode: the arrays are slot-indexed, so the assignment and
         # generations that bind slots to resources travel in the header.
@@ -252,11 +253,6 @@ def restore_checkpoint(engine, path: str, force: bool = False) -> None:
             f"checkpoint w1 geometry {ck_spec[0]}ms/{ck_spec[1]} buckets"
             f" != engine {spec.interval_ms}ms/{spec.buckets}; retune with "
             "set_window_geometry before restoring")
-    if header.get("llm_streams"):
-        raise ValueError(
-            f"checkpoint carries {len(header['llm_streams'])} LLM stream "
-            "reservations; this package has no llm/ stream ledger to graft "
-            "them into")
     schema = _tensor_schema(engine.capacity, w1_buckets=spec.buckets)
     for name, (shape, dtype) in schema.items():
         got = arrays.get(name)
@@ -300,6 +296,10 @@ def restore_checkpoint(engine, path: str, force: bool = False) -> None:
     # The lease mirrors must match the restored windows, or host admission
     # would re-grant quota the snapshot already spent.
     engine._seed_leases_from_state()
+    # Streaming reservations graft after the windows, so a restored
+    # lease's ticks reconcile against the restored debits; last_ms is
+    # re-stamped to now, so a restore never mass-evicts.
+    engine.streams.graft(header.get("llm_streams") or [], engine.now_ms())
 
 
 # Leaves the JAX package holds as uint32 (param value hashes) and this one

@@ -205,6 +205,19 @@ REBALANCE_STALE_MS = "csp.sentinel.rebalance.stale.ms"
 REBALANCE_BACKOFF_MS = "csp.sentinel.rebalance.abort.backoff.ms"
 REBALANCE_CERTIFY_SECONDS = "csp.sentinel.rebalance.certify.seconds"
 REBALANCE_WINDOW_SECONDS = "csp.sentinel.rebalance.window.seconds"
+# The trace-replay simulator (simulator/): the simulated timebase origin
+# for traces that carry none, the widest ladder width one simulated
+# second's demand is chunked into, and the cap on drill replays.
+SIM_EPOCH_MS = "csp.sentinel.sim.epoch.ms"
+SIM_MAX_BATCH = "csp.sentinel.sim.max.batch"
+SIM_DRILL_MAX_SECONDS = "csp.sentinel.sim.drill.max.seconds"
+# LLM admission (llm/): the streaming-reservation ledger's capacity, the
+# idle time after which a lease is an abandoned generation (evicted on
+# the fold), and the up-front reservation when the caller gives no
+# estimate.
+LLM_MAX_STREAMS = "csp.sentinel.llm.max.streams"
+LLM_IDLE_EVICT_MS = "csp.sentinel.llm.idle.evict.ms"
+LLM_DEFAULT_ESTIMATE_TOKENS = "csp.sentinel.llm.default.estimate.tokens"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_APP_NAME = "sentinel-tpu-app"
@@ -237,6 +250,13 @@ DEFAULT_REBALANCE_STALE_MS = 10_000
 DEFAULT_REBALANCE_BACKOFF_MS = 120_000
 DEFAULT_REBALANCE_CERTIFY_SECONDS = 8
 DEFAULT_REBALANCE_WINDOW_SECONDS = 30
+# One day past epoch 0: simulated stamps stay far from the wall clock.
+DEFAULT_SIM_EPOCH_MS = 86_400_000
+DEFAULT_SIM_MAX_BATCH = 512
+DEFAULT_SIM_DRILL_MAX_SECONDS = 300
+DEFAULT_LLM_MAX_STREAMS = 4096
+DEFAULT_LLM_IDLE_EVICT_MS = 30_000
+DEFAULT_LLM_DEFAULT_ESTIMATE_TOKENS = 128
 DEFAULT_POPULATION_TOPK = 64
 DEFAULT_POPULATION_CMS_DEPTH = 4
 DEFAULT_POPULATION_CMS_WIDTH = 512
@@ -772,6 +792,35 @@ class SentinelConfig:
     def fleet_max_seconds(self) -> int:
         v = self.get_int(FLEET_MAX_SECONDS, DEFAULT_FLEET_MAX_SECONDS)
         return v if v > 0 else DEFAULT_FLEET_MAX_SECONDS
+
+    # Simulator (simulator/) and LLM admission (llm/): the only readers of
+    # the csp.sentinel.sim.* and csp.sentinel.llm.* keys.
+
+    def sim_epoch_ms(self) -> int:
+        v = self.get_int(SIM_EPOCH_MS, DEFAULT_SIM_EPOCH_MS)
+        return v if v > 0 else DEFAULT_SIM_EPOCH_MS
+
+    def sim_max_batch(self) -> int:
+        v = self.get_int(SIM_MAX_BATCH, DEFAULT_SIM_MAX_BATCH)
+        return v if v > 0 else DEFAULT_SIM_MAX_BATCH
+
+    def sim_drill_max_seconds(self) -> int:
+        v = self.get_int(SIM_DRILL_MAX_SECONDS,
+                         DEFAULT_SIM_DRILL_MAX_SECONDS)
+        return v if v > 0 else DEFAULT_SIM_DRILL_MAX_SECONDS
+
+    def llm_max_streams(self) -> int:
+        v = self.get_int(LLM_MAX_STREAMS, DEFAULT_LLM_MAX_STREAMS)
+        return v if v > 0 else DEFAULT_LLM_MAX_STREAMS
+
+    def llm_idle_evict_ms(self) -> int:
+        v = self.get_int(LLM_IDLE_EVICT_MS, DEFAULT_LLM_IDLE_EVICT_MS)
+        return v if v > 0 else DEFAULT_LLM_IDLE_EVICT_MS
+
+    def llm_default_estimate_tokens(self) -> int:
+        v = self.get_int(LLM_DEFAULT_ESTIMATE_TOKENS,
+                         DEFAULT_LLM_DEFAULT_ESTIMATE_TOKENS)
+        return v if v > 0 else DEFAULT_LLM_DEFAULT_ESTIMATE_TOKENS
 
     def reset_for_tests(self) -> None:
         with self._lock:

@@ -88,8 +88,12 @@ in ``engine.spans``.
 when ``engine.cluster.ha`` follows shard maps; ``set_clock`` resets its
 cooldown ledger and abort backoff with the other timebases.
 
-What it does not have yet (later slices): the fold's stream-ledger hook
-(``llm/``).
+LLM admission (``llm/``): ``engine.tps_rules`` lowers tokens-per-second
+rules onto flow rules on ``llm:<model>``; ``stream_open`` /
+``stream_tick`` / ``stream_close`` run streaming reservations on the
+host ledger ``engine.streams``, debiting tokens through ``entry`` (so on
+the card through the fused step and its prefix kernel), and the fold
+evicts idle leases.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; with no card
 and no explicit device the constructor raises. On ``cuda`` the
@@ -126,11 +130,13 @@ from sentinel_tpu_torch.core.config import (
     STATISTIC_SAMPLE_COUNT, TELEMETRY_TIMESERIES_HISTORY,
     TELEMETRY_TIMESERIES_SECONDS, config)
 from sentinel_tpu_torch.core.exceptions import (
-    BlockException, exception_for_reason)
+    BlockException, FlowException, exception_for_reason)
 from sentinel_tpu_torch.core.property import (
     DynamicSentinelProperty, SimplePropertyListener)
 from sentinel_tpu_torch.core.registry import (
     KIND_CLUSTER, ROOT_ROW, NodeRegistry)
+from sentinel_tpu_torch.llm import rules as LR
+from sentinel_tpu_torch.llm.streams import StreamLedger
 from sentinel_tpu_torch.log.record_log import log_block, record_log
 from sentinel_tpu_torch.metrics.profiling import StepTimer, timed_call
 from sentinel_tpu_torch.models import authority as A
@@ -423,6 +429,20 @@ class SentinelEngine:
                             ("system", self.system_rules),
                             ("param", self.param_rules)):
             mgr.add_listener(lambda f=family: self._mark_dirty(f))
+        # LLM admission (llm/): the TPS family LOWERS onto flow rules, so
+        # the device gains no rule pack of its own; the listener strips
+        # the previously derived rules and re-injects the fresh lowering.
+        # The streaming-reservation ledger is host state on the engine's
+        # timebase, evicted on the fold.
+        self.tps_rules = LR.TpsRuleManager()
+        self.tps_rules.add_listener(self._on_tps_rules_changed)
+        self._llm_max_streams: Dict[str, int] = {}
+        self._llm_window_budget: Dict[str, float] = {}
+        self._llm_default_estimate = config.llm_default_estimate_tokens()
+        self.streams = StreamLedger(
+            capacity=config.llm_max_streams(),
+            idle_evict_ms=config.llm_idle_evict_ms(),
+            window_ms=self._spec1.interval_ms)
         # Staged rollout: the compiled candidate pack and the canary
         # scalars live here; the manager owns the lifecycle and the
         # guardrail. Built after the rule managers (it reads their staged
@@ -729,6 +749,7 @@ class SentinelEngine:
             "authority": (self.authority_rules, CV.authority_rule_to_dict),
             "system": (self.system_rules, CV.system_rule_to_dict),
             "param": (self.param_rules, CV.param_rule_to_dict),
+            "tps": (self.tps_rules, CV.tps_rule_to_dict),
         }[family]
         rules = list(mgr.get_rules())
         dicts = []
@@ -740,6 +761,37 @@ class SentinelEngine:
         self.journal.record(
             "ruleLoad", family=family, count=len(rules), rules=dicts,
             rulesTruncated=len(rules) > MAX_RULES_PER_RECORD)
+
+    def _on_tps_rules_changed(self) -> None:
+        """TPS loads LOWER onto the flow family (``llm/rules.py``): strip
+        the previously derived rules, re-inject the fresh lowering, keep
+        every operator rule (live and staged). The flow load fires the
+        flow listener, so tensors, leases and cluster maps rebuild with no
+        TPS-specific compile. An operator flow push replaces the whole
+        flow list: lowered rules vanish until the next TPS load."""
+        tps_live = self.tps_rules.get_rules()
+        tps_staged = [r for rs in self.tps_rules.get_staged().values()
+                      for r in rs]
+        lowered = LR.lower_tps_rules(tps_live) \
+            + LR.lower_tps_rules(tps_staged)
+        # Replaced wholesale, never mutated: stream_open reads them
+        # lock-free.
+        self._llm_max_streams = LR.max_streams_by_resource(tps_live)
+        # resource -> tightest per-window token budget, the reservation
+        # cap: an up-front reservation never exceeds one window's budget.
+        budgets: Dict[str, float] = {}
+        for r in LR.lower_tps_rules(tps_live):
+            cur = budgets.get(r.resource)
+            budgets[r.resource] = r.count if cur is None \
+                else min(cur, r.count)
+        self._llm_window_budget = budgets
+        keep = [r for r in self.flow_rules.get_rules()
+                if getattr(r, "derived_from", None) != LR.DERIVED_TPS]
+        keep += [r for rs in self.flow_rules.get_staged().values()
+                 for r in rs
+                 if getattr(r, "derived_from", None) != LR.DERIVED_TPS]
+        self.flow_rules.load_rules(keep + lowered)
+        self._journal_rule_load("tps")
 
     def _sync_rollout_sources(self) -> None:
         """A rule push may carry staged (candidate-tagged) rules, and the
@@ -1455,6 +1507,112 @@ class SentinelEngine:
         client's degraded quota (lock-free: replaced wholesale on load)."""
         return self._cluster_thresholds
 
+    # -- LLM streaming reservations (llm/) -----------------------------------
+
+    def _llm_debit(self, resource: str, tokens: int) -> int:
+        """Debit ``tokens`` into the model's TPS window through the normal
+        entry path, in chunks of MAX_ACQUIRE_COUNT. QPS PASS debits stay
+        in the window; the immediate exit releases only the concurrency
+        gauge. On a block mid-way the exception carries ``llm_debited``,
+        the tokens already landed, so the caller can refund them."""
+        remaining = int(tokens)
+        debited = 0
+        try:
+            while remaining > 0:
+                chunk = min(remaining, C.MAX_ACQUIRE_COUNT)
+                try:
+                    handle = self.entry(resource, count=chunk)
+                except BlockException as ex:
+                    ex.llm_debited = debited
+                    raise
+                handle.exit()
+                debited += chunk
+                remaining -= chunk
+        finally:
+            # Land the leased commits now, in this second: an injected
+            # clock (the simulator) has no advance hook, so a background
+            # flush after the clock moved would stamp these debits into
+            # the wrong window.
+            self._flush_committer()
+        return debited
+
+    def stream_open(self, stream_id: str, model: str,
+                    estimate_tokens: Optional[int] = None,
+                    tenant: str = C.LIMIT_APP_DEFAULT):
+        """Open a streaming reservation: acquire the ESTIMATED output
+        budget up front as a lease that ticks down as tokens stream
+        (``stream_tick``) and reconciles on ``stream_close``. Raises a
+        ``BlockException`` subclass when the window, the
+        maxConcurrentStreams cap or the ledger's capacity rejects it; a
+        partly debited estimate is refunded as expiring credit."""
+        resource = LR.llm_resource(model)
+        now = self.now_ms()
+        estimate = int(self._llm_default_estimate
+                       if estimate_tokens is None else estimate_tokens)
+        if estimate < 0:
+            raise ValueError("estimate_tokens must be >= 0")
+        cap = self._llm_max_streams.get(resource)
+        if (cap is not None and self.streams.active(resource) >= cap) \
+                or self.streams.at_capacity():
+            self.streams.open_blocked += 1
+            log_block(resource, "FlowException", tenant, estimate, now)
+            raise FlowException(resource)
+        # The reservation caps at ONE window's token budget: a longer
+        # generation pays the rest live as it streams (the tick's
+        # overflow path), which keeps an abort's over-admission within
+        # one window of tokens.
+        budget = self._llm_window_budget.get(resource)
+        reserved = estimate if budget is None \
+            else min(estimate, int(budget))
+        credit = self.streams.take_credit(resource, reserved, now)
+        try:
+            debited = self._llm_debit(resource, reserved - int(credit))
+        except BlockException as ex:
+            # Refund what landed (live chunks and consumed credit): the
+            # tokens stay in the PASS window until it rolls, and the
+            # credit makes them reusable for that long.
+            refund = getattr(ex, "llm_debited", 0) + credit
+            self.streams.add_credit(resource, refund, now)
+            self.streams.open_blocked += 1
+            raise
+        return self.streams.open(stream_id, resource, tenant,
+                                 estimate, reserved, debited, now)
+
+    def stream_tick(self, stream_id: str, tokens: int) -> float:
+        """Reconcile ``tokens`` actually streamed against the reservation.
+        Output beyond the reservation debits live (credit first); a block
+        on that debit propagates as backpressure, the streamed tokens
+        still counted. Returns the remaining reserved budget."""
+        now = self.now_ms()
+        covered, overflow = self.streams.tick(stream_id, tokens, now)
+        if overflow > 0:
+            lease = self.streams.get(stream_id)
+            credit = self.streams.take_credit(
+                lease.resource, overflow, now)
+            try:
+                debited = self._llm_debit(
+                    lease.resource, int(overflow - int(credit)))
+            except BlockException as ex:
+                self.streams.record_overflow_debit(
+                    getattr(ex, "llm_debited", 0))
+                raise
+            self.streams.record_overflow_debit(debited)
+        lease = self.streams.get(stream_id)
+        return lease.remaining if lease is not None else 0.0
+
+    def stream_close(self, stream_id: str, aborted: bool = False) -> float:
+        """Close (or abort) a streaming reservation. The unconsumed
+        remainder returns as credit on the resource, expiring when the
+        window rolls; returns that remainder."""
+        now = self.now_ms()
+        lease = self.streams.get(stream_id)
+        if lease is None:
+            raise KeyError(f"unknown stream {stream_id!r}")
+        remainder = self.streams.close(stream_id, now, aborted=aborted)
+        if remainder > 0:
+            self.streams.add_credit(lease.resource, remainder, now)
+        return remainder
+
     def _note_cluster_fallback(self, budget_exhausted: bool = False) -> None:
         """A cluster-mode rule degraded to its local fallback this entry."""
         self.cluster_fallback_count += 1
@@ -1883,11 +2041,10 @@ class SentinelEngine:
         history, then run the hooks that ride the same fold in the
         reference's order: each fresh second into the SLO manager, burn
         evaluation, the waterfall's seal, the telescope's roll, the slot
-        table's rebalance and the adaptive loop's tick (the reference's
-        stream-ledger hook waits for ``llm/``). The ring read gathers
-        ONLY the slots newer than the last spilled stamp, in one gather
-        and one device-to-host copy under the engine lock; the hooks are
-        host work outside it."""
+        table's rebalance, the adaptive loop's tick and the stream
+        ledger's eviction. The ring read gathers ONLY the slots newer than
+        the last spilled stamp, in one gather and one device-to-host copy
+        under the engine lock; the hooks are host work outside it."""
         now = now_ms if now_ms is not None else self.now_ms()
         fresh = []
         with self._lock, self._on_stream():
@@ -1948,10 +2105,14 @@ class SentinelEngine:
         self.population.roll(now)
         if slots_tbl is not None:
             slots_tbl.on_spill(now)
-        # The adaptive loop last, once judgement is current (its freeze
-        # gate and proposal gate read it); interval-gated and reentry-safe
-        # inside.
+        # The adaptive loop once judgement is current (its freeze gate and
+        # proposal gate read it); interval-gated and reentry-safe inside.
         self.adaptive.on_spill(now)
+        # The stream ledger's hygiene last: leases whose client vanished
+        # mid-generation evict (their remainder returns as expiring
+        # credit, as an abort's does) and stale credit rolls off.
+        for lease in self.streams.evict(now):
+            self.streams.add_credit(lease.resource, lease.remaining, now)
 
     def _observe_population(self, host, batch) -> None:
         """Stage one admission batch's (row, tokens) traffic for the

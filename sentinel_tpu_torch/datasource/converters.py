@@ -8,11 +8,10 @@ for the reference parse unchanged. Any rule may carry the staged-rollout
 tags ``candidateSet`` and ``rolloutStage``; they travel both ways, and an
 untagged rule keeps the reference's wire schema byte for byte.
 
-The SLO-objective (``slo/``) and adaptive-target (``adaptive/``)
-converters are here too, and the cluster-map and shard-map converters
-of the HA token cluster (``cluster/ha.py``, ``cluster/sharding.py``).
-Still to port with the subsystem that owns them: the TPS converters
-(``llm/``).
+The TPS family (``llm/``), the SLO-objective (``slo/``) and
+adaptive-target (``adaptive/``) converters are here too, and the
+cluster-map and shard-map converters of the HA token cluster
+(``cluster/ha.py``, ``cluster/sharding.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +107,47 @@ def flow_rules_from_json(source) -> List[FlowRule]:
 
 def flow_rules_to_json(rules: List[FlowRule]) -> str:
     return json.dumps([flow_rule_to_dict(r) for r in rules])
+
+
+# -- tps (llm/: LLM token-budget admission) ----------------------------------
+# Per-(model, tenant) tokens-per-second budgets with optional burst
+# headroom and a concurrent-stream cap; the engine lowers a load onto flow
+# rules (llm/rules.py).
+
+def tps_rule_from_dict(d: dict):
+    from sentinel_tpu_torch.llm.rules import TpsRule
+
+    return TpsRule(
+        model=d.get("model", ""),
+        tokens_per_second=float(d.get("tokensPerSecond", 0)),
+        burst_tokens=float(d.get("burstTokens", 0)),
+        tenant=d.get("tenant") or C.LIMIT_APP_DEFAULT,
+        max_concurrent_streams=int(d.get("maxConcurrentStreams", 0)),
+        cluster_mode=bool(d.get("clusterMode", False)),
+        cluster_config=d.get("clusterConfig"),
+        **_rollout_fields(d),
+    )
+
+
+def tps_rule_to_dict(r) -> dict:
+    d = {
+        "model": r.model, "tenant": r.tenant,
+        "tokensPerSecond": r.tokens_per_second,
+        "burstTokens": r.burst_tokens,
+        "maxConcurrentStreams": r.max_concurrent_streams,
+        "clusterMode": r.cluster_mode,
+    }
+    if r.cluster_config:
+        d["clusterConfig"] = r.cluster_config
+    return _emit_rollout(d, r)
+
+
+def tps_rules_from_json(source) -> list:
+    return [tps_rule_from_dict(d) for d in _loads(source)]
+
+
+def tps_rules_to_json(rules) -> str:
+    return json.dumps([tps_rule_to_dict(r) for r in rules])
 
 
 # -- degrade ----------------------------------------------------------------

@@ -349,9 +349,10 @@ def test_corrupted_checkpoint_rejected_with_clear_error(engine, tmp_path):
 
 def test_incompatible_schema_and_llm_streams_refused_before_any_change(
         engine, tmp_path):
-    """A header whose ``llm_streams`` is not empty names the unported
-    ledger, and a missing or mistyped array is refused; the engine is
-    unchanged after each refusal."""
+    """A missing or mistyped array and a foreign version are refused;
+    the engine is unchanged after each refusal. (A header whose
+    ``llm_streams`` is not empty now grafts into the stream ledger:
+    ``tests/test_torch_llm.py``.)"""
     pst.load_flow_rules([pst.FlowRule(resource="x", count=3)])
     pst.entry_ok("x")
     ckpt = str(tmp_path / "x.npz")
@@ -359,9 +360,7 @@ def test_incompatible_schema_and_llm_streams_refused_before_any_change(
     header, arrays = pckpt._load_npz(ckpt)
     fresh = _restart()
     rows = fresh.registry.to_dict()
-    cases = [(dict(header, llm_streams=[{"streamId": "s1"}]), arrays,
-              "llm/"),
-             (header, {k: v for k, v in arrays.items() if k != "sec_stamp"},
+    cases = [(header, {k: v for k, v in arrays.items() if k != "sec_stamp"},
               "missing sec_stamp"),
              (header, dict(arrays, w1_starts=arrays["w1_starts"].astype(
                  np.int32)), "w1_starts is int32"),

@@ -26,7 +26,9 @@ and the adaptive tick add no sync or launch to a step; and the HA token
 cluster: a cluster checkpoint saved on the card restoring bit-equal on
 the CPU (and back), a 3-leader chaos-mesh episode on the card with the
 CPU's verdict and fault sha256s, and a promotion on the card that raises
-(no leader bound) when the acquire library cannot load.
+(no leader bound) when the acquire library cannot load; and LLM
+admission with the simulator: a streamed replay, a reservation lifecycle
+and a checkpoint with open streams, each on the card as on the CPU.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1410,3 +1412,106 @@ def test_promotion_raises_when_the_acquire_library_cannot_load(
         assert state.token_server.service.request_token(1).status == 0
     finally:
         mgr.stop()
+
+
+# ---------------------------------------------------------------------------
+# LLM admission and the trace-replay simulator (llm/, simulator/)
+# ---------------------------------------------------------------------------
+
+
+def _replay_seen(r):
+    return (r.verdict_sha256, r.series, r.offered, r.passed, r.blocked,
+            r.retried, list(r.rt_hist), r.decisions, r.counters,
+            r.final_counts, r.journal, r.streams)
+
+
+def test_streamed_replay_on_cuda_equals_cpu(cuda):
+    """A 60-second streamed ``hetero_cost`` replay (abandon rate 0.2) on
+    the card: the CPU's verdict sha256, series, counts, decision log,
+    journal and stream outcomes, with the prefix kernel launched."""
+    from sentinel_tpu_torch.ops import prefix_cuda
+    from sentinel_tpu_torch.simulator import ReplayEngine
+    from sentinel_tpu_torch.simulator.scenarios import hetero_cost
+
+    trace = hetero_cost(seconds=60, seed=7, streams_per_s=0.4,
+                        abandon_rate=0.2)
+    before = prefix_cuda.launches
+    card = ReplayEngine(trace, device=cuda).run()
+    launched = prefix_cuda.launches - before
+    host = ReplayEngine(trace, device="cpu").run()
+    assert launched > 0 and card.streams["opened"] > 0
+    assert _replay_seen(card) == _replay_seen(host)
+
+
+def _reservation_run(dev):
+    import chip_smoke as cs
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.core.exceptions import BlockException
+    from sentinel_tpu_torch.llm import TpsRule
+    from sentinel_tpu_torch.utils import time_util
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    time_util.freeze_time(cs.NOW0)
+    eng = SentinelEngine(capacity=512, device=dev)
+    seen = []
+    try:
+        eng.tps_rules.load_rules([
+            TpsRule(model="m", tokens_per_second=300),
+            TpsRule(model="n", tokens_per_second=40,
+                    max_concurrent_streams=1)])
+        for sid, model, est in (("a", "m", 200), ("b", "m", 600),
+                                ("c", "n", 30), ("d", "n", 5)):
+            try:
+                seen.append(eng.stream_open(sid, model, est).remaining)
+            except BlockException as ex:
+                seen.append(type(ex).__name__)
+        seen.append(eng.stream_tick("a", 150))
+        try:
+            seen.append(eng.stream_tick("c", 45))
+        except BlockException as ex:
+            seen.append(type(ex).__name__)
+        seen.append(eng.stream_close("a", aborted=True))
+        time_util.advance_time(400)
+        seen.append(eng.stream_open("e", "m", 140).remaining)
+        seen.append(eng.stream_close("e"))
+        time_util.advance_time(1200)
+        eng._spill_flight()
+        seen.append(eng.streams.stats())
+        seen.append(eng.streams.checkpoint_rows())
+        eng._flush_committer()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return seen, convert.state_to_numpy(eng.state)
+    finally:
+        eng.close()
+        time_util.unfreeze_time()
+
+
+def test_reservations_on_cuda_equal_cpu(cuda):
+    """Opens (one capped at a window's budget, one over the stream cap),
+    a tick past its reservation that the window blocks, an abort whose
+    credit the next open uses, a fold: every outcome, the ledger and the
+    engine's state equal on card and CPU."""
+    import chip_smoke as cs
+
+    card_seen, card_state = _reservation_run(cuda)
+    host_seen, host_state = _reservation_run(torch.device("cpu"))
+    assert card_seen == host_seen
+    assert "FlowException" in card_seen
+    cs.compare_states(card_state, host_state)
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_with_open_streams_crosses_devices(cuda, tmp_path,
+                                                      monkeypatch, src, dst):
+    """Open reservations saved on one device restore on the other (the
+    smoke's part, both ways): the ledger rows and windows equal, and the
+    leases close to the same remainders."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "LLM_DIR", tmp_path)
+    out = cs.llm_checkpoint(torch.device(src), torch.device(dst))
+    assert out["rows"] == 2 and out["file_bytes"] > 0

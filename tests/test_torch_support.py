@@ -594,3 +594,93 @@ def strip_keys(obj, keys=("port",)):
     if isinstance(obj, (list, tuple)):
         return type(obj)(strip_keys(v, keys) for v in obj)
     return obj
+
+
+class LlmPkg:
+    """One package's LLM admission and simulator stack (``llm/``,
+    ``simulator/``, ``adapters/llm_gateway.py`` and the engine, wire and
+    checkpoint they ride), so a scenario written once against
+    ``P.<module>`` runs on both packages. ``kw`` is the device keyword
+    the port's entry points take (``device="cpu"``) and the JAX
+    package's do not."""
+
+    MODULES = {
+        "rules": "llm.rules", "streams": "llm.streams",
+        "conv": "datasource.converters", "ckpt": "core.checkpoint",
+        "exc": "core.exceptions", "tu": "utils.time_util",
+        "ctx": "core.context", "batch": "core.batch",
+        "engine_mod": "core.engine", "codec": "cluster.codec",
+        "CC": "cluster.constants", "server": "cluster.server",
+        "ts": "cluster.token_service",
+        "sim": "simulator", "scen": "simulator.scenarios",
+        "replay": "simulator.replay", "trace": "simulator.trace",
+        "lab": "simulator.lab", "gw": "adapters.llm_gateway",
+        "controller": "adaptive.controller", "flow": "models.flow",
+    }
+
+    def __init__(self, root: str):
+        import importlib
+
+        self.name = "jax" if root == "sentinel_tpu" else "port"
+        self.st = importlib.import_module(root)
+        for attr, mod in self.MODULES.items():
+            setattr(self, attr, importlib.import_module(f"{root}.{mod}"))
+        self.kw = {} if self.name == "jax" else {"device": "cpu"}
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def reset(self, capacity: int = 512):
+        """A fresh default engine on this package's frozen clock, with no
+        context left on the thread from an earlier engine."""
+        self.ctx.replace_context(None)
+        self.ctx.bump_generation()
+        return self.st.reset(capacity=capacity, **self.kw)
+
+    def retire(self, eng) -> None:
+        """End a test's default engine: the JAX package's is replaced by a
+        fresh one, as its own tests' fixture leaves it (later JAX tests in
+        the worker may use the default engine); the port's is closed."""
+        self.ctx.replace_context(None)
+        if self.name == "jax":
+            self.st.reset(capacity=512)
+        else:
+            eng.close()
+
+    def engine(self, capacity: int = 128, **kw):
+        return self.engine_mod.SentinelEngine(capacity=capacity, **kw,
+                                              **self.kw)
+
+    def entry_batch(self, buf):
+        """A ``make_entry_batch_np`` dict as this package's ``check_batch``
+        takes it (the JAX package's ``EntryBatch`` of numpy columns; the
+        port takes the staging dict itself)."""
+        return self.batch.EntryBatch(**buf) if self.name == "jax" else buf
+
+    def replayer(self, trace, **kw):
+        return self.replay.ReplayEngine(trace, **kw, **self.kw)
+
+
+_LLM_PKGS = []
+
+
+def llm_pkgs():
+    """(JAX, port) LLM / simulator namespaces, built once per process."""
+    if not _LLM_PKGS:
+        _LLM_PKGS.extend((LlmPkg("sentinel_tpu"),
+                          LlmPkg("sentinel_tpu_torch")))
+    return tuple(_LLM_PKGS)
+
+
+def replay_view(r):
+    """What a replay observed, as the parity tests compare it (everything
+    but the wall-clock timings)."""
+    return {"sha": r.verdict_sha256, "seconds": r.seconds,
+            "offered": r.offered, "passed": r.passed,
+            "blocked": r.blocked, "retried": r.retried,
+            "series": r.series, "rt_hist": list(r.rt_hist),
+            "decisions": r.decisions, "counters": r.counters,
+            "final_counts": r.final_counts,
+            "band_violations": r.band_violations, "journal": r.journal,
+            "streams": r.streams, "population": r.population,
+            "objective": r.objective_vector()}

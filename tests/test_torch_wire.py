@@ -3,8 +3,8 @@ on the CPU: both frontends (the reactor and the thread-per-connection
 socketserver), both directions (the port's client against the JAX
 server, the JAX client against the port's server), the overload shed,
 the ``MSG_ENTRY`` / ``MSG_EXIT`` bridge through ``remote_entry`` on a
-port engine, the fleet telemetry replies of a leader engine, the pinned
-FAIL reply of the streaming branch not ported yet, and the epoch TLV.
+port engine, the fleet telemetry replies of a leader engine, the
+streaming-reservation branch's replies, and the epoch TLV.
 
 Verdict sequences and reply bytes are compared exactly. Both packages'
 clocks are frozen at the same instant, so every window and wait hint is
@@ -207,8 +207,10 @@ def test_fleet_and_stream_tick_answer_the_pinned_fail(reactor):
     """The fleet telemetry branch answers byte for byte as the JAX
     package's server does for the same engine state (a seconds page and
     the population page, each served by a leader engine of its own
-    package); the streaming-reservation branch, not ported yet, answers
-    the pinned FAIL, and BAD_REQUEST for a malformed stream frame."""
+    package); the streaming-reservation branch answers as the JAX
+    package's: OK with the reservation for a well-formed open on an
+    engine with no TPS rule (nothing caps it), BAD_REQUEST for a
+    malformed stream frame."""
     from sentinel_tpu.core.engine import SentinelEngine as JEngine
 
     fleet = [(1, pcodec.encode_fleet_request(0, 16)),
@@ -220,13 +222,12 @@ def test_fleet_and_stream_tick_answer_the_pinned_fail(reactor):
         server = _server(pkg, reactor, engine=eng)
         script = [pcodec.encode_request(x, MSG_FLEET, body)
                   for x, body in fleet]
-        if pkg == "port":
-            script += [
-                pcodec.encode_request(
-                    3, MSG_STREAM_TICK,
-                    pcodec.encode_stream_request(0, "s", "m", 8)),
-                pcodec.encode_request(4, MSG_STREAM_TICK, b"\x01"),
-            ]
+        script += [
+            pcodec.encode_request(
+                3, MSG_STREAM_TICK,
+                pcodec.encode_stream_request(0, "s", "m", 8)),
+            pcodec.encode_request(4, MSG_STREAM_TICK, b"\x01"),
+        ]
         try:
             with socket.create_connection(
                     ("127.0.0.1", server.bound_port), timeout=15) as sock:
@@ -238,13 +239,15 @@ def test_fleet_and_stream_tick_answer_the_pinned_fail(reactor):
     jraw, jresps = replies["jax"]
     praw, presps = replies["port"]
     assert [(r.xid, r.msg_type, r.status, bytes(r.entity))
-            for r in presps[:2]] == [
+            for r in presps] == [
         (r.xid, r.msg_type, r.status, bytes(r.entity)) for r in jresps]
     assert all(r.status == TokenResultStatus.OK for r in presps[:2])
     page, _ = pcodec.decode_json_entity(presps[0].entity)
     assert page["seconds"] == [] and page["health"]["instance"] == 100
-    assert [(r.xid, r.msg_type, r.status, r.entity) for r in presps[2:]] == [
-        (3, MSG_STREAM_TICK, TokenResultStatus.FAIL, b""),
+    assert [(r.xid, r.msg_type, r.status, bytes(r.entity))
+            for r in presps[2:]] == [
+        (3, MSG_STREAM_TICK, TokenResultStatus.OK,
+         pcodec.encode_stream_response(8)),
         (4, MSG_STREAM_TICK, TokenResultStatus.BAD_REQUEST, b""),
     ]
 
