@@ -287,9 +287,38 @@ Phases (any failure raises and exits non-zero; none is caught):
    card run and read after it (llm: parts 1, 4, 5; sim: parts 2, 3); no
    thread left. The phase must end within 180 s. Prints one ``{"llm":
    ...}`` line.
-16. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control, HA, LLM and simulator paths' launches), the card line, and
-   the final ``{"ok": true, ...}``.
+16. Rule datasources (``datasource/``, ``cluster/__main__.py``). (a) The
+   main path's engine kind (capacity 32,768, the 10,000 resources, the
+   headline's degrade, param and system rules) as the card's default
+   engine and a ``device="cpu"`` twin; each connector (file, HTTP,
+   Eureka, Spring Cloud Config, Nacos, Consul, Apollo, Redis, ZooKeeper,
+   etcd where ``grpc`` and ``protobuf`` are present, the in-process push
+   and poll sources) reads its in-repo fake server on loopback twice, one
+   connector bound to ``st.load_flow_rules``, one to the twin's manager.
+   The headline's 1,000 flow rules arrive as one JSON document, then five
+   timed pushes alternate a document tightening 16 resources to 5 a
+   second and the full one; the first width-8192 ``check_batch`` after
+   each push (a fresh second of the port's frozen clock) must enforce
+   it: every tightened resource admits exactly 5, the others all, with
+   verdicts equal on card and CPU. Poll connectors run at 100 ms, cut
+   from the reference's 3,000. Prints push -> enforcing step ms (p50,
+   max) per connector, the recompile step's ms and the prefix launches.
+   (b) ``StandaloneTokenServer`` in process on the card, its rules file
+   (two namespaces, polled every 200 ms) rewritten mid-run: a
+   ``ClusterTokenClient``'s TokenResults through the wire equal a CPU
+   twin's (OK, BLOCKED past the count, NO_RULE_EXISTS for the removed
+   namespace); then ``python -m sentinel_tpu_torch.cluster`` once as a
+   subprocess (on ``cuda`` by default): its listening line and one OK
+   acquire. (c) Two ``StandaloneHAParticipant`` seats with the map-file
+   flip of ``tests/test_cluster_ha.py:730``: the successor restores the
+   published row at epoch 2 and the grants across the handoff total the
+   threshold plus the grants since the publish, on the card as on the
+   CPU. Acquire launches are zeroed before (b) and read after (c); no
+   thread left. The phase must end within 90 s. Prints one
+   ``{"datasource": ...}`` line.
+17. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM, simulator and datasource paths' launches), the card
+   line, and the final ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -5699,7 +5728,7 @@ def zero_prefix_counts():
 
 def read_prefix_counts():
     if prefix_cuda.tile_launches:
-        raise AssertionError(f"llm phase: {prefix_cuda.tile_launches} "
+        raise AssertionError(f"prefix kernel: {prefix_cuda.tile_launches} "
                              "tile-walk launches")
     return {"launches": prefix_cuda.launches,
             "by_shape": {f"K={k},N={n},M={m}": c for (k, n, m), c
@@ -6057,6 +6086,617 @@ def llm_phase(dev):
     return {"llm": llm_total, "sim": sim_total}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: rule datasources
+# ---------------------------------------------------------------------------
+
+
+DS_PHASE_LIMIT_S = 90.0
+DS_DIR = Path(__file__).resolve().parent / "smoke_logs" / "datasource"
+DS_WIDTH = 8192
+DS_PUSHES = 5                  # timed pushes a connector, tight / full
+DS_REFRESH_MS = 100            # poll connectors: cut from the reference's 3,000
+DS_TIGHT = tuple(f"res{i}" for i in range(0, N_RESOURCES, 630))  # 16
+DS_TIGHT_COUNT = 5
+DS_TIGHT_LANES = 16            # lanes a tightened resource gets a step
+DS_CONNECTORS = ("file", "http", "eureka", "spring", "nacos", "consul",
+                 "apollo", "redis", "zookeeper", "etcd", "push", "polling")
+DS_STANDALONE_REFRESH_MS = 200
+DS_HA_THRESHOLD = 10           # a second's quota of the HA seats' flow
+DS_HA_BEFORE = 4               # grants before leader A's publish
+DS_HA_MARGIN = 2               # grants after it: B's warm start lacks them
+
+
+def ds_documents():
+    """The headline's flow rules (``bench.py:42-89``: count 1e9 on every
+    10th resource) as one JSON document, and the same document with the
+    16 ``DS_TIGHT`` resources tightened to 5 a second."""
+    from sentinel_tpu_torch.datasource import converters as CV
+
+    full = [F.FlowRule(resource=f"res{i}", count=1e9)
+            for i in range(0, N_RESOURCES, 10)]
+    tight = [F.FlowRule(resource=r.resource, count=DS_TIGHT_COUNT)
+             if r.resource in DS_TIGHT else r for r in full]
+    return CV.flow_rules_to_json(full), CV.flow_rules_to_json(tight)
+
+
+def ds_engine(dev, default: bool):
+    """The main path's engine kind without its flow rules (those arrive
+    through a connector): the default engine (``st.reset``) on ``dev`` or
+    a plain engine, the 10,000 rows interned in the same order on both."""
+    if default:
+        eng = st.reset(capacity=CAPACITY, device=dev)
+    else:
+        eng = SentinelEngine(capacity=CAPACITY, device=dev)
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    cluster = np.array([reg.cluster_row(f"res{i}")
+                        for i in range(N_RESOURCES)], np.int32)
+    dn = np.array([reg.default_row(CTX, f"res{i}", ent)
+                   for i in range(N_RESOURCES)], np.int32)
+    origin_a = reg.origin_id("appA")
+    eng.degrade_rules.load_rules([
+        D.DegradeRule(resource=f"res{i}", count=100, grade=i % 3,
+                      time_window=10, min_request_amount=5)
+        for i in range(0, N_RESOURCES, 20)])
+    eng.param_rules.load_rules([P.ParamFlowRule(f"res{i}", param_idx=0,
+                                                count=1e9)
+                                for i in range(0, N_RESOURCES, 40)])
+    eng.system_rules.load_rules([Y.SystemRule(qps=1e12)])
+    return eng, cluster, dn, origin_a
+
+
+def ds_connector(name):
+    """One connector's in-repo fake server on loopback: (publish(text),
+    make() -> a started connector reading it, stop()). Poll connectors
+    run at ``DS_REFRESH_MS``; long polls park at most 300-400 ms, so
+    ``close()`` joins inside the reference's 1-2 s."""
+    from sentinel_tpu_torch import datasource as DS
+    from sentinel_tpu_torch.datasource import converters as CV
+
+    conv = CV.flow_rules_from_json
+    R = DS_REFRESH_MS
+    if name == "file":
+        path = DS_DIR / "flow-rules.json"
+        tick = [0]
+
+        def publish(text):
+            tmp = path.with_suffix(".w")
+            tmp.write_text(text)
+            os.replace(tmp, path)
+            tick[0] += 1  # a distinct mtime for every rewrite
+            os.utime(path, (1_600_000_000 + tick[0],) * 2)
+
+        return publish, lambda: DS.FileRefreshableDataSource(
+            str(path), conv, recommend_refresh_ms=R).start(), lambda: None
+    if name == "http":
+        srv = DS.MiniConfigHTTPServer().start()
+        return srv.set_document, lambda: DS.HttpRefreshableDataSource(
+            srv.url, conv, recommend_refresh_ms=R).start(), srv.stop
+    if name == "eureka":
+        srv = DS.MiniEurekaServer().start()
+        return (lambda text: srv.register("smoke", "i-1",
+                                          {"sentinel.flow.rules": text}),
+                lambda: DS.EurekaDataSource(
+                    [srv.service_url], "smoke", "i-1", "sentinel.flow.rules",
+                    conv, recommend_refresh_ms=R).start(), srv.stop)
+    if name == "spring":
+        srv = DS.MiniSpringConfigServer().start()
+        return (lambda text: srv.set_property("smoke", "sentinel.flow.rules",
+                                              text),
+                lambda: DS.SpringCloudConfigDataSource(
+                    srv.addr, "smoke", "sentinel.flow.rules", conv,
+                    recommend_refresh_ms=R).start(), srv.stop)
+    if name == "nacos":
+        srv = DS.MiniNacosServer(max_hold_ms=400).start()
+        return (lambda text: srv.publish("sentinel-flow", "DEFAULT_GROUP",
+                                         text),
+                lambda: DS.NacosDataSource(
+                    srv.addr, "sentinel-flow", "DEFAULT_GROUP", conv,
+                    poll_timeout_ms=300).start(), srv.stop)
+    if name == "consul":
+        srv = DS.MiniConsulServer(max_hold_ms=400).start()
+        return (lambda text: srv.put("sentinel/flow", text),
+                lambda: DS.ConsulDataSource(srv.addr, "sentinel/flow", conv,
+                                            wait="300ms").start(), srv.stop)
+    if name == "apollo":
+        srv = DS.MiniApolloServer(max_hold_ms=400).start()
+        return (lambda text: srv.publish("smoke", "application",
+                                         "flowRules", text),
+                lambda: DS.ApolloDataSource(
+                    srv.addr, "smoke", "application", "flowRules", conv,
+                    poll_timeout_ms=400).start(), srv.stop)
+    if name == "redis":
+        from sentinel_tpu_torch.datasource.redis import RespConnection
+
+        srv = DS.MiniRedisServer().start()
+
+        def publish(text):
+            conn = RespConnection("127.0.0.1", srv.port)
+            try:
+                conn.command("SET", "rules/flow", text)
+                conn.command("PUBLISH", "rules/flow:chan", text)
+            finally:
+                conn.close()
+
+        return publish, lambda: DS.RedisDataSource(
+            "127.0.0.1", srv.port, "rules/flow", "rules/flow:chan",
+            conv).start(), srv.stop
+    if name == "zookeeper":
+        srv = DS.MiniZooKeeperServer().start()
+        return (lambda text: srv.set_node("/sentinel/flow", text.encode()),
+                lambda: DS.ZookeeperDataSource(
+                    f"127.0.0.1:{srv.port}", "/sentinel/flow", conv).start(),
+                srv.stop)
+    if name == "etcd":
+        srv = DS.MiniEtcdServer().start()
+        return (lambda text: srv.put("/sentinel/flow", text),
+                lambda: DS.EtcdDataSource(srv.endpoint, "/sentinel/flow",
+                                          conv).start(), srv.stop)
+    if name == "push":
+        broker = DS.InProcessBroker()
+        return (lambda text: broker.set("rules/flow", text),
+                lambda: DS.BrokerDataSource(broker, "rules/flow", conv),
+                lambda: None)
+    if name == "polling":
+        broker = DS.InProcessBroker()
+        return (lambda text: broker.set("rules/flow", text),
+                lambda: DS.PollingKVDataSource(
+                    broker, "rules/flow", conv,
+                    recommend_refresh_ms=R).start(), lambda: None)
+    raise ValueError(name)
+
+
+def ds_batch(step, cluster, dn, origin_a, tight_rows):
+    """One seeded width-8192 batch: ``DS_TIGHT_LANES`` lanes on each
+    tightened resource, the rest over the 10,000 resources."""
+    rng = np.random.default_rng(100 + step)
+    buf = entry_buf(rng, DS_WIDTH, cluster, dn, origin_a)
+    k = len(DS_TIGHT) * DS_TIGHT_LANES
+    buf["cluster_row"][:k] = np.repeat(cluster[tight_rows], DS_TIGHT_LANES)
+    buf["dn_row"][:k] = np.repeat(dn[tight_rows], DS_TIGHT_LANES)
+    return buf
+
+
+def ds_holds(eng, count) -> bool:
+    """Whether ``eng``'s flow rules are the pushed document whose
+    ``DS_TIGHT`` resources have ``count`` (the rules list is swapped
+    wholesale by a push, so one rule tells the document)."""
+    rules = eng.flow_rules.get_rules()
+    return (len(rules) == N_RESOURCES // 10 and rules[0].resource == "res0"
+            and rules[0].count == count)
+
+
+def ds_wait(pred, what, timeout_s=10.0):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"datasource: {what} not seen in "
+                                 f"{timeout_s} s")
+        time.sleep(0.0005)
+
+
+def ds_pushes(dev, card, twin, docs, rows):
+    """Every connector bound to ``st.load_flow_rules`` (the card's
+    default engine) and, through a second connector of the same server,
+    to the CPU twin's manager: the full document at start, then
+    ``DS_PUSHES`` timed pushes alternating tight and full. After each,
+    the first step on the card enforces it: the tightened resources
+    admit exactly 5 a second, the others all, and the CPU twin's
+    verdicts on the same batch are equal."""
+    from sentinel_tpu_torch.datasource import bind
+
+    cluster, dn, origin_a = rows
+    tight_rows = np.array([int(r[3:]) for r in DS_TIGHT])
+    out, launches = {}, {}
+    have_etcd = True
+    try:
+        import grpc  # noqa: F401
+        from sentinel_tpu_torch.datasource import etcd  # noqa: F401
+    except ImportError:
+        have_etcd = False
+    step = [0]
+
+    def run(eng, batch, dev_):
+        dec = eng.check_batch(to_device(batch, dev_),
+                              now_ms=time_util.current_time_millis())
+        reason = eng.harvest_decisions(dec)[0]
+        if dev_.type == "cuda":
+            torch.cuda.synchronize()
+        return np.asarray(reason)
+
+    def check(doc_count, name):
+        """The card's step, then the twin's; returns the card step's ms."""
+        time_util.advance_time(1000)  # a fresh second for every push
+        batch = ds_batch(step[0], cluster, dn, origin_a, tight_rows)
+        step[0] += 1
+        t0 = time.perf_counter()
+        reason = run(card, batch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        ds_wait(lambda: ds_holds(twin, doc_count), f"{name} on the CPU twin")
+        cpu_reason = run(twin, batch, torch.device("cpu"))
+        if not np.array_equal(reason, cpu_reason):
+            raise AssertionError(f"datasource {name}: card and CPU verdicts "
+                                 "differ")
+        for i, row in enumerate(tight_rows):
+            hit = batch["cluster_row"] == cluster[row]
+            admitted = int((reason[hit] == 0).sum())
+            want = (DS_TIGHT_COUNT if doc_count == DS_TIGHT_COUNT
+                    else int(hit.sum()))
+            if admitted != want:
+                raise AssertionError(f"datasource {name}: {DS_TIGHT[i]} "
+                                     f"admitted {admitted}, not {want}")
+        return step_ms
+
+    for name in DS_CONNECTORS:
+        if name == "etcd" and not have_etcd:
+            out[name] = {"skipped": "no grpc / protobuf on this machine"}
+            continue
+        publish, make, stop = ds_connector(name)
+        publish(docs[0])
+        sources = [make(), make()]
+        try:
+            bind(sources[0], st.load_flow_rules)
+            bind(sources[1], twin.flow_rules.load_rules)
+            ds_wait(lambda: ds_holds(card, 1e9), f"{name}'s first load")
+            check(1e9, name)  # the initial load's step, not timed
+            zero_prefix_counts()
+            pushes = []
+            for k in range(DS_PUSHES):
+                count = DS_TIGHT_COUNT if k % 2 == 0 else 1e9
+                t0 = time.perf_counter()
+                publish(docs[0 if count == 1e9 else 1])
+                ds_wait(lambda: ds_holds(card, count), f"{name} push {k}")
+                t_seen = time.perf_counter()
+                step_ms = check(count, name)
+                pushes.append({"seen_ms": (t_seen - t0) * 1e3,
+                               "step_ms": step_ms,
+                               "push_to_enforce_ms":
+                                   (t_seen - t0) * 1e3 + step_ms})
+            launches[name] = read_prefix_counts()
+        finally:
+            for src in sources:
+                src.close()
+            stop()
+        e2e = sorted(p["push_to_enforce_ms"] for p in pushes)
+        out[name] = {
+            "push_to_enforce_ms_p50": e2e[len(e2e) // 2],
+            "push_to_enforce_ms_max": e2e[-1],
+            "seen_ms_p50": sorted(p["seen_ms"] for p in pushes)[
+                len(pushes) // 2],
+            "recompile_step_ms_p50": sorted(p["step_ms"] for p in pushes)[
+                len(pushes) // 2],
+            "prefix_launches": launches[name]["launches"],
+            "prefix_by_shape": launches[name]["by_shape"],
+            "card_equals_cpu": True}
+        if dev.type == "cuda" and launches[name]["launches"] <= 0:
+            raise AssertionError(f"datasource {name}: the pushes' steps "
+                                 "launched the prefix kernel no time")
+    return out, launches, have_etcd
+
+
+def ds_standalone_run(dev, path):
+    """``StandaloneTokenServer(device=dev)`` fed from ``path`` (two
+    namespaces, polled every 200 ms), answering a ``ClusterTokenClient``
+    through the wire on the port's frozen clock; the file rewritten
+    mid-run (``ns-a``'s count 3 -> 5, ``ns-b`` removed). Returns every
+    TokenResult as (status, remaining, wait_ms, epoch)."""
+    from sentinel_tpu_torch.cluster.__main__ import StandaloneTokenServer
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+
+    v1, v2 = ds_standalone_rules()
+    path.write_text(json.dumps(v1))
+    time_util.freeze_time(NOW0)
+    srv = StandaloneTokenServer(port=0, host="127.0.0.1",
+                                rules_path=str(path),
+                                refresh_ms=DS_STANDALONE_REFRESH_MS,
+                                device=dev).start()
+    client = ClusterTokenClient("127.0.0.1", srv.bound_port, "ns-a").start()
+    out = []
+    try:
+        ds_wait(client.is_connected, "the standalone client's connection")
+
+        def tr(flow_id):
+            r = client.request_token(flow_id)
+            out.append((int(r.status), int(r.remaining), int(r.wait_ms),
+                        None if r.epoch is None else int(r.epoch)))
+
+        for _ in range(4):
+            tr(900)
+        tr(901)
+        path.write_text(json.dumps(v2))
+        os.utime(path, (1_600_000_100,) * 2)
+        rules = srv.service.rules
+        ds_wait(lambda: not rules.get_rules("ns-b")
+                and rules.get_rules("ns-a")[0].count == 5,
+                "the standalone rules file's edit")
+        tr(901)
+        time_util.advance_time(1100)
+        for _ in range(6):
+            tr(900)
+    finally:
+        client.stop()
+        srv.stop()
+        time_util.unfreeze_time()
+    return out
+
+
+def ds_free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sock in socks:
+        sock.bind(("127.0.0.1", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    return ports
+
+
+def ds_standalone_rules():
+    def rule(res, count, flow_id):
+        return {"resource": res, "count": count, "clusterMode": True,
+                "clusterConfig": {"flowId": flow_id, "thresholdType": 1}}
+
+    v1 = {"ns-a": [rule("getUser", 3, 900)], "ns-b": [rule("getItem", 1, 901)]}
+    v2 = {"ns-a": [rule("getUser", 5, 900)]}
+    return v1, v2
+
+
+def ds_module_entry(dev, path):
+    """``python -m sentinel_tpu_torch.cluster --rules <file> --port <free>``
+    once, with no ``--device`` on the card (it serves from ``cuda`` by
+    default): its listening line, one OK acquire."""
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus
+
+    path.write_text(json.dumps(ds_standalone_rules()[0]))
+    port = ds_free_ports(1)[0]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sentinel_tpu_torch.cluster", "--rules",
+         str(path), "--port", str(port), "--host", "127.0.0.1"]
+        + ([] if dev.type == "cuda" else ["--device", dev.type]),
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    client = None
+    try:
+        lines = []
+        reader = threading.Thread(
+            target=lambda: lines.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=60)
+        if not lines or "listening" not in lines[0]:
+            raise AssertionError("python -m sentinel_tpu_torch.cluster: no "
+                                 f"listening line ({lines}, rc "
+                                 f"{proc.poll()})")
+        listening_s = time.perf_counter() - t0
+        client = ClusterTokenClient("127.0.0.1", port, "ns-a",
+                                    request_timeout_s=5.0).start()
+        ds_wait(client.is_connected, "the module server's connection")
+        r = client.request_token(900)
+        if r.status != TokenResultStatus.OK:
+            raise AssertionError(f"the module server answered {r.status}")
+        return {"listening_line": lines[0].strip(),
+                "listening_s": listening_s, "acquire": "OK"}
+    finally:
+        if client is not None:
+            client.stop()
+        proc.terminate()
+        proc.communicate(timeout=30)
+
+
+def ds_ha_run(dev):
+    """Two ``StandaloneHAParticipant`` seats on ``dev`` with the map-file
+    flip of tests/test_cluster_ha.py:730: A leads epoch 1 and grants
+    ``DS_HA_BEFORE``, publishes its checkpoint, grants ``DS_HA_MARGIN``
+    more; the map file names B leader at epoch 2, B applies it first
+    (restoring A's published rows), then A. Every flow grant across the
+    handoff must total the threshold plus the margin."""
+    from sentinel_tpu_torch.cluster.__main__ import StandaloneHAParticipant
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus
+
+    tag = dev.type
+    ck = DS_DIR / f"ha-{tag}.npz"
+    ck.unlink(missing_ok=True)
+    map_path, rules_path = DS_DIR / f"ha-map-{tag}.json", \
+        DS_DIR / f"ha-rules-{tag}.json"
+    rules_path.write_text(json.dumps({"default": [{
+        "resource": "r", "count": DS_HA_THRESHOLD, "clusterMode": True,
+        "clusterConfig": {"flowId": 810, "thresholdType": 1}}]}))
+    pa, pb = ds_free_ports(2)
+
+    def servers(epoch, leader=None):
+        doc = {"epoch": epoch,
+               "servers": [{"machineId": "A", "host": "127.0.0.1",
+                            "port": pa},
+                           {"machineId": "B", "host": "127.0.0.1",
+                            "port": pb}]}
+        if leader:
+            doc["leader"] = leader
+        return json.dumps(doc)
+
+    map_path.write_text(servers(1))
+    time_util.freeze_time(NOW0)
+    key = "csp.sentinel.cluster.ha.checkpoint.period.ms"
+    config.set(key, "3600000")  # no periodic publish inside the scenario
+    seats, clients = {}, []
+    try:
+        for mid in ("A", "B"):
+            seats[mid] = StandaloneHAParticipant(
+                map_path=str(map_path), machine_id=mid,
+                rules_path=str(rules_path), checkpoint_path=str(ck),
+                refresh_ms=3_600_000, host="127.0.0.1", device=dev).start()
+
+        def client(port):
+            c = ClusterTokenClient("127.0.0.1", port,
+                                   health_gate=None).start()
+            clients.append(c)
+            ds_wait(c.is_connected, f"a client of port {port}")
+            return c
+
+        grants = []
+        ca = client(pa)
+        for _ in range(DS_HA_BEFORE):
+            grants.append(int(ca.request_token(810).status))
+        seats["A"].ha.publish_checkpoint()
+        for _ in range(DS_HA_MARGIN):
+            grants.append(int(ca.request_token(810).status))
+        map_path.write_text(servers(2, leader="B"))
+        t0 = time.perf_counter()
+        seats["B"].refresh()
+        promote_ms = (time.perf_counter() - t0) * 1e3
+        seats["A"].refresh()
+        cb = client(pb)
+        post = 0
+        while post <= DS_HA_THRESHOLD:
+            status = int(cb.request_token(810).status)
+            grants.append(status)
+            if status != int(TokenResultStatus.OK):
+                break
+            post += 1
+        stats = {m: s.state.ha_stats() for m, s in seats.items()}
+    finally:
+        for c in clients:
+            c.stop()
+        for s in seats.values():
+            s.stop()
+        config.set(key, "")
+        time_util.unfreeze_time()
+    ok = grants.count(int(TokenResultStatus.OK))
+    if ok != DS_HA_THRESHOLD + DS_HA_MARGIN:
+        raise AssertionError(f"ha seats on {tag}: {ok} grants across the "
+                             f"handoff, not {DS_HA_THRESHOLD} + "
+                             f"{DS_HA_MARGIN}")
+    if stats["B"]["roleName"] != "SERVER" or stats["B"]["epoch"] != 2 \
+            or stats["B"]["manager"]["rowsRestored"] != 1 \
+            or stats["A"]["roleName"] != "CLIENT":
+        raise AssertionError(f"ha seats on {tag}: {stats}")
+    return {"grants": grants, "ok": ok, "promote_ms": promote_ms,
+            "rows_restored": stats["B"]["manager"]["rowsRestored"],
+            "epoch": stats["B"]["epoch"]}
+
+
+def datasource_phase(dev):
+    """Rule datasources on the card: (a) every connector pushing the
+    headline's flow rules into the main path's engine kind; (b) the
+    standalone token server in process (card = CPU) and as
+    ``python -m sentinel_tpu_torch.cluster``; (c) two standalone HA seats
+    (card = CPU). Prints one ``{"datasource": ...}`` line; returns the
+    card's prefix launches and acquire launches by width."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = {t.ident for t in threading.enumerate()}
+    DS_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    parts, out = {}, {}
+
+    # (a) pushes into the main path at full width
+    t1 = time.perf_counter()
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    card, cluster, dn, origin_a = ds_engine(dev, default=True)
+    twin, *twin_rows = ds_engine(cpu, default=False)
+    for a, b in zip((cluster, dn), twin_rows):
+        if not np.array_equal(a, b):
+            raise AssertionError("datasource: card and CPU rows differ")
+    docs = ds_documents()
+    # Both engines read the port's clock, frozen for the pushes' steps.
+    time_util.freeze_time(NOW0)
+    try:
+        pushes, launches, have_etcd = ds_pushes(
+            dev, card, twin, docs, (cluster, dn, origin_a))
+    finally:
+        time_util.unfreeze_time()
+        twin.close()
+        card.close()
+    parts["pushes_s"] = time.perf_counter() - t1
+    prefix_total = sum(c["launches"] for c in launches.values())
+    by_shape = {}
+    for c in launches.values():
+        for s, k in c["by_shape"].items():
+            by_shape[s] = by_shape.get(s, 0) + k
+    out["pushes"] = {
+        "connectors": pushes, "document_bytes": [len(d) for d in docs],
+        "rules": N_RESOURCES // 10, "tightened": len(DS_TIGHT),
+        "width": DS_WIDTH, "pushes_per_connector": DS_PUSHES,
+        "poll_refresh_ms": DS_REFRESH_MS,
+        "poll_refresh_cut_from_ms": 3000, "grpc_present": have_etcd,
+        "prefix_launches": prefix_total,
+        "prefix_by_shape": dict(sorted(by_shape.items()))}
+
+    # (b) the standalone token server, then (c) the HA seats
+    CA.launches = 0
+    CA.launches_by_width.clear()
+    t1 = time.perf_counter()
+    card_tr = ds_standalone_run(dev, DS_DIR / "standalone-cuda.json")
+    parts["standalone_card_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ha_card = ds_ha_run(dev)
+    parts["ha_card_s"] = time.perf_counter() - t1
+    acquire = {"launches": CA.launches,
+               "by_width": {str(w): c for w, c
+                            in sorted(CA.launches_by_width.items())}}
+    t1 = time.perf_counter()
+    cpu_tr = ds_standalone_run(cpu, DS_DIR / "standalone-cpu.json")
+    ha_cpu = ds_ha_run(cpu)
+    parts["cpu_twins_s"] = time.perf_counter() - t1
+    if card_tr != cpu_tr:
+        raise AssertionError(f"standalone server: card {card_tr} != CPU "
+                             f"{cpu_tr}")
+    statuses = [t[0] for t in card_tr]
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus as S
+
+    if statuses[:4] != [S.OK] * 3 + [S.BLOCKED] or statuses[4] != S.OK \
+            or statuses[5] != S.NO_RULE_EXISTS \
+            or statuses[6:].count(S.OK) != 5:
+        raise AssertionError(f"standalone server results {statuses}")
+    if ha_card["grants"] != ha_cpu["grants"]:
+        raise AssertionError(f"ha seats: card {ha_card['grants']} != CPU "
+                             f"{ha_cpu['grants']}")
+    if dev.type == "cuda" and acquire["launches"] <= 0:
+        raise AssertionError("datasource: the standalone server and the HA "
+                             "seats launched the acquire kernel no time")
+    t1 = time.perf_counter()
+    module = ds_module_entry(dev, DS_DIR / "standalone-module.json")
+    parts["module_s"] = time.perf_counter() - t1
+    out["standalone"] = {"results": card_tr, "card_equals_cpu": True,
+                         "refresh_ms": DS_STANDALONE_REFRESH_MS,
+                         "module": module}
+    out["ha_seats"] = dict(ha_card, threshold=DS_HA_THRESHOLD,
+                           margin=DS_HA_MARGIN, card_equals_cpu=True,
+                           cpu_promote_ms=ha_cpu["promote_ms"])
+    out["acquire_launches"] = acquire
+
+    alive = []
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in before and t.is_alive()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    if alive:
+        raise AssertionError(f"datasource: threads alive after the phase: "
+                             f"{alive}")
+    out["threads_left"] = 0
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"datasource": out}), flush=True)
+    if out["phase_s"] > DS_PHASE_LIMIT_S:
+        raise AssertionError(f"datasource phase took {out['phase_s']:.1f} s, "
+                             f"over {DS_PHASE_LIMIT_S} s")
+    return {"prefix": prefix_total, "prefix_by_shape": by_shape,
+            "acquire": acquire["launches"],
+            "acquire_by_width": acquire["by_width"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6103,6 +6743,7 @@ def main() -> int:
     control_launches = control_phase(dev)
     ha_launches = ha_phase(dev)
     llm_launches = llm_phase(dev)
+    ds_launches = datasource_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -6134,12 +6775,17 @@ def main() -> int:
         "llm_path_launches_by_shape": llm_launches["llm"]["by_shape"],
         "sim_path_launches": llm_launches["sim"]["launches"],
         "sim_path_launches_by_shape": llm_launches["sim"]["by_shape"],
+        "datasource_path_launches": ds_launches["prefix"],
+        "datasource_path_launches_by_shape": ds_launches["prefix_by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[
                 "acquire_by_width"],
             ha_path_launches=ha_launches["acquire"],
-            ha_path_launches_by_width=ha_launches["acquire_by_width"])]}),
+            ha_path_launches_by_width=ha_launches["acquire_by_width"],
+            datasource_path_launches=ds_launches["acquire"],
+            datasource_path_launches_by_width=ds_launches[
+                "acquire_by_width"])]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

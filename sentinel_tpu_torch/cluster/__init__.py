@@ -13,7 +13,8 @@ reference's ``fallbackToLocalOrPass`` semantics.
 ``ha.py`` drives a seat's role from cluster and shard maps (failover,
 epoch fencing, cluster checkpoints), ``sharding.py`` partitions the flowId
 space into hash slices, and ``rebalance.py`` governs slice placement.
-Not ported yet: ``__main__.py`` (the standalone participant).
+``__main__.py`` is the standalone token server and HA participant
+(``python -m sentinel_tpu_torch.cluster``).
 """
 
 from sentinel_tpu_torch.cluster.constants import (

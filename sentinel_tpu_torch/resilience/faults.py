@@ -7,6 +7,8 @@ Named fault points:
 * ``cluster.client.send`` -- token client, before each frame write.
 * ``cluster.server.frame`` -- token server, every reply write (the bytes
   pass through :func:`mutate`, so garbage mode can corrupt the stream).
+* ``datasource.read`` -- every ``AbstractDataSource.load_config``
+  (``datasource/base.py``) and the poll connectors' content-dedup read.
 * ``cluster.ha.leader.crash`` -- fired by the token server's batcher
   before each device step; an armed error hard-kills the server
   (listener and connections closed, no drain).
@@ -43,8 +45,11 @@ Named fault points:
 * ``cluster.shard.donor.zombie`` -- fired on a donor losing slices; an
   armed error makes it neither publish nor fence, and every client's
   per-slice fence must reject its late replies.
-* ``datasource.flap`` -- fired per map push in the chaos mesh
-  (``chaos/mesh.py``); an armed error makes that seat miss the push.
+* ``datasource.flap`` -- fired per auto-refresh poll cycle
+  (``datasource/base.py``) and per map push in the chaos mesh
+  (``chaos/mesh.py``); an armed error makes that consumer miss the push
+  and catch up on a later cycle (distinct from ``datasource.read``: the
+  source is healthy, the path to it flapped).
 * ``cluster.leader.clock.skew`` -- fired by the chaos mesh when a
   scheduled per-leader clock skew is applied; an armed error vetoes it.
 
@@ -73,6 +78,7 @@ from typing import Dict, Optional
 FAULT_POINTS = (
     "cluster.client.send",
     "cluster.server.frame",
+    "datasource.read",
     "cluster.ha.leader.crash",
     "cluster.ha.halfopen",
     "cluster.ha.stale.epoch",

@@ -11,9 +11,9 @@ match too. The 200-episode campaign that must reproduce the bench record's
 ``verdict_sha256`` / ``fault_sha256`` is ``slow``, as are the counterparts
 of the reference's own slow tests.
 
-Left out until their modules are ported: the datasource flap seam
-(``datasource/base.py``) and the exporter's chaos families
-(``telemetry/exporter.py``).
+The datasource flap seam (``datasource/base.py``) is held in
+``tests/test_torch_cluster_main.py``. Left out until its module is ported:
+the exporter's chaos families (``telemetry/exporter.py``).
 """
 
 from __future__ import annotations

@@ -28,7 +28,10 @@ the CPU (and back), a 3-leader chaos-mesh episode on the card with the
 CPU's verdict and fault sha256s, and a promotion on the card that raises
 (no leader bound) when the acquire library cannot load; and LLM
 admission with the simulator: a streamed replay, a reservation lifecycle
-and a checkpoint with open streams, each on the card as on the CPU.
+and a checkpoint with open streams, each on the card as on the CPU; and
+rule datasources: a file push into a card engine enforcing at width 8192
+as on the CPU, and the standalone token server acquiring on the card as
+on the CPU.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1515,3 +1518,74 @@ def test_checkpoint_with_open_streams_crosses_devices(cuda, tmp_path,
     monkeypatch.setattr(cs, "LLM_DIR", tmp_path)
     out = cs.llm_checkpoint(torch.device(src), torch.device(dst))
     assert out["rows"] == 2 and out["file_bytes"] > 0
+
+
+# -- rule datasources ----------------------------------------------------------
+
+
+def test_file_push_into_a_cuda_engine_enforces_at_8192(cuda, tmp_path):
+    """A rules file read by a connector bound to a card engine: the
+    tightened resources admit exactly their count on the first step after
+    the push, through the prefix kernel, with the CPU twin's verdicts."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core.batch import make_entry_batch_np, to_device
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.datasource import (FileRefreshableDataSource,
+                                               bind, flow_rules_to_json)
+    from sentinel_tpu_torch.datasource import flow_rules_from_json
+    from sentinel_tpu_torch.models.flow import FlowRule
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    path = tmp_path / "flow.json"
+    names = [f"res{i}" for i in range(400)]
+    path.write_text(flow_rules_to_json(
+        [FlowRule(resource=n, count=5 if i % 40 == 0 else 1e9)
+         for i, n in enumerate(names) if i % 4 == 0]))
+    now, verdicts = 1_700_000_000_000, []
+    for dev in (cuda, torch.device("cpu")):
+        eng = SentinelEngine(capacity=1024, device=dev)
+        src = FileRefreshableDataSource(str(path), flow_rules_from_json)
+        try:
+            reg = eng.registry
+            ent = reg.entrance_row("sentinel_default_context")
+            rows = [(reg.cluster_row(n),
+                     reg.default_row("sentinel_default_context", n, ent))
+                    for n in names]
+            bind(src, eng.flow_rules.load_rules)
+            src.first_load()
+            buf = make_entry_batch_np(8192)
+            pick = np.arange(8192) % len(names)
+            buf["cluster_row"][:] = [rows[i][0] for i in pick]
+            buf["dn_row"][:] = [rows[i][1] for i in pick]
+            buf["count"][:] = 1
+            prefix_cuda.launches = 0
+            reason = eng.harvest_decisions(
+                eng.check_batch(to_device(buf, dev), now_ms=now))[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert prefix_cuda.launches > 0
+            reason = np.asarray(reason)
+            for i in range(0, len(names), 40):
+                assert int((reason[pick == i] == 0).sum()) == 5
+            verdicts.append(reason)
+        finally:
+            src.close()
+            eng.close()
+    np.testing.assert_array_equal(verdicts[0], verdicts[1])
+
+
+def test_standalone_server_acquires_on_cuda(cuda, tmp_path):
+    """``StandaloneTokenServer(device=cuda)`` through the wire, with a
+    rules-file edit mid-run, answers as its CPU twin does, through the
+    acquire kernel."""
+    import chip_smoke
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    CA.launches = 0
+    card = chip_smoke.ds_standalone_run(cuda, tmp_path / "card.json")
+    assert CA.launches > 0
+    cpu = chip_smoke.ds_standalone_run(torch.device("cpu"),
+                                       tmp_path / "cpu.json")
+    assert card == cpu

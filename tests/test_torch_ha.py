@@ -13,8 +13,9 @@ is refused across packages too. The port's leaders run with
 ``device="cpu"``; without a card and without a device the HA manager, the
 chaos mesh and campaign and a leader's token service raise.
 
-Left out until their modules are ported: the standalone participant
-(``cluster/__main__.py``, item 5), the exporter's HA families, the
+The standalone participant (``cluster/__main__.py``) is held in
+``tests/test_torch_cluster_main.py``. Left out until their modules are
+ported: the exporter's HA families, the
 ``getClusterMode`` command and the heartbeat drills (``transport/``,
 ``telemetry/exporter.py``, item 9).
 """

@@ -684,3 +684,73 @@ def replay_view(r):
             "band_violations": r.band_violations, "journal": r.journal,
             "streams": r.streams, "population": r.population,
             "objective": r.objective_vector()}
+
+
+# ---------------------------------------------------------------------------
+# Rule datasources: one namespace per package
+# ---------------------------------------------------------------------------
+
+
+class DsPkg:
+    """One package's rule datasources (``datasource/``, the standalone
+    token server ``cluster/__main__.py`` and what they feed), so a
+    scenario written once against ``P.<module>`` runs on both packages.
+    ``kw`` is the device keyword the port's entry points take
+    (``device="cpu"``) and the JAX package's do not."""
+
+    MODULES = {
+        "ds": "datasource", "base": "datasource.base",
+        "push": "datasource.push", "mini": "datasource._mini_http",
+        "http": "datasource.http", "eureka": "datasource.eureka",
+        "spring": "datasource.spring_config", "nacos": "datasource.nacos",
+        "consul": "datasource.consul", "apollo": "datasource.apollo",
+        "redis": "datasource.redis", "zk": "datasource.zookeeper",
+        "conv": "datasource.converters", "faults": "resilience.faults",
+        "resilience": "resilience", "tu": "utils.time_util",
+        "ctx": "core.context", "engine_mod": "core.engine",
+        "main": "cluster.__main__", "client": "cluster.client",
+        "CC": "cluster.constants", "flow": "models.flow",
+    }
+
+    def __init__(self, root: str):
+        import importlib
+
+        self.name = "jax" if root == "sentinel_tpu" else "port"
+        self.st = importlib.import_module(root)
+        for attr, mod in self.MODULES.items():
+            setattr(self, attr, importlib.import_module(f"{root}.{mod}"))
+        try:
+            self.etcd = importlib.import_module(f"{root}.datasource.etcd")
+        except ImportError:  # no protobuf runtime on this host
+            self.etcd = None
+        self.kw = {} if self.name == "jax" else {"device": "cpu"}
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def rule_dicts(self, rules):
+        """A rule list as converter dicts (what the parity tests compare)."""
+        return [self.conv.flow_rule_to_dict(r) for r in rules or ()]
+
+
+_DS_PKGS = []
+
+
+def ds_pkgs():
+    """(JAX, port) datasource namespaces, built once per process."""
+    if not _DS_PKGS:
+        _DS_PKGS.extend((DsPkg("sentinel_tpu"), DsPkg("sentinel_tpu_torch")))
+    return tuple(_DS_PKGS)
+
+
+def wait_for(pred, timeout_s: float = 5.0) -> bool:
+    """Poll ``pred`` on the real clock (the connectors' sockets and long
+    polls run on it) until it holds or the timeout passes."""
+    import time
+
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return pred()
