@@ -167,15 +167,22 @@ Phases (any failure raises and exits non-zero; none is caught):
    and after the window empties one burst's replies equal the server's
    window total; acquires/s, ``wire_stats()``, host ms per fused batch
    and the device share of one profiled batch. (4) The API phase's
-   engine kind as the client of a port server in this process: 64
-   cluster-mode rules (GLOBAL, 2 a second, local fallback), every entry
-   sampled, 4 threads of pairs for 10 s: pair p50/p99, no flow admitted
-   over 2 in any second, the engine's passes equal the server's OK
-   verdicts, three stitched spans per entry; then the server stops
-   answering and 8 entries fall back inside the entry budget until the
-   breaker opens, and after the server stops the check is local. Counts
-   are zeroed before (3) and read after (4). The phase must end within
-   60 s. Prints one ``{"cluster": ...}`` line.
+   engine kind as the client of a port token server on the card in a
+   process of its own (this script with ``--client-token-server``,
+   started as the phase starts, as a token server is deployed apart
+   from its clients; in this process it would share the
+   interpreter lock with the four client threads, and a stall there
+   outlasts the entry budget): 64 cluster-mode rules (GLOBAL, 2 a
+   second, local fallback), the service warmed before the port binds,
+   every entry sampled, 4 threads of pairs for 10 s: pair p50/p99, the
+   remote requests' ms on the client and the service's on the server, no
+   fallback, no flow admitted over 2 in any second, the engine's passes
+   equal the server's OK verdicts, three stitched spans per entry; then
+   the server stops answering and 8 entries fall back inside the entry
+   budget until the breaker opens, and after the server stops the check
+   is local. Counts are zeroed before (3) and read after (4), the
+   server's in its process. The phase must end within 60 s. Prints one
+   ``{"cluster": ...}`` line.
 12. Pod: the pod path (``parallel/cluster.py``, ``parallel/namespaces.py``)
    on the card. (a) Eight shards of the main path's configuration
    (capacity 32,768, the 10,000 resources, the 128-second ring each), the
@@ -316,9 +323,37 @@ Phases (any failure raises and exits non-zero; none is caught):
    CPU. Acquire launches are zeroed before (b) and read after (c); no
    thread left. The phase must end within 90 s. Prints one
    ``{"datasource": ...}`` line.
-17. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control, HA, LLM, simulator and datasource paths' launches), the card
-   line, and the final ``{"ok": true, ...}``.
+17. The framework adapters and the Envoy RLS service (``adapters/``,
+   ``envoy_rls/``). (a) The main path's engine kind (capacity 32,768,
+   the 10,000 resources, the headline rules, whose system rule keeps
+   every entry on the device path) as the card's default engine, with
+   1,000 gateway routes of four rules each (route-wide, client IP, an
+   exact / prefix / regex ``X-Tier`` header pattern, a ``user`` URL
+   parameter; the 16 Zipf-head routes' route-wide rule at 5 a second)
+   and 64 API groups on path prefixes: 8 threads of ``gateway_entry`` ->
+   exit for 4 s (routes and client IPs Zipf(1.2)), then the WSGI and ASGI
+   middlewares and the gRPC server interceptor (a loopback echo server)
+   for 2 s each; requests/s and p50/p99 per adapter, no tight route over
+   5 x (seconds + 1) passes. A frozen-clock script (100 gateway, 30 WSGI
+   and 30 ASGI requests, cut to 100 routes: a CPU step with 4,000
+   gateway rules is slow) gives the same verdicts, blocked counts and
+   ``node_snapshot`` rows on the card and on the CPU. (b) BASELINE.json
+   configuration #5: domain ``mesh``, 10,000 descriptors (1,000 with a
+   ``generic_key`` entry; 500 at 5 a second, the rest 1e6),
+   ``SentinelEnvoyRlsService(device=...)`` under ``serve_grpc`` on
+   loopback, 64 v3 channels (8 threads x 8, one call in flight on each)
+   of 1-3 Zipf(1.2) descriptors a call, 5 s direct then 5 s batched
+   (``csp.sentinel.wire.rls.batched``): calls/s, RTT p50/p99, the fused
+   widths, sheds, acquire launches by width, no tight descriptor granted
+   over 5 x (seconds + 1); 300 frozen-clock calls a mode give the same
+   answers on the card and on the CPU; ``python -m
+   sentinel_tpu_torch.envoy_rls`` answers a v2 and a v3 call. Prefix
+   launches are read over (a)'s card runs, acquire launches over (b)'s;
+   no thread left. The phase must end within 150 s. Prints one
+   ``{"edge": ...}`` line.
+18. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM, simulator, datasource and edge paths' launches), the
+   card line, and the final ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -3480,40 +3515,197 @@ def cluster_mesh(dev):
         "counts": counts}
 
 
-def cluster_client(dev):
-    """The API phase's engine kind on the card as the token client of a
-    port server in this process: 64 cluster-mode flow rules on 64 of its
-    unruled resources (GLOBAL, CLIENT_COUNT a second, local fallback),
-    every entry sampled for spans, a few threads of ``with st.entry``
-    pairs on the real clock; then the server stops answering (the
-    half-open seam) and the entries fall back inside the entry budget
-    until the breaker opens; then the server stops."""
+def client_remote_stats(eng):
+    """The engine client's remote acquires as its spans saw them: the
+    request's ms on the client (send to reply, inside the entry's budget)
+    and the service's on the server, their tails, and the statuses."""
+    req, svc, status = [], [], {}
+    for tr in eng.spans.traces():
+        for sp in tr["spans"]:
+            if sp["name"] == "cluster.token_request":
+                req.append(sp["durationUs"] / 1e3)
+                k = str(sp["attributes"].get("status"))
+                status[k] = status.get(k, 0) + 1
+            elif sp["name"] == "cluster.token_service":
+                svc.append(sp["durationUs"] / 1e3)
+    return {"requests": len(req), "status": status,
+            "request_ms": {"p50": pct(req, 50), "p99": pct(req, 99),
+                           "max": max(req, default=None)},
+            "service_ms": {"p50": pct(svc, 50), "p99": pct(svc, 99),
+                           "max": max(svc, default=None)},
+            "threads_alive": threading.active_count()}
+
+
+def client_flows():
+    """The client run's 64 cluster-mode flow rules, on 64 of the API
+    phase's unruled resources, with local fallback."""
+    return [F.FlowRule(resource=res, count=CLIENT_COUNT, cluster_mode=True,
+                       cluster_config={"flowId": CLIENT_FLOW0 + i,
+                                       "thresholdType": 1,
+                                       "fallbackToLocalWhenFail": True})
+            for i, res in enumerate(api_pools()["unruled"][:CLIENT_FLOWS])]
+
+
+def client_token_server(device):
+    """``--client-token-server DEVICE``: the client run's token server in
+    a process of its own. Its service holds the 64 flows' server rules
+    and is warmed by a no-rule probe before the port binds, as the
+    standalone server warms its own; a :class:`ServiceTally` counts its
+    OK verdicts. It prints ``{"port": N}``, then answers one JSON line
+    for each command line on its standard input: ``zero`` (the kernel
+    counts to 0), ``report`` (the tally, the counts and the service's
+    host ms), ``halfopen`` (its replies turn to garbage, the half-open
+    seam) and ``stop`` (the server stops; the last report)."""
     from sentinel_tpu_torch.cluster.server import ClusterTokenServer
     from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.ops import cluster_acquire
     from sentinel_tpu_torch.resilience import faults
-    from sentinel_tpu_torch.telemetry.spans import SpanCollector
 
-    flows = [F.FlowRule(resource=res, count=CLIENT_COUNT, cluster_mode=True,
-                        cluster_config={"flowId": CLIENT_FLOW0 + i,
-                                        "thresholdType": 1,
-                                        "fallbackToLocalWhenFail": True})
-             for i, res in enumerate(api_pools()["unruled"][:CLIENT_FLOWS])]
+    proto, sys.stdout = sys.stdout, sys.stderr  # stdout: replies only
+
+    def reply(obj):
+        proto.write(json.dumps(obj) + "\n")
+        proto.flush()
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        cluster_acquire.build()
     svc = DefaultTokenService(device=dev)
     svc.rules.load_rules("default", [
         F.FlowRule(resource=r.resource, count=r.count, cluster_mode=True,
                    cluster_config={"flowId": r.cluster_config["flowId"],
-                                   "thresholdType": 1}) for r in flows])
+                                   "thresholdType": 1})
+        for r in client_flows()])
+    svc.request_tokens([(None, 0, False)])
     tally = ServiceTally(svc)
     server = ClusterTokenServer(svc, host="127.0.0.1", port=0).start()
+    reply({"port": server.bound_port})
+    injector = None
+
+    def report():
+        with tally.lock:
+            return {"ok": {str(f): k for f, k in tally.ok.items()},
+                    "ok_by_second": [[f, sec, k] for (f, sec), k
+                                     in tally.ok_by_second.items()],
+                    "host_ms": {"p50": pct(tally.host_ms, 50),
+                                "p99": pct(tally.host_ms, 99),
+                                "batches": len(tally.host_ms)},
+                    "counts": read_cluster_counts()}
+
+    try:
+        for line in sys.stdin:
+            cmd = line.strip()
+            if cmd == "zero":
+                zero_cluster_counts()
+                reply({"zero": True})
+            elif cmd == "report":
+                reply(report())
+            elif cmd == "halfopen":
+                injector = faults.FaultInjector(seed=5).__enter__()
+                injector.arm("cluster.ha.halfopen", "garbage", garbage=b"")
+                reply({"halfopen": True})
+            elif cmd == "stop":
+                break
+            else:
+                reply({"error": f"unknown command {cmd!r}"})
+    finally:
+        server.stop()
+        if injector is not None:
+            injector.__exit__(None, None, None)
+        tally.detach()
+    reply(report())
+    return 0
+
+
+class TokenServerProcess:
+    """The parent's end of :func:`client_token_server`: one JSON line in
+    answer to each command, within a deadline. The process starts at
+    once; :meth:`ready` waits for its port."""
+
+    def __init__(self, dev):
+        import queue
+
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--client-token-server", str(dev)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=str(Path(__file__).resolve().parent))
+        self._lines = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True,
+                         name="smoke-token-server-out").start()
+        self.port = None
+
+    def ready(self, timeout_s=60.0):
+        if self.port is None:
+            self.port = self._read(timeout_s)["port"]
+        return self
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def _read(self, timeout_s):
+        import queue
+
+        try:
+            line = self._lines.get(timeout=timeout_s)
+        except queue.Empty:
+            raise AssertionError(f"token server process silent for "
+                                 f"{timeout_s} s") from None
+        if line is None:
+            raise AssertionError(f"token server process exited with "
+                                 f"{self.proc.wait()}")
+        out = json.loads(line)
+        if "error" in out:
+            raise AssertionError(f"token server process: {out['error']}")
+        return out
+
+    def cmd(self, name, timeout_s=30.0):
+        self.proc.stdin.write(name + "\n")
+        self.proc.stdin.flush()
+        return self._read(timeout_s)
+
+    def stop(self):
+        """The last report; the process has ended when this returns."""
+        out = self.cmd("stop")
+        self.proc.stdin.close()
+        if self.proc.wait(timeout=30) != 0:
+            raise AssertionError(f"token server process exited with "
+                                 f"{self.proc.returncode}")
+        return out
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def cluster_client(dev, server):
+    """The API phase's engine kind on the card as the token client of a
+    port token server in a process of its own (``server``, a
+    :class:`TokenServerProcess`):
+    64 cluster-mode flow rules on 64 of its unruled resources (GLOBAL,
+    CLIENT_COUNT a second, local fallback), every entry sampled for
+    spans, a few threads of ``with st.entry`` pairs on the real clock;
+    then the server stops answering (the half-open seam) and the entries
+    fall back inside the entry budget until the breaker opens; then the
+    server stops."""
+    from sentinel_tpu_torch.telemetry.spans import SpanCollector
+
+    flows = client_flows()
+    server.ready()
     eng = api_engine(dev, capacity=API_PARITY_CAPACITY, register=False)
     eng.flow_rules.load_rules(eng.flow_rules.get_rules() + flows)
     eng.spans = SpanCollector(sample_every=1, capacity=1 << 16)
-    eng.cluster.set_to_client("127.0.0.1", server.bound_port,
+    eng.cluster.set_to_client("127.0.0.1", server.port,
                               request_timeout_s=2.0)
     if eng.cluster.client_if_active() is None:
         raise AssertionError("engine client did not connect")
     names = [r.resource for r in flows]
-    zero_cluster_counts()  # the entries from here on are the client's run
+    # The entries from here on are the client's run, in both processes.
+    zero_cluster_counts()
+    server.cmd("zero")
     for res in names[:4]:  # first steps of each kind, untimed
         api_pair(res, None, (), False)
     base_entries = len(names[:4])
@@ -3540,17 +3732,26 @@ def cluster_client(dev):
         t.start()
     for t in threads:
         t.join(timeout=CLIENT_WINDOW_S + 30)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("client threads still in an entry 30 s after "
+                             "the window")
     entries = len(verdicts)
     prefix_launches = prefix_cuda.launches - prefix_before
+    remote = client_remote_stats(eng)
+    served = server.cmd("report")
+    remote["service_host_ms"] = served["host_ms"]
+    ok_by_second = {(f, sec): k for f, sec, k in served["ok_by_second"]}
     if eng.cluster_fallback_count or eng.fail_open_count:
         raise AssertionError(f"fallbacks {eng.cluster_fallback_count}, "
-                             f"fail-open {eng.fail_open_count} under load")
-    over = {k: v for k, v in tally.ok_by_second.items() if v > CLIENT_COUNT}
+                             f"fail-open {eng.fail_open_count} under load; "
+                             f"remote {remote}, resilience "
+                             f"{eng.resilience_stats()}")
+    over = {k: v for k, v in ok_by_second.items() if v > CLIENT_COUNT}
     if over:
         raise AssertionError(f"admitted over the threshold: {over}")
     tele = eng.telemetry_snapshot()["resources"]
     engine_pass = sum(tele.get(r, {}).get("passTotal", 0) for r in names)
-    server_pass = sum(tally.ok.values())
+    server_pass = sum(served["ok"].values())
     if engine_pass != server_pass:
         raise AssertionError(f"engine cluster passes {engine_pass} != "
                              f"server OK verdicts {server_pass}")
@@ -3571,12 +3772,11 @@ def cluster_client(dev):
     # The server stops answering: every acquire times out inside the
     # entry's budget and falls back; three failures open the breaker.
     fb_lat = []
-    with faults.FaultInjector(seed=5) as inj:
-        inj.arm("cluster.ha.halfopen", "garbage", garbage=b"")
-        for k in range(CLIENT_FALLBACK_PAIRS):
-            t0 = time.perf_counter()
-            api_pair(names[8 + k], None, (), False)
-            fb_lat.append((time.perf_counter() - t0) * 1e3)
+    server.cmd("halfopen")
+    for k in range(CLIENT_FALLBACK_PAIRS):
+        t0 = time.perf_counter()
+        api_pair(names[8 + k], None, (), False)
+        fb_lat.append((time.perf_counter() - t0) * 1e3)
     stats = eng.resilience_stats()
     budget = eng.cluster_entry_budget_ms
     if (stats["clusterFallbackCount"] != CLIENT_FALLBACK_PAIRS
@@ -3585,7 +3785,7 @@ def cluster_client(dev):
         raise AssertionError(f"fallback: {stats['clusterFallbackCount']}, "
                              f"breaker {stats['tokenClientBreaker']}, "
                              f"latency {fb_lat} ms against {budget} ms")
-    server.stop()
+    last = server.stop()
     deadline = time.monotonic() + 10
     while eng.cluster.client_if_active() is not None:
         if time.monotonic() > deadline:
@@ -3595,6 +3795,10 @@ def cluster_client(dev):
         raise AssertionError("local check after the server stopped")
     counts = read_cluster_counts()
     eng.close()
+    # The acquires ran in the server's process, the entry steps in this.
+    counts["acquire"] = last["counts"]["acquire"]
+    counts["acquire_by_width"] = {int(w): k for w, k in
+                                  last["counts"]["acquire_by_width"].items()}
     blocked = sum(v != "pass" for v in verdicts)
     return {
         "threads": CLIENT_THREADS, "window_s": CLIENT_WINDOW_S,
@@ -3602,8 +3806,9 @@ def cluster_client(dev):
         "blocked_share": blocked / max(entries, 1),
         "pair_ms": {"p50": pct(lat, 50), "p99": pct(lat, 99)},
         "server_ok": server_pass, "engine_cluster_passes": engine_pass,
-        "max_ok_per_flow_second": max(tally.ok_by_second.values()),
+        "max_ok_per_flow_second": max(ok_by_second.values()),
         "prefix_launches_per_entry_step": prefix_launches / max(entries, 1),
+        "remote": remote,
         "spans_per_sampled_entry": 3, "traces": len(traces),
         "fallback": {"pairs": CLIENT_FALLBACK_PAIRS,
                      "pair_ms": {"p50": pct(fb_lat, 50), "max": max(fb_lat)},
@@ -3614,13 +3819,9 @@ def cluster_client(dev):
         "counts": counts}
 
 
-def cluster_phase(dev):
-    """The cluster token path on the card: the acquire kernel at every
-    width, the service card against CPU, the 64-connection wire mesh, and
-    an engine as the token client. Prints one ``{"cluster": ...}`` line."""
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    mem0 = memory_mark()
+def cluster_runs(dev, server):
+    """The cluster phase's four parts, each timed; ``server`` is the
+    client run's token server process."""
     out, parts = {}, {}
     t1 = time.perf_counter()
     out["kernel"] = cluster_kernel(dev)
@@ -3634,8 +3835,25 @@ def cluster_phase(dev):
     out["mesh"] = cluster_mesh(dev)
     parts["mesh_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    out["client"] = cluster_client(dev)
+    out["client"] = cluster_client(dev, server)
     parts["client_s"] = time.perf_counter() - t1
+    return out, parts
+
+
+def cluster_phase(dev):
+    """The cluster token path on the card: the acquire kernel at every
+    width, the service card against CPU, the 64-connection wire mesh, and
+    an engine as the token client. Prints one ``{"cluster": ...}`` line."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    # The client run's token server starts now, in a process of its own,
+    # and is ready by the time the mesh has run.
+    server = TokenServerProcess(dev)
+    try:
+        out, parts = cluster_runs(dev, server)
+    finally:
+        server.kill()
     runs = {"mesh": out["mesh"].pop("counts"),
             "client": out["client"].pop("counts")}
     for run, c in runs.items():
@@ -6697,6 +6915,815 @@ def datasource_phase(dev):
             "acquire_by_width": acquire["by_width"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the framework adapters and the Envoy RLS service
+# ---------------------------------------------------------------------------
+
+EDGE_PHASE_LIMIT_S = 150.0
+EDGE_DIR = Path(__file__).resolve().parent / "smoke_logs" / "edge"
+EDGE_ROUTES = 1_000            # four gateway rules a route (MAX_PARAMS)
+EDGE_TIGHT_ROUTES = 16         # the Zipf head's route-wide rule at 5 a second
+EDGE_TIGHT_COUNT = 5
+EDGE_APIS = 64                 # API groups on path prefixes
+EDGE_CLIENT_IPS = 256
+EDGE_USERS = 32
+EDGE_THREADS = 8
+EDGE_WINDOW_S = 4.0            # gateway_entry traffic on the real clock
+EDGE_WEB_WINDOW_S = 2.0        # each of WSGI, ASGI and the gRPC interceptor
+EDGE_WEB_PATHS = 64
+EDGE_SCRIPT_ROUTES = 100       # card = CPU cut: a CPU step with 4,000
+EDGE_SCRIPT_GATEWAY = 100      # gateway rules takes ~170 ms, with 400 ~45;
+EDGE_SCRIPT_WEB = 30           # a request 110-170 ms on an H100
+EDGE_SCRIPT_TIGHT_WEB = 4      # /web/0-3 at 3 a second in the script
+ZIPF_S = 1.2
+RLS_DESCRIPTORS = 10_000       # BASELINE.json configuration #5
+RLS_TWO_ENTRY_EVERY = 10       # 1,000 descriptors add a generic_key entry
+RLS_TIGHT_EVERY = 20           # 500 descriptors at 5 a second
+RLS_TIGHT_COUNT = 5
+RLS_LOOSE_COUNT = 1e6
+RLS_THREADS = 8
+RLS_CHANNELS = 64              # bench.py:1106's 64 connections (8 x 8)
+RLS_WINDOW_S = 5.0
+RLS_SCRIPT_CALLS = 300         # card = CPU cut: a call ~8 ms on either
+
+
+def zipf_weights(n: int, s: float = ZIPF_S) -> np.ndarray:
+    w = 1.0 / np.arange(1, n + 1) ** s
+    return w / w.sum()
+
+
+def edge_engine(dev):
+    """The main path's engine kind as the default engine (the adapters
+    enter through ``st.entry``): capacity 32,768, the 10,000 resources
+    interned, the headline rules (its system rule keeps every entry on
+    the device path)."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    eng = st.reset(capacity=CAPACITY, device=dev)
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    for i in range(N_RESOURCES):
+        reg.cluster_row(f"res{i}")
+        reg.default_row(CTX, f"res{i}", ent)
+    load_rules(eng, tight=False)
+    return eng
+
+
+def edge_gateway_rules(n_routes: int):
+    """Four gateway rules a route: route-wide (5 a second on the first 16,
+    1e9 after), per client IP, per ``X-Tier`` header with an exact, prefix
+    or regex pattern, per ``user`` URL parameter; one route-wide rule on
+    each API group."""
+    from sentinel_tpu_torch.adapters import gateway as G
+
+    item = G.GatewayParamFlowItem
+    patterns = ((G.PARAM_MATCH_STRATEGY_EXACT, "gold"),
+                (G.PARAM_MATCH_STRATEGY_PREFIX, "gold"),
+                (G.PARAM_MATCH_STRATEGY_REGEX, "gold-[0-9]+"))
+    rules = []
+    for r in range(n_routes):
+        route = f"route-{r}"
+        match, pattern = patterns[r % 3]
+        rules += [
+            G.GatewayFlowRule(resource=route, count=(
+                EDGE_TIGHT_COUNT if r < EDGE_TIGHT_ROUTES else 1e9)),
+            G.GatewayFlowRule(resource=route, count=1e9, param_item=item(
+                parse_strategy=G.PARAM_PARSE_STRATEGY_CLIENT_IP)),
+            G.GatewayFlowRule(resource=route, count=1e9, param_item=item(
+                parse_strategy=G.PARAM_PARSE_STRATEGY_HEADER,
+                field_name="X-Tier", pattern=pattern, match_strategy=match)),
+            G.GatewayFlowRule(resource=route, count=1e9, param_item=item(
+                parse_strategy=G.PARAM_PARSE_STRATEGY_URL_PARAM,
+                field_name="user")),
+        ]
+    rules += [G.GatewayFlowRule(resource=f"api-{a}", count=1e9,
+                                resource_mode=G.RESOURCE_MODE_CUSTOM_API_NAME)
+              for a in range(EDGE_APIS)]
+    return rules
+
+
+def edge_api_definitions():
+    from sentinel_tpu_torch.adapters import gateway as G
+
+    return [G.ApiDefinition(f"api-{a}", [G.ApiPredicateItem(
+        f"/svc/{a}/", G.PARAM_MATCH_STRATEGY_PREFIX)])
+        for a in range(EDGE_APIS)]
+
+
+def edge_managers(eng, n_routes):
+    """The module's default gateway managers (``managers_for`` of the
+    default engine) loaded with the phase's API groups and rules."""
+    from sentinel_tpu_torch.adapters import gateway as G
+
+    rm, am = G.managers_for(eng)
+    am.load_api_definitions(edge_api_definitions())
+    rm.load_rules(edge_gateway_rules(n_routes))
+    return rm, am
+
+
+class EdgeDraw:
+    """Seeded request draws: routes and client IPs Zipf(1.2), half the
+    paths under an API group's prefix."""
+
+    def __init__(self, seed: int, n_routes: int):
+        self.rng = np.random.default_rng(seed)
+        self.n_routes = n_routes
+        self.route_p = zipf_weights(n_routes)
+        self.ip_p = zipf_weights(EDGE_CLIENT_IPS)
+
+    def route(self) -> int:
+        return int(self.rng.choice(self.n_routes, p=self.route_p))
+
+    def request(self):
+        from sentinel_tpu_torch.adapters import gateway as G
+
+        rng = self.rng
+        r = self.route()
+        return r, G.GatewayRequest(
+            path=f"/svc/{int(rng.integers(2 * EDGE_APIS))}/items",
+            route=f"route-{r}",
+            client_ip=f"10.0.{int(rng.choice(EDGE_CLIENT_IPS, p=self.ip_p))}.1",
+            host="api.example",
+            headers={"X-Tier": ("gold", "gold-7", "tin")[int(
+                rng.integers(3))]},
+            params={"user": f"u{int(rng.integers(EDGE_USERS))}"})
+
+
+def edge_gateway_call(req, rm, am):
+    """One ``gateway_entry`` -> exit; the verdict (0 or the exception's
+    class name)."""
+    from sentinel_tpu_torch.adapters import gateway as G
+
+    try:
+        entries = G.gateway_entry(req, rule_manager=rm, api_manager=am)
+    except st.BlockException as ex:
+        return type(ex).__name__
+    for e in reversed(entries):
+        e.exit()
+    return 0
+
+
+def ok_wsgi_app(environ, start_response):
+    start_response("200 OK", [("Content-Type", "text/plain")])
+    return [b"ok"]
+
+
+async def ok_asgi_app(scope, receive, send):
+    await send({"type": "http.response.start", "status": 200,
+                "headers": []})
+    await send({"type": "http.response.body", "body": b"ok"})
+
+
+def wsgi_call(app, path):
+    seen = []
+    body = b"".join(app({"PATH_INFO": path, "REQUEST_METHOD": "GET"},
+                        lambda status, headers: seen.append(status)))
+    if body not in (b"ok", b"Blocked by Sentinel (flow limiting)"):
+        raise AssertionError(f"wsgi body {body!r}")
+    return int(seen[0].split()[0])
+
+
+async def asgi_call(app, path):
+    msgs = []
+
+    async def receive():
+        return {"type": "http.request"}
+
+    async def send(msg):
+        msgs.append(msg)
+
+    await app({"type": "http", "path": path}, receive, send)
+    return msgs[0]["status"]
+
+
+def edge_gateway_script(dev, n_routes=None, n_gateway=None, n_web=None):
+    """The card = CPU script on the port's frozen clock: ``n_gateway``
+    gateway requests (40 to each 250 ms), then ``n_web`` WSGI and ``n_web``
+    ASGI requests over 64 paths (``/web/0-3`` at 3 a second), on a fresh
+    default engine of the main path's kind. Returns the verdicts, the
+    blocked count per resource and the ``node_snapshot`` rows."""
+    import asyncio
+
+    from sentinel_tpu_torch.adapters import SentinelASGIMiddleware
+    from sentinel_tpu_torch.adapters import SentinelWSGIMiddleware
+
+    n_routes = n_routes or EDGE_SCRIPT_ROUTES
+    n_gateway = n_gateway or EDGE_SCRIPT_GATEWAY
+    n_web = n_web or EDGE_SCRIPT_WEB
+    time_util.freeze_time(NOW0)
+    eng = edge_engine(dev)
+    rm = None
+    try:
+        rm, am = edge_managers(eng, n_routes)
+        eng.flow_rules.load_rules(eng.flow_rules.get_rules() + [
+            F.FlowRule(resource=f"/web/{k}", count=3)
+            for k in range(EDGE_SCRIPT_TIGHT_WEB)])
+        draw = EdgeDraw(41, n_routes)
+        verdicts, blocked = [], {}
+        for i in range(n_gateway):
+            r, req = draw.request()
+            v = edge_gateway_call(req, rm, am)
+            verdicts.append(v)
+            if v:
+                blocked[req.route] = blocked.get(req.route, 0) + 1
+            if i % 40 == 39:
+                time_util.advance_time(250)
+        paths = [f"/web/{int(draw.rng.choice(EDGE_WEB_PATHS, p=zipf_weights(EDGE_WEB_PATHS)))}"
+                 for _ in range(2 * n_web)]
+        wsgi = SentinelWSGIMiddleware(ok_wsgi_app)
+        for i, path in enumerate(paths[:n_web]):
+            code = wsgi_call(wsgi, path)
+            verdicts.append(code)
+            if code == 429:
+                blocked[path] = blocked.get(path, 0) + 1
+            if i % 25 == 24:
+                time_util.advance_time(250)
+        asgi = SentinelASGIMiddleware(ok_asgi_app)
+
+        async def asgi_run():
+            out = []
+            for i, path in enumerate(paths[n_web:]):
+                out.append(await asgi_call(asgi, path))
+                if i % 25 == 24:
+                    time_util.advance_time(250)
+            return out
+
+        for path, code in zip(paths[n_web:], asyncio.run(asgi_run())):
+            verdicts.append(code)
+            if code == 429:
+                blocked[path] = blocked.get(path, 0) + 1
+        snap = eng.node_snapshot()
+        names = sorted(set(blocked)
+                       | {f"route-{r}" for r in range(EDGE_TIGHT_ROUTES)}
+                       | {f"api-{a}" for a in range(EDGE_APIS)}
+                       | {f"/web/{k}" for k in range(EDGE_WEB_PATHS)})
+        rows = {n: snap[n] for n in names if n in snap}
+        return {"verdicts": verdicts, "blocked": blocked, "rows": rows}
+    finally:
+        if rm is not None:
+            rm.load_rules([])
+        eng.close()
+        time_util.unfreeze_time()
+
+
+def edge_threads(n, target, window_s):
+    """``n`` threads running ``target(k, deadline)``; their results."""
+    out = [None] * n
+    deadline = time.perf_counter() + window_s
+
+    def run(k):
+        out[k] = target(k, deadline)
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"edge-{k}")
+               for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def edge_rate(results, window_s):
+    lat = [x for r in results for x in r["lat_ms"]]
+    return {"requests": len(lat), "per_s": len(lat) / window_s,
+            "p50_ms": pct(lat, 50), "p99_ms": pct(lat, 99),
+            "blocked": sum(r["blocked"] for r in results)}
+
+
+def edge_timed(dev):
+    """(a) on the real clock on the card: 8 threads of ``gateway_entry``
+    -> exit over the 1,000 routes, then the WSGI and ASGI middlewares and
+    the gRPC server interceptor (a loopback echo server) on the same
+    engine. No tight route admits more than 5 a second."""
+    import asyncio
+    import concurrent.futures
+
+    import grpc
+
+    from sentinel_tpu_torch.adapters import SentinelASGIMiddleware
+    from sentinel_tpu_torch.adapters import SentinelWSGIMiddleware
+    from sentinel_tpu_torch.adapters.grpc_adapter import (
+        SentinelGrpcServerInterceptor)
+
+    eng = edge_engine(dev)
+    rm, am = edge_managers(eng, EDGE_ROUTES)
+    out = {"gateway_rules": len(rm.get_rules()),
+           "param_rules": len(eng.param_rules.get_rules())}
+    try:
+        # warm: the first steps with the 4,314 param rules compile them
+        warm = EdgeDraw(1, EDGE_ROUTES)
+        for _ in range(4):
+            edge_gateway_call(warm.request()[1], rm, am)
+        torch.cuda.synchronize()
+        zero_prefix_counts()
+
+        def gateway_worker(k, deadline):
+            draw = EdgeDraw(100 + k, EDGE_ROUTES)
+            lat, blocked, tight, tried = [], 0, {}, {}
+            while time.perf_counter() < deadline:
+                r, req = draw.request()
+                t0 = time.perf_counter()
+                v = edge_gateway_call(req, rm, am)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                blocked += bool(v)
+                if r < EDGE_TIGHT_ROUTES:
+                    tried[r] = tried.get(r, 0) + 1
+                    if not v:
+                        tight[r] = tight.get(r, 0) + 1
+            return {"lat_ms": lat, "blocked": blocked, "tight": tight,
+                    "tried": tried}
+
+        t0 = time.perf_counter()
+        res = edge_threads(EDGE_THREADS, gateway_worker, EDGE_WINDOW_S)
+        span_s = time.perf_counter() - t0
+        gw = edge_rate(res, span_s)
+        passes, tried = {}, {}
+        for r in res:
+            for route, c in r["tight"].items():
+                passes[route] = passes.get(route, 0) + c
+            for route, c in r["tried"].items():
+                tried[route] = tried.get(route, 0) + c
+        bound = EDGE_TIGHT_COUNT * (math.ceil(span_s) + 1)
+        over = {f"route-{k}": c for k, c in passes.items() if c > bound}
+        if over:
+            raise AssertionError(f"edge: tight routes over {bound} passes "
+                                 f"in {span_s:.2f} s: {over}")
+        # A route tried more often than its quota over the whole span
+        # must have been blocked.
+        if any(c > bound for c in tried.values()) and gw["blocked"] <= 0:
+            raise AssertionError("edge: the tight routes never blocked")
+        gw.update({"threads": EDGE_THREADS, "span_s": span_s,
+                   "tight_passes": {f"route-{k}": c for k, c
+                                    in sorted(passes.items())},
+                   "tight_tried": {f"route-{k}": c for k, c
+                                   in sorted(tried.items())},
+                   "tight_bound": bound})
+        out["gateway"] = gw
+
+        paths = [f"/web/{k}" for k in range(EDGE_WEB_PATHS)]
+        wsgi = SentinelWSGIMiddleware(ok_wsgi_app)
+
+        def wsgi_worker(k, deadline):
+            lat, blocked, i = [], 0, k
+            while time.perf_counter() < deadline:
+                t0 = time.perf_counter()
+                code = wsgi_call(wsgi, paths[i % len(paths)])
+                lat.append((time.perf_counter() - t0) * 1e3)
+                blocked += code != 200
+                i += EDGE_THREADS
+            return {"lat_ms": lat, "blocked": blocked}
+
+        out["wsgi"] = edge_rate(edge_threads(EDGE_THREADS, wsgi_worker,
+                                             EDGE_WEB_WINDOW_S),
+                                EDGE_WEB_WINDOW_S)
+        asgi = SentinelASGIMiddleware(ok_asgi_app)
+
+        async def asgi_worker(k, deadline, lat):
+            i, blocked = k, 0
+            while time.perf_counter() < deadline:
+                t0 = time.perf_counter()
+                code = await asgi_call(asgi, paths[i % len(paths)])
+                lat.append((time.perf_counter() - t0) * 1e3)
+                blocked += code != 200
+                i += EDGE_THREADS
+                await asyncio.sleep(0)
+            return blocked
+
+        async def asgi_all():
+            deadline = time.perf_counter() + EDGE_WEB_WINDOW_S
+            lat = []
+            blocked = await asyncio.gather(*(asgi_worker(k, deadline, lat)
+                                             for k in range(EDGE_THREADS)))
+            return [{"lat_ms": lat, "blocked": sum(blocked)}]
+
+        out["asgi"] = edge_rate(asyncio.run(asgi_all()), EDGE_WEB_WINDOW_S)
+        out["asgi"]["tasks"] = EDGE_THREADS
+
+        handler = grpc.method_handlers_generic_handler(
+            "edge.Echo", {"Call": grpc.unary_unary_rpc_method_handler(
+                lambda req, ctx: req, request_deserializer=lambda b: b,
+                response_serializer=lambda b: b)})
+        server = grpc.server(
+            concurrent.futures.ThreadPoolExecutor(max_workers=EDGE_THREADS),
+            interceptors=[SentinelGrpcServerInterceptor()])
+        server.add_generic_rpc_handlers((handler,))
+        port = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        channels = [grpc.insecure_channel(f"127.0.0.1:{port}")
+                    for _ in range(EDGE_THREADS)]
+        try:
+            def grpc_worker(k, deadline):
+                call = channels[k].unary_unary(
+                    "/edge.Echo/Call", request_serializer=lambda b: b,
+                    response_deserializer=lambda b: b)
+                lat, blocked = [], 0
+                while time.perf_counter() < deadline:
+                    t0 = time.perf_counter()
+                    try:
+                        if call(b"ping", timeout=10) != b"ping":
+                            raise AssertionError("grpc echo")
+                    except grpc.RpcError as ex:
+                        if ex.code() != grpc.StatusCode.RESOURCE_EXHAUSTED:
+                            raise
+                        blocked += 1
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                return {"lat_ms": lat, "blocked": blocked}
+
+            out["grpc"] = edge_rate(edge_threads(
+                EDGE_THREADS, grpc_worker, EDGE_WEB_WINDOW_S),
+                EDGE_WEB_WINDOW_S)
+        finally:
+            for ch in channels:
+                ch.close()
+            server.stop(grace=None).wait()
+        torch.cuda.synchronize()
+        out["prefix"] = read_prefix_counts()
+        snap = eng.node_snapshot()
+        out["grpc"]["snapshot"] = snap.get("/edge.Echo/Call")
+        if out["grpc"]["snapshot"]["passQps"] <= 0:
+            raise AssertionError("edge: the gRPC interceptor admitted nothing")
+        for kind in ("gateway", "wsgi", "asgi", "grpc"):
+            if out[kind]["requests"] <= 0:
+                raise AssertionError(f"edge: no {kind} request served")
+        if dev.type == "cuda" and out["prefix"]["launches"] <= 0:
+            raise AssertionError("edge: the adapters' entries launched the "
+                                 "prefix kernel no time")
+    finally:
+        rm.load_rules([])
+        eng.close()
+    return out
+
+
+# -- (b) Envoy RLS at BASELINE.json configuration #5 -------------------------
+
+
+def rls_entries(i: int):
+    entries = [("destination_cluster", f"svc-{i}")]
+    if i % RLS_TWO_ENTRY_EVERY == 0:
+        entries.append(("generic_key", f"route-{i // RLS_TWO_ENTRY_EVERY % 100}"))
+    return entries
+
+
+def rls_tight(i: int) -> bool:
+    return i % RLS_TIGHT_EVERY == 1
+
+
+def rls_rules_json() -> str:
+    """The ``mesh`` domain's 10,000 descriptors as the module entry
+    point's rules file."""
+    return json.dumps([{"domain": "mesh", "descriptors": [
+        {"resources": [{"key": k, "value": v} for k, v in rls_entries(i)],
+         "count": RLS_TIGHT_COUNT if rls_tight(i) else RLS_LOOSE_COUNT}
+        for i in range(RLS_DESCRIPTORS)]}])
+
+
+def rls_service(dev, batched: bool):
+    """``SentinelEnvoyRlsService(device=dev)`` with the mode taken from
+    ``csp.sentinel.wire.rls.batched``, its rules loaded and its token
+    service warmed (a no-rule probe takes no quota)."""
+    from sentinel_tpu_torch.envoy_rls import SentinelEnvoyRlsService
+    from sentinel_tpu_torch.envoy_rls.__main__ import rules_from_json
+
+    key = "csp.sentinel.wire.rls.batched"
+    config.set(key, "true" if batched else "false")
+    try:
+        svc = SentinelEnvoyRlsService(device=dev)
+    finally:
+        config.set(key, "")
+    if svc.batched != batched:
+        raise AssertionError(f"rls: batched={svc.batched} under the key")
+    svc.rules.load_rules(rules_from_json(rls_rules_json()))
+    svc.token_service.request_tokens([(None, 0, False)])
+    return svc
+
+
+def rls_draws(rng, p):
+    return [rls_entries(int(i)) for i in rng.choice(
+        RLS_DESCRIPTORS, size=int(rng.integers(1, 4)), p=p)]
+
+
+def rls_script(dev, batched: bool, n=None):
+    """``n`` seeded ``should_rate_limit`` calls on the port's frozen clock
+    (1-3 Zipf descriptors, the clock 40 ms on a call): every
+    ``(overall_code, [(code, limit_remaining)])``."""
+    n = n or RLS_SCRIPT_CALLS
+    time_util.freeze_time(NOW0)
+    svc = rls_service(dev, batched)
+    try:
+        rng = np.random.default_rng(55)
+        p = zipf_weights(RLS_DESCRIPTORS)
+        out = []
+        for _ in range(n):
+            out.append(svc.should_rate_limit("mesh", rls_draws(rng, p)))
+            time_util.advance_time(40)
+        return out, svc.overload_stats()
+    finally:
+        svc.close()
+        time_util.unfreeze_time()
+
+
+def rls_timed(dev, batched: bool):
+    """``serve_grpc`` on loopback under 64 v3 channels (8 threads x 8,
+    one call in flight on each) for ``RLS_WINDOW_S``: calls/s, RTT (from a
+    thread's burst of 8 to each reply's read), the fused batches' widths,
+    sheds; no tight descriptor granted more than 5 x (seconds spanned +
+    1)."""
+    import grpc
+
+    from sentinel_tpu_torch.envoy_rls import proto
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    svc = rls_service(dev, batched)
+    widths = []
+    ts = svc.token_service
+    real = ts._dispatch_device  # under both request_ and dispatch_tokens
+
+    def counted(requests, *a, **k):
+        widths.append(sum(r[0] is not None for r in requests))
+        return real(requests, *a, **k)
+
+    ts._dispatch_device = counted
+    server = svc.serve_grpc("127.0.0.1:0")
+    channels = [grpc.insecure_channel(f"127.0.0.1:{server.bound_port}")
+                for _ in range(RLS_CHANNELS)]
+    path = f"/{proto.SERVICE_NAME_V3}/{proto.METHOD_NAME}"
+    per = RLS_CHANNELS // RLS_THREADS
+
+    def request(entries_list):
+        req = proto.RateLimitRequestV3()
+        req.domain = "mesh"
+        for entries in entries_list:
+            d = req.descriptors.add()
+            for k, v in entries:
+                e = d.entries.add()
+                e.key, e.value = k, v
+        return req
+
+    def worker(k, deadline):
+        rng = np.random.default_rng(200 + k)
+        p = zipf_weights(RLS_DESCRIPTORS)
+        stubs = [channels[k * per + j].unary_unary(
+            path, request_serializer=proto.RateLimitRequestV3.SerializeToString,
+            response_deserializer=proto.RateLimitResponseV3.FromString)
+            for j in range(per)]
+        rtt, codes, grants = [], {}, {}
+        while time.perf_counter() < deadline:
+            draws = [[int(i) for i in rng.choice(
+                RLS_DESCRIPTORS, size=int(rng.integers(1, 4)), p=p)]
+                for _ in stubs]
+            t0 = time.perf_counter()
+            futs = []
+            for stub, ids in zip(stubs, draws):
+                futs.append((stub.future(
+                    request([rls_entries(i) for i in ids]), timeout=10), ids))
+            for f, ids in futs:
+                resp = f.result()
+                rtt.append((time.perf_counter() - t0) * 1e3)
+                codes[resp.overall_code] = codes.get(resp.overall_code, 0) + 1
+                for i, s in zip(ids, resp.statuses):
+                    if rls_tight(i) and s.code == proto.CODE_OK:
+                        grants[i] = grants.get(i, 0) + 1
+        return {"rtt": rtt, "codes": codes, "grants": grants}
+
+    CA.launches = 0
+    CA.launches_by_width.clear()
+    try:
+        t0 = time.perf_counter()
+        res = edge_threads(RLS_THREADS, worker, RLS_WINDOW_S)
+        span_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {"launches": CA.launches, "by_width": {
+            str(w): c for w, c in sorted(CA.launches_by_width.items())}}
+    finally:
+        for ch in channels:
+            ch.close()
+        server.stop(grace=None).wait()
+        stats = svc.overload_stats()
+        svc.close()
+    rtt = [x for r in res for x in r["rtt"]]
+    codes, grants = {}, {}
+    for r in res:
+        for c, n in r["codes"].items():
+            codes[str(c)] = codes.get(str(c), 0) + n
+        for i, n in r["grants"].items():
+            grants[i] = grants.get(i, 0) + n
+    bound = RLS_TIGHT_COUNT * (math.ceil(span_s) + 1)
+    over = {f"svc-{i}": n for i, n in grants.items() if n > bound}
+    if over:
+        raise AssertionError(f"rls: tight descriptors over {bound} grants "
+                             f"in {span_s:.2f} s: {over}")
+    if not rtt or codes.get(str(proto.CODE_OK), 0) <= 0 \
+            or codes.get(str(proto.CODE_OVER_LIMIT), 0) <= 0:
+        raise AssertionError(f"rls: codes {codes}")
+    ws = sorted(widths)
+    return {
+        "mode": "batched" if batched else "direct", "calls": len(rtt),
+        "calls_per_s": len(rtt) / span_s, "span_s": span_s,
+        "rtt_ms_p50": pct(rtt, 50), "rtt_ms_p99": pct(rtt, 99),
+        "codes": codes, "shed": stats["shedCount"],
+        "served": stats["servedCount"], "fused_batches": len(ws),
+        "fused_width_p50": pct(ws, 50), "fused_width_max": ws[-1] if ws
+        else 0, "fused_width_mean": float(np.mean(ws)) if ws else 0.0,
+        "batcher": stats.get("batcher"),
+        "tight_grants_max": max(grants.values(), default=0),
+        "tight_bound": bound, "acquire": launches}
+
+
+def rls_module_entry(dev):
+    """``python -m sentinel_tpu_torch.envoy_rls --rules <10,000
+    descriptors> --address 127.0.0.1:0`` (no ``--device`` on the card):
+    its serving line, then one v2 and one v3 call answered OK."""
+    import re
+
+    import grpc
+
+    from sentinel_tpu_torch.envoy_rls import proto
+
+    path = EDGE_DIR / "rls-rules.json"
+    path.write_text(rls_rules_json())
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sentinel_tpu_torch.envoy_rls", "--rules",
+         str(path), "--address", "127.0.0.1:0"]
+        + ([] if dev.type == "cuda" else ["--device", dev.type]),
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        reader = threading.Thread(
+            target=lambda: lines.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=60)
+        if not lines or "serving" not in lines[0]:
+            raise AssertionError("python -m sentinel_tpu_torch.envoy_rls: "
+                                 f"no serving line ({lines}, rc "
+                                 f"{proc.poll()})")
+        serving_s = time.perf_counter() - t0
+        port = int(re.search(r"port (\d+)", lines[0]).group(1))
+        answers = {}
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            for v3 in (False, True):
+                req_cls = (proto.RateLimitRequestV3 if v3
+                           else proto.RateLimitRequest)
+                resp_cls = (proto.RateLimitResponseV3 if v3
+                            else proto.RateLimitResponse)
+                req = req_cls()
+                req.domain = "mesh"
+                for k, v in rls_entries(2):
+                    e = req.descriptors.add().entries.add()
+                    e.key, e.value = k, v
+                resp = ch.unary_unary(
+                    f"/{proto.SERVICE_NAME_V3 if v3 else proto.SERVICE_NAME}"
+                    f"/{proto.METHOD_NAME}",
+                    request_serializer=req_cls.SerializeToString,
+                    response_deserializer=resp_cls.FromString)(
+                        req, timeout=10)
+                if resp.overall_code != proto.CODE_OK:
+                    raise AssertionError(f"the module server answered "
+                                         f"{resp.overall_code}")
+                answers["v3" if v3 else "v2"] = [
+                    (s.code, s.limit_remaining) for s in resp.statuses]
+        return {"serving_line": lines[0].strip(), "serving_s": serving_s,
+                "answers": answers}
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)
+
+
+def edge_phase(dev):
+    """The framework adapters and the Envoy RLS service on the card: (a)
+    gateway, WSGI, ASGI and gRPC traffic on the main path's engine kind,
+    and a frozen-clock script card = CPU; (b) the RLS service at BASELINE
+    configuration #5 over gRPC, direct and batched, a frozen-clock script
+    card = CPU in both modes, and ``python -m sentinel_tpu_torch.envoy_rls``.
+    Prints one ``{"edge": ...}`` line; returns the card's prefix launches
+    (part a) and acquire launches (part b)."""
+    import grpc  # noqa: F401 - required: the phase serves gRPC
+    from google import protobuf  # noqa: F401 - required by envoy_rls
+
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = {t.ident for t in threading.enumerate()}
+    EDGE_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    parts, out = {}, {}
+
+    # (a) the adapters on the main path's engine kind
+    t1 = time.perf_counter()
+    timed = edge_timed(dev)
+    parts["adapters_timed_s"] = time.perf_counter() - t1
+    prefix_total = timed["prefix"]["launches"]
+    prefix_by_shape = dict(timed["prefix"]["by_shape"])
+    t1 = time.perf_counter()
+    zero_prefix_counts()
+    card = edge_gateway_script(dev)
+    torch.cuda.synchronize()
+    script_prefix = read_prefix_counts()
+    parts["adapters_script_card_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    host = edge_gateway_script(cpu)
+    parts["adapters_script_cpu_s"] = time.perf_counter() - t1
+    for key in ("verdicts", "blocked", "rows"):
+        if card[key] != host[key]:
+            raise AssertionError(f"edge script: card and CPU {key} differ")
+    if not card["blocked"]:
+        raise AssertionError("edge script: nothing blocked")
+    prefix_total += script_prefix["launches"]
+    for s, k in script_prefix["by_shape"].items():
+        prefix_by_shape[s] = prefix_by_shape.get(s, 0) + k
+    out["adapters"] = dict(
+        timed, routes=EDGE_ROUTES, tight_routes=EDGE_TIGHT_ROUTES,
+        apis=EDGE_APIS,
+        script={"routes": EDGE_SCRIPT_ROUTES,
+                "gateway_requests": EDGE_SCRIPT_GATEWAY,
+                "wsgi_requests": EDGE_SCRIPT_WEB,
+                "asgi_requests": EDGE_SCRIPT_WEB,
+                "blocked": card["blocked"], "rows": len(card["rows"]),
+                "card_equals_cpu": True, "prefix": script_prefix})
+
+    # (b) Envoy RLS: timed direct and batched, the scripts, the module
+    acquire = {"launches": 0, "by_width": {}}
+
+    def add_acquire(c):
+        acquire["launches"] += c["launches"]
+        for w, n in c["by_width"].items():
+            acquire["by_width"][w] = acquire["by_width"].get(w, 0) + n
+
+    rls = {}
+    for batched in (False, True):
+        t1 = time.perf_counter()
+        run = rls_timed(dev, batched)
+        parts[f"rls_{run['mode']}_s"] = time.perf_counter() - t1
+        add_acquire(run["acquire"])
+        rls[run["mode"]] = run
+    t1 = time.perf_counter()
+    scripts = {}
+    for batched in (False, True):
+        CA.launches = 0
+        CA.launches_by_width.clear()
+        card_out, card_stats = rls_script(dev, batched)
+        torch.cuda.synchronize()
+        add_acquire({"launches": CA.launches, "by_width": {
+            str(w): c for w, c in CA.launches_by_width.items()}})
+        host_out, host_stats = rls_script(cpu, batched)
+        if card_out != host_out:
+            raise AssertionError(f"rls script (batched={batched}): card and "
+                                 "CPU answers differ")
+        codes = [c for c, _ in card_out]
+        scripts["batched" if batched else "direct"] = {
+            "calls": len(card_out), "ok": codes.count(1),
+            "over_limit": codes.count(2), "card_equals_cpu": True,
+            "served": card_stats["servedCount"]}
+    parts["rls_scripts_s"] = time.perf_counter() - t1
+    if scripts["direct"]["over_limit"] <= 0:
+        raise AssertionError("rls script: nothing over limit")
+    acquire["by_width"] = dict(sorted(acquire["by_width"].items(),
+                                      key=lambda kv: int(kv[0])))
+    if dev.type == "cuda" and acquire["launches"] <= 0:
+        raise AssertionError("rls: the service launched the acquire kernel "
+                             "no time")
+    t1 = time.perf_counter()
+    module = rls_module_entry(dev)
+    parts["rls_module_s"] = time.perf_counter() - t1
+    out["rls"] = {
+        "descriptors": RLS_DESCRIPTORS,
+        "two_entry": RLS_DESCRIPTORS // RLS_TWO_ENTRY_EVERY,
+        "tight": RLS_DESCRIPTORS // RLS_TIGHT_EVERY,
+        "channels": RLS_CHANNELS, "threads": RLS_THREADS,
+        "window_s": RLS_WINDOW_S, "direct": rls["direct"],
+        "batched": rls["batched"], "script": scripts, "module": module,
+        "acquire": acquire}
+    out["prefix_launches"] = prefix_total
+    out["prefix_by_shape"] = dict(sorted(prefix_by_shape.items()))
+
+    alive = []
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.ident not in before and t.is_alive()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    if alive:
+        raise AssertionError(f"edge: threads alive after the phase: {alive}")
+    out["threads_left"] = 0
+    out["parts_s"] = parts
+    out["memory_bytes"] = memory_report(mem0)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"edge": out}), flush=True)
+    if out["phase_s"] > EDGE_PHASE_LIMIT_S:
+        raise AssertionError(f"edge phase took {out['phase_s']:.1f} s, over "
+                             f"{EDGE_PHASE_LIMIT_S} s")
+    return {"prefix": prefix_total, "prefix_by_shape": out["prefix_by_shape"],
+            "acquire": acquire["launches"],
+            "acquire_by_width": acquire["by_width"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6744,6 +7771,7 @@ def main() -> int:
     ha_launches = ha_phase(dev)
     llm_launches = llm_phase(dev)
     ds_launches = datasource_phase(dev)
+    edge_launches = edge_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -6777,6 +7805,8 @@ def main() -> int:
         "sim_path_launches_by_shape": llm_launches["sim"]["by_shape"],
         "datasource_path_launches": ds_launches["prefix"],
         "datasource_path_launches_by_shape": ds_launches["prefix_by_shape"],
+        "edge_path_launches": edge_launches["prefix"],
+        "edge_path_launches_by_shape": edge_launches["prefix_by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[
@@ -6785,6 +7815,9 @@ def main() -> int:
             ha_path_launches_by_width=ha_launches["acquire_by_width"],
             datasource_path_launches=ds_launches["acquire"],
             datasource_path_launches_by_width=ds_launches[
+                "acquire_by_width"],
+            edge_path_launches=edge_launches["acquire"],
+            edge_path_launches_by_width=edge_launches[
                 "acquire_by_width"])]}),
         flush=True)
     print(card, flush=True)
@@ -6794,4 +7827,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--client-token-server"]:
+        sys.exit(client_token_server(sys.argv[2]))
     sys.exit(main())

@@ -101,13 +101,17 @@ TELEMETRY_SPANS_CAPACITY = "csp.sentinel.telemetry.spans.capacity"
 # groups, the watermark past which submissions shed OVERLOADED, the
 # deadline a queued group may wait, the retry-after hint of a shed, the
 # per-connection burst cap and the idle-connection reap; client.backoff:
-# the least time an HA / sharded client skips a leader that shed it.
+# the least time an HA / sharded client skips a leader that shed it;
+# rls.max.concurrent: the Envoy RLS service's in-flight ShouldRateLimit
+# calls, past which a call sheds at once with CODE_UNKNOWN
+# (envoy_rls/service.py).
 OVERLOAD_QUEUE_MAX_GROUPS = "csp.sentinel.overload.queue.max.groups"
 OVERLOAD_QUEUE_WATERMARK_PCT = "csp.sentinel.overload.queue.watermark.pct"
 OVERLOAD_DEADLINE_MS = "csp.sentinel.overload.deadline.ms"
 OVERLOAD_RETRY_AFTER_MS = "csp.sentinel.overload.retry.after.ms"
 OVERLOAD_CONN_MAX_BURST = "csp.sentinel.overload.conn.max.burst"
 OVERLOAD_IDLE_TIMEOUT_S = "csp.sentinel.overload.idle.timeout.s"
+OVERLOAD_RLS_MAX_CONCURRENT = "csp.sentinel.overload.rls.max.concurrent"
 OVERLOAD_CLIENT_BACKOFF_MS = "csp.sentinel.overload.client.backoff.ms"
 # The token server's wire path (cluster/reactor.py). reactor.enabled: the
 # selectors-based multiplexing frontend (false = the thread-per-connection
@@ -116,13 +120,15 @@ OVERLOAD_CLIENT_BACKOFF_MS = "csp.sentinel.overload.client.backoff.ms"
 # outbuf.max.bytes: per-connection reply backlog bound (past it reads
 # pause and parsed requests shed OVERLOADED); read.chunk.bytes: recv size
 # per readable socket per loop cycle; workers: the pool for non-FLOW
-# frames.
+# frames; rls.batched: the Envoy RLS service submits each call's
+# descriptors as one group through a coalescing batcher.
 WIRE_REACTOR_ENABLED = "csp.sentinel.wire.reactor.enabled"
 WIRE_COALESCE_MAX_BATCH = "csp.sentinel.wire.coalesce.max.batch"
 WIRE_INFLIGHT_DEPTH = "csp.sentinel.wire.inflight.depth"
 WIRE_OUTBUF_MAX_BYTES = "csp.sentinel.wire.outbuf.max.bytes"
 WIRE_READ_CHUNK_BYTES = "csp.sentinel.wire.read.chunk.bytes"
 WIRE_WORKERS = "csp.sentinel.wire.workers"
+WIRE_RLS_BATCHED = "csp.sentinel.wire.rls.batched"
 # SLO engine and alerting (slo/): csp.sentinel.slo.* tunes evaluation,
 # csp.sentinel.alert.* the alert store and the webhook fan-out.
 SLO_BASELINE_ALPHA = "csp.sentinel.slo.baseline.alpha"
@@ -287,6 +293,7 @@ DEFAULT_OVERLOAD_DEADLINE_MS = 2_000
 DEFAULT_OVERLOAD_RETRY_AFTER_MS = 100
 DEFAULT_OVERLOAD_CONN_MAX_BURST = 1024
 DEFAULT_OVERLOAD_IDLE_TIMEOUT_S = 300
+DEFAULT_OVERLOAD_RLS_MAX_CONCURRENT = 64
 DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS = 250
 DEFAULT_WIRE_COALESCE_MAX_BATCH = 1024
 DEFAULT_WIRE_INFLIGHT_DEPTH = 2
@@ -519,6 +526,11 @@ class SentinelConfig:
                          DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS)
         return v if v > 0 else DEFAULT_OVERLOAD_CLIENT_BACKOFF_MS
 
+    def overload_rls_max_concurrent(self) -> int:
+        v = self.get_int(OVERLOAD_RLS_MAX_CONCURRENT,
+                         DEFAULT_OVERLOAD_RLS_MAX_CONCURRENT)
+        return v if v > 0 else DEFAULT_OVERLOAD_RLS_MAX_CONCURRENT
+
     # The wire path (cluster/reactor.py): the only readers of the
     # csp.sentinel.wire.* keys.
 
@@ -547,6 +559,9 @@ class SentinelConfig:
     def wire_workers(self) -> int:
         v = self.get_int(WIRE_WORKERS, DEFAULT_WIRE_WORKERS)
         return v if v > 0 else DEFAULT_WIRE_WORKERS
+
+    def wire_rls_batched(self) -> bool:
+        return (self.get(WIRE_RLS_BATCHED) or "false").lower() == "true"
 
     # Cluster HA, sharding, chaos and rebalancer (cluster/ha.py,
     # cluster/sharding.py, chaos/, cluster/rebalance.py): the only

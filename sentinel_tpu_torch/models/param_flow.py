@@ -234,7 +234,29 @@ def compile_param_rules(
 
 
 class ParamFlowRuleManager(RuleManager):
-    """Wholesale-swap registry (reference: ``ParamFlowRuleManager``)."""
+    """Wholesale-swap registry (reference: ``ParamFlowRuleManager``).
+
+    Gateway-derived rules live in a separate partition so a user
+    ``load_rules`` and a ``GatewayRuleManager.load_rules`` can't clobber
+    each other; checkers see the union via ``get_rules``: user rules
+    first, then gateway rules, which fixes the rule slots.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self._gateway_rules: List[ParamFlowRule] = []
+
+    def load_gateway_rules(self, rules: List[ParamFlowRule]) -> None:
+        with self._lock:
+            self._gateway_rules = [r for r in rules if r.is_valid()]
+            self.version += 1
+            listeners = list(self._listeners)
+        for fn in listeners:
+            fn()
+
+    def get_rules(self) -> List[ParamFlowRule]:
+        with self._lock:
+            return list(self._rules) + list(self._gateway_rules)
 
 
 class ParamVerdict(NamedTuple):

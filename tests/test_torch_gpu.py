@@ -31,7 +31,9 @@ admission with the simulator: a streamed replay, a reservation lifecycle
 and a checkpoint with open streams, each on the card as on the CPU; and
 rule datasources: a file push into a card engine enforcing at width 8192
 as on the CPU, and the standalone token server acquiring on the card as
-on the CPU.
+on the CPU; and the framework adapters and the Envoy RLS service: a
+gateway / WSGI / ASGI script on a card default engine as on the CPU, and
+the RLS service's answers, direct and batched, on the card as on the CPU.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1589,3 +1591,44 @@ def test_standalone_server_acquires_on_cuda(cuda, tmp_path):
     cpu = chip_smoke.ds_standalone_run(torch.device("cpu"),
                                        tmp_path / "cpu.json")
     assert card == cpu
+
+
+# -- framework adapters and the Envoy RLS service -----------------------------
+
+
+def test_gateway_and_web_script_on_cuda_equals_cpu(cuda, monkeypatch):
+    """The smoke's frozen-clock gateway / WSGI / ASGI script at a cut size
+    (capacity 8,192, 2,000 resources, 20 routes): the card's default
+    engine gives the CPU's verdicts, blocked counts and snapshot rows,
+    through the prefix kernel."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.ops import prefix_cuda
+
+    monkeypatch.setattr(cs, "CAPACITY", 8_192)
+    monkeypatch.setattr(cs, "N_RESOURCES", 2_000)
+    cs.zero_prefix_counts()
+    card = cs.edge_gateway_script(cuda, n_routes=20, n_gateway=120, n_web=30)
+    torch.cuda.synchronize()
+    assert prefix_cuda.launches > 0
+    host = cs.edge_gateway_script(torch.device("cpu"), n_routes=20,
+                                  n_gateway=120, n_web=30)
+    assert card == host
+    assert card["blocked"]
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["direct", "batched"])
+def test_rls_service_on_cuda_equals_cpu(cuda, monkeypatch, batched):
+    """``SentinelEnvoyRlsService(device=cuda)`` over the smoke's seeded
+    calls (2,000 descriptors): every code and ``limit_remaining`` equal
+    to the CPU service's, through the acquire kernel."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+
+    monkeypatch.setattr(cs, "RLS_DESCRIPTORS", 2_000)
+    CA.launches = 0
+    card, _ = cs.rls_script(cuda, batched, n=200)
+    torch.cuda.synchronize()
+    assert CA.launches > 0
+    host, _ = cs.rls_script(torch.device("cpu"), batched, n=200)
+    assert card == host
+    assert any(code == 2 for code, _ in card)

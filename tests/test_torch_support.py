@@ -754,3 +754,83 @@ def wait_for(pred, timeout_s: float = 5.0) -> bool:
             return True
         time.sleep(0.02)
     return pred()
+
+
+# ---------------------------------------------------------------------------
+# Framework adapters and the Envoy RLS service: one namespace per package
+# ---------------------------------------------------------------------------
+
+
+class AdPkg:
+    """One package's framework adapters (``adapters/``) and Envoy RLS
+    service (``envoy_rls/``), so a scenario written once against
+    ``P.<module>`` runs on both packages. ``kw`` is the device keyword the
+    port's entry points take (``device="cpu"``) and the JAX package's do
+    not."""
+
+    MODULES = {
+        "gw": "adapters.gateway", "wsgi": "adapters.wsgi",
+        "asgi": "adapters.asgi", "aio": "adapters.aio",
+        "streams": "adapters.streams", "grpc_ad": "adapters.grpc_adapter",
+        "django": "adapters.django_mw", "flask": "adapters.flask_ext",
+        "rls": "envoy_rls", "proto": "envoy_rls.proto",
+        "rls_rule": "envoy_rls.rule", "exc": "core.exceptions",
+        "tu": "utils.time_util", "ctx": "core.context",
+        "config": "core.config", "flow": "models.flow",
+        "param": "models.param_flow", "authority": "models.authority",
+    }
+
+    def __init__(self, root: str):
+        import importlib
+
+        self.name = "jax" if root == "sentinel_tpu" else "port"
+        self.st = importlib.import_module(root)
+        for attr, mod in self.MODULES.items():
+            setattr(self, attr, importlib.import_module(f"{root}.{mod}"))
+        self.kw = {} if self.name == "jax" else {"device": "cpu"}
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def service(self, **kw):
+        """An RLS service whose token service runs on this package's
+        device for the tests (the CPU)."""
+        return self.rls.SentinelEnvoyRlsService(**kw, **self.kw)
+
+    FILL = 8  # rules a family holds in every case, fillers included
+
+    def rules(self, eng, flow=(), authority=(), param=()) -> None:
+        """Load ``eng``'s user rules: the given ones, then fillers on
+        resources no case enters up to ``FILL`` a family (flow,
+        authority, param), so every case's rule tensors keep one shape
+        and the JAX engine compiles its steps once for the module;
+        degrade and system empty. The gateway partition is left as it
+        is (the cases hold it at 1-8 rules: 9-16 param rules in all)."""
+        def fill(given, make):
+            return [*given, *(make(f"_fill{i}")
+                              for i in range(self.FILL - len(given)))]
+
+        eng.flow_rules.load_rules(fill(
+            flow, lambda r: self.flow.FlowRule(resource=r, count=1e9)))
+        eng.authority_rules.load_rules(fill(
+            authority, lambda r: self.authority.AuthorityRule(r, "nobody", 1)))
+        eng.param_rules.load_rules(fill(
+            param, lambda r: self.param.ParamFlowRule(r, param_idx=0,
+                                                      count=1e9)))
+        eng.degrade_rules.load_rules([])
+        eng.system_rules.load_rules([])
+
+    def gateway_filler(self, eng) -> None:
+        """The gateway partition of a case that loads no gateway rule."""
+        eng.param_rules.load_gateway_rules([self.param.ParamFlowRule(
+            "_fill_gw", param_idx=0, count=1e9)])
+
+
+_AD_PKGS = []
+
+
+def ad_pkgs():
+    """(JAX, port) adapter / RLS namespaces, built once per process."""
+    if not _AD_PKGS:
+        _AD_PKGS.extend((AdPkg("sentinel_tpu"), AdPkg("sentinel_tpu_torch")))
+    return tuple(_AD_PKGS)
