@@ -351,9 +351,35 @@ Phases (any failure raises and exits non-zero; none is caught):
    launches are read over (a)'s card runs, acquire launches over (b)'s;
    no thread left. The phase must end within 150 s. Prints one
    ``{"edge": ...}`` line.
-18. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control, HA, LLM, simulator, datasource and edge paths' launches), the
-   card line, and the final ``{"ok": true, ...}``.
+18. The command center and the OpenMetrics exporter (``transport/``,
+   ``telemetry/exporter.py``). The main path's engine kind (capacity
+   32,768, the headline's 10,000 resources and rules) as the card's
+   default engine under ``st.init_ops_plane(port=0)``: the metric timer
+   writes into a temporary log directory and the heartbeat posts every
+   200 ms to a loopback dashboard stub. One after the other over
+   loopback: 100 of each read command (``version``, ``api``,
+   ``getRules``, ``cnode``, ``clusterNode``, ``systemStatus``,
+   ``telemetry``, ``leases``, ``getSwitch``), p50/p99 ms each; 5
+   ``setRules`` pushes of the headline's 1,000 flow rules, each
+   tightening one resource to 5 a second, and one width-8192
+   ``check_batch`` after each that must enforce it (push -> enforcing
+   step ms); 20 ``GET /metrics`` (bytes, ms, the in-process render's ms),
+   whose content type is the OpenMetrics one and whose pass and block
+   totals equal ``telemetry_counts()`` for every resource. The ``metric``
+   command returns the seconds the timer sealed, and the stub received a
+   heartbeat with the bound port. Then a frozen-clock script (every
+   family and a gateway route pushed through the commands, 200 entries,
+   the read-back of 11 commands) through a ``CommandCenter`` on a card
+   engine and one on a CPU engine (capacity 8,192) gives equal answers,
+   apart from the values of named timing fields; the event-loop center
+   gives the card engine's answers. ``shutdown_ops_plane`` leaves the
+   port refusing, no thread and the default engine closed. Prefix
+   launches over the timed part and the card's script. The phase must
+   end within 60 s. Prints one ``{"ops": ...}`` line, also when a check
+   fails.
+19. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM, simulator, datasource, edge and ops paths'
+   launches), the card line, and the final ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -7724,6 +7750,537 @@ def edge_phase(dev):
             "acquire_by_width": acquire["by_width"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the command center and the OpenMetrics exporter
+# ---------------------------------------------------------------------------
+
+OPS_PHASE_LIMIT_S = 60.0
+OPS_DIR = Path(__file__).resolve().parent / "smoke_logs" / "ops"
+OPS_READ_REPS = 100
+# The three reads that each walk the whole table at 10,000 resources
+# (26-131 ms p50 on an H100, O1) run half as often: at 100 each they took
+# 21 s of the phase's 60 (O1), and a slower host runs every phase ~1.3x
+# slower (PERF.md section 6, E2).
+OPS_TABLE_READ_REPS = 50
+OPS_READS = {"version": OPS_READ_REPS, "api": OPS_READ_REPS,
+             "getRules?type=flow": OPS_READ_REPS,
+             "cnode?id=res0": OPS_TABLE_READ_REPS,
+             "clusterNode": OPS_TABLE_READ_REPS,
+             "systemStatus": OPS_READ_REPS,
+             "telemetry": OPS_TABLE_READ_REPS,
+             "leases": OPS_READ_REPS, "getSwitch": OPS_READ_REPS}
+OPS_PUSHES = 5                  # rounds: tighten DS_TIGHT[k] alone to 5/s
+OPS_SCRAPES = 20
+OPS_RENDERS = 1                 # in-process renders, timed apart from HTTP
+OPS_HEARTBEAT_MS = 200
+OPS_PARITY_CAPACITY = 8192
+# The script's 200 entries: four steps at widths the kernel phase times
+# (N = 64 and 8), at 0, 250, 1250 and 1500 ms; exits for the passed.
+OPS_SCRIPT_STEPS = ((0, 64), (250, 64), (1250, 64), (1500, 8))
+# Values that are host wall times: compared by name, type and label set
+# (metrics) or left out (JSON) when the card's answers are held to the
+# CPU's.
+OPS_TIMING_FAMILIES = (
+    "sentinel_tpu_step_ms", "sentinel_tpu_enqueue_ms",
+    "sentinel_tpu_step_duration_ms", "sentinel_tpu_pipeline_queue_wait_ms",
+    "sentinel_tpu_pipeline_device_wait_ms",
+    "sentinel_tpu_waterfall_stage_ms", "sentinel_tpu_waterfall_rtt_ms",
+    "sentinel_tpu_wire_rtt_ms", "sentinel_tpu_population_fold_ms")
+
+
+def ops_untimed(obj):
+    """``obj`` (parsed JSON) without its wall-time fields (``stepP50Ms``,
+    ``enqueueP95Ms``, ``queueWaitP50Ms``, ``deviceWaitP95Ms``, ...)."""
+    import re
+
+    timing = re.compile(r"^(step|enqueue|queueWait|deviceWait|rtt)P\d+Ms$")
+    if isinstance(obj, dict):
+        return {k: ops_untimed(v) for k, v in obj.items()
+                if not timing.match(k)}
+    if isinstance(obj, list):
+        return [ops_untimed(v) for v in obj]
+    return obj
+
+
+def ops_masked(text: str):
+    """An OpenMetrics page's lines, the samples of OPS_TIMING_FAMILIES
+    with their values replaced by a placeholder."""
+    out, family = [], None
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            family = line.split()[2]
+        elif family in OPS_TIMING_FAMILIES and not line.startswith("#"):
+            line = line.split(" # ", 1)[0].rpartition(" ")[0] + " <t>"
+        out.append(line)
+    return out
+
+
+def ops_http(port, path, body=None):
+    """(status, body, content type, ms) of one request over loopback."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{path}",
+        data=body.encode() if body is not None else None)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = (r.status, r.read().decode(), r.headers["Content-Type"])
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.read().decode(), e.headers["Content-Type"])
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def ops_quantiles(ms):
+    s = sorted(ms)
+    return {"n": len(s), "p50_ms": s[len(s) // 2],
+            "p99_ms": s[min(len(s) - 1, int(len(s) * 0.99))], "max_ms": s[-1]}
+
+
+class _DashboardStub:
+    """A loopback dashboard: records every POST to /registry/machine."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        import urllib.parse
+
+        received = self.received = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n).decode()
+                received.append((self.path, urllib.parse.parse_qs(body)))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"ok")
+
+        self.server = HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="ops-dashboard-stub", daemon=True)
+        self.thread.start()
+        self.address = f"127.0.0.1:{self.server.server_address[1]}"
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=5)
+
+
+def ops_documents():
+    """The headline's 1,000 flow rules as JSON, once per push round with
+    ``DS_TIGHT[k]`` alone tightened to ``DS_TIGHT_COUNT`` a second."""
+    from sentinel_tpu_torch.datasource import converters as CV
+
+    docs = []
+    for k in range(OPS_PUSHES):
+        docs.append(CV.flow_rules_to_json([
+            F.FlowRule(resource=f"res{i}",
+                       count=DS_TIGHT_COUNT if f"res{i}" == DS_TIGHT[k]
+                       else 1e9)
+            for i in range(0, N_RESOURCES, 10)]))
+    return docs
+
+
+def ops_script_rules():
+    """The card = CPU script's rules: every family, as setRules bodies,
+    and one gateway route."""
+    return {
+        "flow": [{"resource": f"s{i}", "count": 2 + i % 4, "grade": 1}
+                 for i in range(10)],
+        "degrade": [{"resource": f"s{i}", "grade": i % 3, "count": 1,
+                     "timeWindow": 1, "minRequestAmount": 2}
+                    for i in range(10, 15)],
+        "system": [{"qps": 1e6}],
+        "authority": [{"resource": "s15", "limitApp": "appA",
+                       "strategy": 1}],
+        "paramFlow": [{"resource": f"s{i}", "paramIdx": 0, "count": 2}
+                      for i in range(16, 20)],
+        "gateway": [{"resource": "route-a", "count": 2, "intervalSec": 1}],
+    }
+
+
+OPS_SCRIPT_READS = ("cnode?id=s0", "clusterNode", "getRules?type=flow",
+                    "getRules?type=degrade", "getRules?type=system",
+                    "getRules?type=authority", "getRules?type=paramFlow",
+                    "gateway/getRules", "metrics", "telemetry", "leases")
+
+
+def ops_read_back(port):
+    """The script's read-back: each answer as it is compared (metrics
+    masked, JSON without wall times)."""
+    out = {}
+    for path in OPS_SCRIPT_READS:
+        status, body, ctype, _ = ops_http(port, path)
+        if path == "metrics":
+            body = ops_masked(body)
+        elif body[:1] in ("[", "{"):
+            body = ops_untimed(json.loads(body))
+        out[path] = (status, ctype, body)
+    return out
+
+
+def ops_script(dev, epoch_ms):
+    """The card = CPU script on a fresh engine (``OPS_PARITY_CAPACITY``
+    rows) with its own ``CommandCenter``, on the port's clock frozen at
+    ``epoch_ms``: every family and a gateway route pushed through the
+    commands, the entries of ``OPS_SCRIPT_STEPS`` (exits for the passed),
+    then the read-back. Returns (the read-back, the engine, its center); the
+    caller stops the center and closes the engine."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.transport.command_center import CommandCenter
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    time_util.freeze_time(epoch_ms)
+    eng = SentinelEngine(capacity=OPS_PARITY_CAPACITY, device=dev)
+    center = CommandCenter(engine=eng, port=0).start()
+    port = center.bound_port
+    pushed = {}
+    for family, rules in ops_script_rules().items():
+        path = ("gateway/updateRules" if family == "gateway"
+                else f"setRules?type={family}")
+        pushed[family] = ops_http(port, path, json.dumps(rules))[:2]
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    names = [f"s{i}" for i in range(20)] + ["route-a", "u0", "u1"]
+    rows = [(reg.cluster_row(n), reg.default_row(CTX, n, ent))
+            for n in names]
+    origin_a = reg.origin_id("appA")
+    rng = np.random.default_rng(18)
+    for offset, per in OPS_SCRIPT_STEPS:
+        now = epoch_ms + offset
+        time_util.freeze_time(now)
+        buf = make_entry_batch_np(per)
+        pick = rng.integers(0, len(names), size=per)
+        buf["cluster_row"][:] = [rows[i][0] for i in pick]
+        buf["dn_row"][:] = [rows[i][1] for i in pick]
+        buf["count"][:] = 1
+        buf["origin_id"][:] = np.where(rng.random(per) < 0.3, origin_a, -3)
+        buf["param_hash"][:, 0] = rng.integers(1, 4, size=per)
+        buf["param_present"][:, 0] = True
+        reason = eng.harvest_decisions(eng.check_batch(
+            to_device(buf, dev), now_ms=now))[0]
+        eng.traces.drain()
+        ok = np.asarray(reason) == 0
+        ebuf = make_exit_batch_np(per)
+        for f in ("cluster_row", "dn_row", "origin_row", "entry_in",
+                  "count", "param_hash", "param_present"):
+            ebuf[f][:] = buf[f]
+        ebuf["cluster_row"][~ok] = -1
+        ebuf["success"][:] = ok
+        ebuf["rt_ms"][:] = rng.integers(1, 200, size=per)
+        ebuf["error"][:] = rng.random(per) < 0.2
+        eng.complete_batch(to_device(ebuf, dev), now_ms=now + 100)
+    time_util.freeze_time(epoch_ms + 3000)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = ops_read_back(port)
+    out["pushed"] = pushed
+    return out, eng, center
+
+
+def ops_phase(dev):
+    """The command center and the OpenMetrics exporter on the card: the
+    main path's engine kind as the default engine under
+    ``st.init_ops_plane(port=0)`` (metric timer, heartbeat to a loopback
+    dashboard stub), read commands, rule pushes that must enforce at the
+    next step, scrapes of ``/metrics`` checked against the device
+    counters; then a frozen-clock script card = CPU through two
+    ``CommandCenter``s and the event-loop twin on the card's. Prints one
+    ``{"ops": ...}`` line whatever fails (a failed check raises after it,
+    naming the check); returns the card's prefix launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core.config import (DASHBOARD_SERVER,
+                                                HEARTBEAT_INTERVAL_MS)
+    from sentinel_tpu_torch.telemetry.exporter import (_active_rows,
+                                                       render_engine_metrics)
+    from sentinel_tpu_torch.telemetry.openmetrics import (
+        OPENMETRICS_CONTENT_TYPE, parse_families)
+    from sentinel_tpu_torch.transport.aio_command_center import (
+        AsyncCommandCenter)
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = set(threading.enumerate())
+    OPS_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    parts, out, failed = {}, {}, []
+    prefix_total, by_shape = 0, {}
+
+    def check(ok, name):
+        if not ok:
+            failed.append(name)
+
+    def add_prefix(c):
+        nonlocal prefix_total
+        prefix_total += c["launches"]
+        for s, k in c["by_shape"].items():
+            by_shape[s] = by_shape.get(s, 0) + k
+
+    log_dir = tempfile.mkdtemp(prefix="metric-log-", dir=OPS_DIR)
+    saved = {k: config._config.get(k) for k in (
+        LOG_DIR, DASHBOARD_SERVER, HEARTBEAT_INTERVAL_MS)}
+    stub = _DashboardStub()
+    config.set(LOG_DIR, log_dir)
+    config.set(DASHBOARD_SERVER, stub.address)
+    config.set(HEARTBEAT_INTERVAL_MS, str(OPS_HEARTBEAT_MS))
+    script_engines, port = [], None
+    try:
+        # -- setup: the headline engine as the default engine -------------
+        t1 = time.perf_counter()
+        ctx_mod.replace_context(None)
+        ctx_mod.bump_generation()
+        time_util.freeze_time(NOW0)
+        eng = st.reset(capacity=CAPACITY, device=dev)
+        reg = eng.registry
+        ent = reg.entrance_row(CTX)
+        cluster = np.array([reg.cluster_row(f"res{i}")
+                            for i in range(N_RESOURCES)], np.int32)
+        dn = np.array([reg.default_row(CTX, f"res{i}", ent)
+                       for i in range(N_RESOURCES)], np.int32)
+        origin_a = reg.origin_id("appA")
+        load_rules(eng, tight=False)
+        tight_rows = np.array([int(r[3:]) for r in DS_TIGHT])
+        docs = ops_documents()
+        plane = st.init_ops_plane(port=0)
+        center = plane["command_center"]
+        port = center.bound_port
+        step = [0]
+        admitted = {}  # second -> res0's admitted lanes
+
+        def run_step():
+            """One ds_batch step at a fresh second; returns the
+            verdicts and the step's ms."""
+            time_util.advance_time(1000)
+            batch = ds_batch(step[0], cluster, dn, origin_a, tight_rows)
+            step[0] += 1
+            ts = time.perf_counter()
+            reason = np.asarray(eng.harvest_decisions(eng.check_batch(
+                to_device(batch, dev),
+                now_ms=time_util.current_time_millis()))[0])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - ts) * 1e3
+            hit = batch["cluster_row"] == cluster[tight_rows[0]]
+            second = time_util.current_time_millis() // 1000 * 1000
+            admitted[second] = int((reason[hit] == 0).sum())
+            return batch, reason, ms
+
+        run_step()  # the first step: every resource active, rules compiled
+        parts["setup_s"] = time.perf_counter() - t1
+
+        # -- timed part: reads, pushes, scrapes, one after the other -------
+        zero_prefix_counts()
+        t1 = time.perf_counter()
+        reads = {}
+        for path, reps in OPS_READS.items():
+            ms, statuses = [], set()
+            for _ in range(reps):
+                status, body, _, t = ops_http(port, path)
+                ms.append(t)
+                statuses.add(status)
+            check(statuses == {200}, f"read {path}: statuses {statuses}")
+            reads[path] = dict(ops_quantiles(ms), bytes=len(body))
+        parts["reads_s"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        pushes = []
+        for k, doc in enumerate(docs):
+            tp = time.perf_counter()
+            status, body, _, post_ms = ops_http(port, "setRules?type=flow",
+                                                doc)
+            check((status, body) == (200, "success"),
+                  f"push {k}: {status} {body[:80]}")
+            batch, reason, step_ms = run_step()
+            e2e = (time.perf_counter() - tp) * 1e3
+            for i, row in enumerate(tight_rows[:OPS_PUSHES]):
+                hit = batch["cluster_row"] == cluster[row]
+                got = int((reason[hit] == 0).sum())
+                want = DS_TIGHT_COUNT if i == k else int(hit.sum())
+                check(got == want, f"push {k}: {DS_TIGHT[i]} admitted "
+                                   f"{got}, not {want}")
+            pushes.append({"post_ms": post_ms, "step_ms": step_ms,
+                           "push_to_enforce_ms": e2e})
+        parts["pushes_s"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        scrape_ms, page = [], None
+        for _ in range(OPS_SCRAPES):
+            status, page, ctype, t = ops_http(port, "metrics")
+            scrape_ms.append(t)
+            check(status == 200, f"metrics: status {status}")
+            check(ctype == OPENMETRICS_CONTENT_TYPE,
+                  f"metrics: content type {ctype}")
+        render_ms = []
+        for _ in range(OPS_RENDERS):
+            tr = time.perf_counter()
+            render_engine_metrics(eng)
+            render_ms.append((time.perf_counter() - tr) * 1e3)
+        parts["scrapes_s"] = time.perf_counter() - t1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        add_prefix(read_prefix_counts())
+        out["timed_prefix"] = read_prefix_counts()
+
+        # -- checks on the page, the metric log, the heartbeat -------------
+        families = parse_families(page)
+        counts = eng.telemetry_counts()
+        rows = _active_rows(eng, counts)
+        for fam, ev in (("sentinel_tpu_pass", C.MetricEvent.PASS),
+                        ("sentinel_tpu_block", C.MetricEvent.BLOCK)):
+            got = {lab["resource"]: v for _, lab, v in families.get(fam, ())}
+            want = {res: float(counts["totals"][int(ev), row])
+                    for res, row in rows.items()}
+            check(got == want, f"metrics: {fam} totals != telemetry_counts")
+        # the metric timer seals every second before the frozen now
+        time_util.advance_time(1000)
+        deadline = time.perf_counter() + 5.0
+        lines = []
+        while time.perf_counter() < deadline:
+            _, body, _, _ = ops_http(port, f"metric?startTime=0&identity="
+                                           f"{DS_TIGHT[0]}")
+            lines = [ln.split("|") for ln in body.splitlines() if ln]
+            if len(lines) >= len(admitted):
+                break
+            time.sleep(0.1)
+        sealed = {int(f[0]): int(f[2]) for f in lines}
+        check(sealed == admitted,
+              f"metric: sealed {sealed} != admitted {admitted}")
+        beats = list(stub.received)
+        check(len(beats) >= 1, "heartbeat: none received")
+        if beats:
+            path, form = beats[-1]
+            check(path == "/registry/machine", f"heartbeat: path {path}")
+            check(form.get("port") == [str(port)],
+                  f"heartbeat: port {form.get('port')} != {port}")
+            check(form.get("app") == [config.app_name()],
+                  f"heartbeat: app {form.get('app')}")
+        e2e = sorted(p["push_to_enforce_ms"] for p in pushes)
+        out["timed"] = {
+            "capacity": CAPACITY, "resources": N_RESOURCES,
+            "reads": reads,
+            "pushes": pushes,
+            "push_to_enforce_ms_p50": e2e[len(e2e) // 2],
+            "push_to_enforce_ms_max": e2e[-1],
+            "document_bytes": len(docs[0]),
+            "metrics": dict(ops_quantiles(scrape_ms), bytes=len(page),
+                            scrapes=OPS_SCRAPES,
+                            render_ms=sorted(render_ms),
+                            active_resources=len(rows)),
+            "metric_seconds_sealed": len(sealed),
+            "heartbeats": len(beats),
+            "heartbeat_interval_ms": OPS_HEARTBEAT_MS}
+
+        # The ops plane stops here, before the scripts: its heartbeat's
+        # last success is a probe age the scripts' pages render.
+        st.shutdown_ops_plane()
+
+        # -- card = CPU, and the event-loop twin ---------------------------
+        t1 = time.perf_counter()
+        epoch = (time_util.current_time_millis() // 1000 + 100) * 1000
+        zero_prefix_counts()
+        card, card_eng, card_center = ops_script(dev, epoch)
+        script_engines.append((card_eng, card_center))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        script_prefix = read_prefix_counts()
+        add_prefix(script_prefix)
+        parts["script_card_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host, host_eng, host_center = ops_script(cpu, epoch)
+        script_engines.append((host_eng, host_center))
+        parts["script_cpu_s"] = time.perf_counter() - t1
+        for key in card:
+            check(card[key] == host[key], f"card = CPU: {key} differs")
+        check(all(p == (200, "success") for p in card["pushed"].values()),
+              f"script pushes {card['pushed']}")
+        blocked = sum(v["blockTotal"] for v in card["telemetry"][2][
+            "resources"].values())
+        check(blocked > 0, "script: nothing blocked")
+        t1 = time.perf_counter()
+        aio = AsyncCommandCenter(engine=card_eng, port=0).start()
+        try:
+            twin = ops_read_back(aio.bound_port)
+        finally:
+            aio.stop()
+        for key in twin:
+            check(twin[key] == card[key], f"event-loop center: {key} differs")
+        parts["aio_s"] = time.perf_counter() - t1
+        out["script"] = {"capacity": OPS_PARITY_CAPACITY,
+                         "entries": sum(w for _, w in OPS_SCRIPT_STEPS),
+                         "reads": list(OPS_SCRIPT_READS),
+                         "blocked": blocked, "prefix": script_prefix,
+                         "card_equals_cpu": not any(
+                             f.startswith("card = CPU") for f in failed),
+                         "aio_equals_threaded": not any(
+                             f.startswith("event-loop") for f in failed)}
+    finally:
+        time_util.unfreeze_time()
+        for eng_, center_ in script_engines:
+            center_.stop()
+            eng_.close()
+        st.shutdown_ops_plane()
+        stub.stop()
+        ctx_mod.replace_context(None)
+        default = st._default_engine
+        if default is not None:
+            default.close()
+            if not default._closed:
+                failed.append("the default engine is not closed")
+        for k, v in saved.items():
+            if v is None:
+                config._config.pop(k, None)
+            else:
+                config.set(k, v)
+        shutil.rmtree(log_dir, ignore_errors=True)
+        if port is not None:
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=2).close()
+                failed.append(f"port {port} still accepts after shutdown")
+            except OSError:
+                pass
+        alive = []
+        deadline = time.perf_counter() + 5
+        while time.perf_counter() < deadline:
+            alive = [t.name for t in threading.enumerate()
+                     if t not in before and t.is_alive()]
+            if not alive:
+                break
+            time.sleep(0.05)
+        if alive:
+            failed.append(f"threads alive after the phase: {alive}")
+        out["threads_left"] = len(alive)
+        out["default_engine_closed"] = default is None or default._closed
+        out["prefix_launches"] = prefix_total
+        out["prefix_by_shape"] = dict(sorted(by_shape.items()))
+        out["parts_s"] = parts
+        out["memory_bytes"] = memory_report(mem0)
+        out["failed_checks"] = failed
+        out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"ops": out}), flush=True)
+    if failed:
+        raise AssertionError(f"ops: {failed[0]} ({len(failed)} failed)")
+    if dev.type == "cuda" and prefix_total <= 0:
+        raise AssertionError("ops: the path launched the prefix kernel no "
+                             "time")
+    if out["phase_s"] > OPS_PHASE_LIMIT_S:
+        raise AssertionError(f"ops phase took {out['phase_s']:.1f} s, over "
+                             f"{OPS_PHASE_LIMIT_S} s")
+    return {"prefix": prefix_total, "prefix_by_shape": out["prefix_by_shape"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7772,6 +8329,7 @@ def main() -> int:
     llm_launches = llm_phase(dev)
     ds_launches = datasource_phase(dev)
     edge_launches = edge_phase(dev)
+    ops_launches = ops_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -7807,6 +8365,8 @@ def main() -> int:
         "datasource_path_launches_by_shape": ds_launches["prefix_by_shape"],
         "edge_path_launches": edge_launches["prefix"],
         "edge_path_launches_by_shape": edge_launches["prefix_by_shape"],
+        "ops_path_launches": ops_launches["prefix"],
+        "ops_path_launches_by_shape": ops_launches["prefix_by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[

@@ -37,6 +37,12 @@ rules, lowered onto flow rules, and the engine's ``stream_open`` /
 trace-replay simulator (``simulator/``) drives an engine through recorded
 or synthetic seconds on a program clock.
 
+The ops plane (``transport/``): :func:`init_ops_plane` starts the
+command HTTP server (rule CRUD, node stats, the OpenMetrics ``metrics``
+exposition of ``telemetry/exporter.py``), the metric log timer and, when
+``csp.sentinel.dashboard.server`` is set, the dashboard heartbeat;
+:func:`shutdown_ops_plane` stops them.
+
 This package imports ``torch`` and ``numpy`` only: never ``jax`` and
 nothing of ``sentinel_tpu``.
 """
@@ -148,6 +154,49 @@ def trace(ex: BaseException) -> None:
         ctx.cur_entry.trace(ex)
 
 
+_ops_plane = None
+
+
+def init_ops_plane(port: Optional[int] = None):
+    """Boot the ops plane (reference: ``InitExecutor.doInit``, SURVEY.md
+    §3.4): the command HTTP server, the heartbeat (when a dashboard is
+    configured) and the 1 Hz metric log timer. Idempotent; returns the
+    started parts. ``port=0`` binds an ephemeral port (``command_center.
+    bound_port``); None reads ``csp.sentinel.api.port`` (8719).
+    """
+    global _ops_plane
+    if _ops_plane is not None:
+        return _ops_plane
+    from sentinel_tpu_torch.core.config import config as _config
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.transport.command_center import CommandCenter
+    from sentinel_tpu_torch.transport.heartbeat import HeartbeatSender
+
+    get_engine()
+    # No explicit engine: both follow the live default engine so a later
+    # reset() doesn't leave the ops plane serving a dead one.
+    center = CommandCenter(port=port).start()
+    timer = MetricTimerListener().start()
+    heartbeat = None
+    if _config.dashboard_server():
+        heartbeat = HeartbeatSender(api_port=center.bound_port).start()
+    _ops_plane = {"command_center": center, "metric_timer": timer,
+                  "heartbeat": heartbeat}
+    return _ops_plane
+
+
+def shutdown_ops_plane() -> None:
+    """Stop what :func:`init_ops_plane` started and join its threads."""
+    global _ops_plane
+    if _ops_plane is None:
+        return
+    parts, _ops_plane = _ops_plane, None
+    parts["command_center"].stop()
+    parts["metric_timer"].stop()
+    if parts["heartbeat"] is not None:
+        parts["heartbeat"].stop()
+
+
 def load_flow_rules(rules) -> None:
     get_engine().flow_rules.load_rules(list(rules))
 
@@ -181,8 +230,9 @@ __all__ = [
     "ResourceType", "SentinelEngine", "SystemBlockException", "SystemRule",
     "TpsRule", "constants", "context_enter", "entry", "entry_ok",
     "exit_context", "get_context", "get_engine", "init_func",
-    "load_authority_rules", "load_degrade_rules", "load_flow_rules",
+    "init_ops_plane", "load_authority_rules", "load_degrade_rules", "load_flow_rules",
     "load_param_flow_rules", "load_system_rules", "load_tps_rules",
     "register_device_checker", "register_slot", "reset", "resilience",
-    "trace", "unregister_device_checker", "unregister_slot",
+    "shutdown_ops_plane", "trace", "unregister_device_checker",
+    "unregister_slot",
 ]

@@ -19,9 +19,21 @@ LOG_DIR = "csp.sentinel.log.dir"
 # The metric log (metrics/writer.py): the file name's app and the roll and
 # trim limits (reference: SentinelConfig's metric file keys).
 APP_NAME = "project.name"
+APP_TYPE = "csp.sentinel.app.type"
 SINGLE_METRIC_FILE_SIZE = "csp.sentinel.metric.file.single.size"
 TOTAL_METRIC_FILE_COUNT = "csp.sentinel.metric.file.total.count"
 LEASE_ENABLED = "csp.sentinel.lease.enabled"
+# The ops plane (transport/): the dashboards a heartbeat registers with
+# (comma-separated ``host:port``), the command center's port, the
+# heartbeat's cadence and the address it reports.
+DASHBOARD_SERVER = "csp.sentinel.dashboard.server"
+API_PORT = "csp.sentinel.api.port"
+HEARTBEAT_INTERVAL_MS = "csp.sentinel.heartbeat.interval.ms"
+HEARTBEAT_CLIENT_IP = "csp.sentinel.heartbeat.client.ip"
+# Shared secret for /registry/machine (dashboard-side keys follow the
+# sentinel.dashboard.* naming); ONE constant so the sender and the gate
+# cannot drift onto different keys.
+HEARTBEAT_TOKEN = "sentinel.dashboard.heartbeat.token"
 # The instant window's geometry and the prioritized-borrow wait cap, read
 # once at engine construction (reference: IntervalProperty /
 # SampleCountProperty / OccupyTimeoutProperty); runtime retunes go
@@ -327,6 +339,8 @@ DEFAULT_JOURNAL_ROTATE_BYTES = 4 * 1024 * 1024
 DEFAULT_FLEET_HISTORY_SECONDS = 512
 DEFAULT_FLEET_STALE_MS = 5_000
 DEFAULT_FLEET_MAX_SECONDS = 16
+DEFAULT_API_PORT = 8719
+DEFAULT_HEARTBEAT_INTERVAL_MS = 10_000
 
 
 def _env_key(key: str) -> str:
@@ -378,6 +392,19 @@ class SentinelConfig:
 
     def app_name(self) -> str:
         return self.get(APP_NAME) or DEFAULT_APP_NAME
+
+    def app_type(self) -> int:
+        return self.get_int(APP_TYPE, 0)
+
+    def api_port(self) -> int:
+        return self.get_int(API_PORT, DEFAULT_API_PORT)
+
+    def dashboard_server(self) -> Optional[str]:
+        return self.get(DASHBOARD_SERVER)
+
+    def heartbeat_interval_ms(self) -> int:
+        return self.get_int(HEARTBEAT_INTERVAL_MS,
+                            DEFAULT_HEARTBEAT_INTERVAL_MS)
 
     def single_metric_file_size(self) -> int:
         return self.get_int(SINGLE_METRIC_FILE_SIZE,

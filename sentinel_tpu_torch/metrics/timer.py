@@ -2,9 +2,9 @@
 reference: ``core:node/metric/MetricTimerListener.java``): pull sealed
 seconds from the engine (``seal_metrics``) and append them to the metric
 log. The listener only reads the engine it is given (or the module's
-default engine); it never builds or moves one. Nothing starts it
-automatically yet: the ops plane that starts it in the reference
-(``init_ops_plane``) is still to port.
+default engine); it never builds or moves one. ``init_ops_plane``
+starts one that follows the default engine, and ``shutdown_ops_plane``
+stops it.
 """
 
 from __future__ import annotations

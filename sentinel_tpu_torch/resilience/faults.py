@@ -9,6 +9,8 @@ Named fault points:
   pass through :func:`mutate`, so garbage mode can corrupt the stream).
 * ``datasource.read`` -- every ``AbstractDataSource.load_config``
   (``datasource/base.py``) and the poll connectors' content-dedup read.
+* ``heartbeat.post`` -- heartbeat sender (``transport/heartbeat.py``),
+  before each POST.
 * ``cluster.ha.leader.crash`` -- fired by the token server's batcher
   before each device step; an armed error hard-kills the server
   (listener and connections closed, no drain).
@@ -79,6 +81,7 @@ FAULT_POINTS = (
     "cluster.client.send",
     "cluster.server.frame",
     "datasource.read",
+    "heartbeat.post",
     "cluster.ha.leader.crash",
     "cluster.ha.halfopen",
     "cluster.ha.stale.epoch",

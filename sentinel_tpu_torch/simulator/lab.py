@@ -21,8 +21,8 @@ over AIMD gains on a scenario, returning the best-scoring parameters —
 the "tuned AIMD" the acceptance criteria pit against the default.
 
 The last completed report is retained module-wide (``last_report``) for
-the ops plane (the ``sim`` command and the ``sentinel_tpu_sim_*``
-exporter families, which the port does not have yet).
+the ops plane (the ``sim`` command of ``transport/handlers.py`` and the
+``sentinel_tpu_sim_*`` families of ``telemetry/exporter.py``).
 
 Device: ``run_lab`` and ``tune_aimd`` take ``device=`` for their replay
 engines (``cuda`` unless the caller asks for the CPU; raises with no

@@ -834,3 +834,61 @@ def ad_pkgs():
     if not _AD_PKGS:
         _AD_PKGS.extend((AdPkg("sentinel_tpu"), AdPkg("sentinel_tpu_torch")))
     return tuple(_AD_PKGS)
+
+
+# ---------------------------------------------------------------------------
+# The ops plane: one namespace per package
+# ---------------------------------------------------------------------------
+
+
+class OpsPkg:
+    """One package's ops plane (``transport/``, ``telemetry/exporter.py``,
+    ``telemetry/openmetrics.py``) and what its commands act on, so a
+    scenario written once against ``P.<module>`` runs on both packages.
+    ``kw`` is the device keyword the port's entry points take
+    (``device="cpu"``) and the JAX package's do not."""
+
+    MODULES = {
+        "cc": "transport.command_center",
+        "aio": "transport.aio_command_center",
+        "handlers": "transport.handlers", "hb": "transport.heartbeat",
+        "exporter": "telemetry.exporter", "om": "telemetry.openmetrics",
+        "config": "core.config", "tu": "utils.time_util",
+        "ctx": "core.context", "engine_mod": "core.engine",
+        "C": "core.constants", "batch": "core.batch",
+        "timer": "metrics.timer",
+        "writer": "metrics.writer",
+        "gw": "adapters.gateway", "push": "datasource.push",
+        "conv": "datasource.converters", "flow": "models.flow",
+        "client": "cluster.client", "CC": "cluster.constants",
+        "cluster_rules": "cluster.rules", "server": "cluster.server",
+        "ts": "cluster.token_service", "resilience": "resilience",
+        "lab": "simulator.lab", "chaos": "chaos",
+        "adaptive_ctl": "adaptive.controller", "llm": "llm",
+    }
+
+    def __init__(self, root: str):
+        import importlib
+
+        self.name = "jax" if root == "sentinel_tpu" else "port"
+        self.st = importlib.import_module(root)
+        for attr, mod in self.MODULES.items():
+            setattr(self, attr, importlib.import_module(f"{root}.{mod}"))
+        self.kw = {} if self.name == "jax" else {"device": "cpu"}
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def engine(self, capacity: int = 128, **kw):
+        return self.engine_mod.SentinelEngine(capacity=capacity, **kw,
+                                              **self.kw)
+
+
+_OPS_PKGS = []
+
+
+def ops_pkgs():
+    """(JAX, port) ops-plane namespaces, built once per process."""
+    if not _OPS_PKGS:
+        _OPS_PKGS.extend((OpsPkg("sentinel_tpu"), OpsPkg("sentinel_tpu_torch")))
+    return tuple(_OPS_PKGS)
