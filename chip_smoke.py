@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero; none is caught):
    ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compiles ``sentinel_tpu_torch/csrc/segmented_prefix.cu`` (and
    the headers it includes) and ``csrc/cluster_acquire.cu``, one nvcc for
-   each, both started together, for sm_90a, and prints the ``-Xptxas -v``
-   register / shared-memory lines.
+   each, for sm_90a, and the client shim ``csrc/sentinel_shim.cpp`` with
+   the host C++ compiler, all three started together, and prints the
+   ``-Xptxas -v`` register / shared-memory lines and the shim's build
+   time.
 3. Kernel vs plain: the segmented-prefix kernel against the plain sort +
    cumsum version on the card, bit-equal, at N in {1, 8, 64, 512, 1000, 1024,
    2048, 8192}, K in {1, 3}, M in {1, 2}, with the 256 and near-2^24 value
@@ -377,9 +379,41 @@ Phases (any failure raises and exits non-zero; none is caught):
    launches over the timed part and the card's script. The phase must
    end within 60 s. Prints one ``{"ops": ...}`` line, also when a check
    fails.
-19. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control, HA, LLM, simulator, datasource, edge and ops paths'
-   launches), the card line, and the final ``{"ok": true, ...}``.
+19. The dashboard (``dashboard/``). The main path's engine kind as the
+   card's default engine under ``st.init_ops_plane(port=0)``, its
+   heartbeat (every 200 ms, with a token) aimed at an in-process
+   ``DashboardServer`` with auth on: the time until the dashboard lists
+   the machine as healthy; two sealed width-8192 seconds, each fetched by
+   ``MetricFetcher.fetch_once`` (ms, nodes saved), whose PASS per
+   resource must equal the step's admitted lanes; 5 pushes of the
+   headline's 1,000 flow rules through the dashboard's ``/v1/rules``,
+   each enforced at the next width-8192 step (push -> enforcing step
+   ms); 20 top-resource queries (ranked by volume) and 5 ``/metrics``
+   scrapes (bytes, ms, the render's ms; the latest pass per resource
+   equal to the repository's); 401 without a session and for a wrong
+   password; ``/cluster/assign`` flipping the engine to a token server,
+   whose acquires through the shim then grant 3 of 5. A frozen-clock script (every family
+   and a gateway route pushed through a dashboard, 200 entries, the
+   metric log fetched, the dashboard's read-back) over a card engine and
+   over a CPU engine gives equal answers. Prefix and acquire launches
+   over the timed part and the card's script. The phase must end within
+   60 s. Prints one ``{"dashboard": ...}`` line, also when a check fails.
+20. The native token client (``native.py``, the C++ shim). bench.py:840's
+   loopback against a port ``ClusterTokenServer`` on the card in a
+   process of its own (64 GLOBAL flows at 1e9; 3 warm and 20 timed
+   512-request ``request_tokens_batch`` calls through one handle:
+   acquires/s, every one OK), 1,000 ``request_token`` calls (p50 / p99
+   ms); ``native_now_ms`` within 50 ms of the wall clock; a frozen-clock
+   script (acquires, then ``demos/remote_bridge_demo.py``'s remote
+   entries: 3 of 5 pass on ``checkout``, the param rule on ``search``
+   blocks) against a server on a card engine equal to one on a CPU
+   engine. Acquire launches by width and prefix launches. The phase must
+   end within 45 s. Prints one ``{"native": ...}`` line, also when a
+   check fails.
+21. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM, simulator, datasource, edge, ops, dashboard and
+   native paths' launches), the card line, and the final
+   ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
 main path prints its bytes, holds ``host_syncs_per_round`` at 15.0625 and
@@ -3572,12 +3606,14 @@ def client_flows():
             for i, res in enumerate(api_pools()["unruled"][:CLIENT_FLOWS])]
 
 
-def client_token_server(device):
-    """``--client-token-server DEVICE``: the client run's token server in
-    a process of its own. Its service holds the 64 flows' server rules
-    and is warmed by a no-rule probe before the port binds, as the
-    standalone server warms its own; a :class:`ServiceTally` counts its
-    OK verdicts. It prints ``{"port": N}``, then answers one JSON line
+def client_token_server(device, flows="client"):
+    """``--client-token-server DEVICE [FLOWS]``: a token server in a
+    process of its own, for the cluster phase's client run (``client``:
+    the 64 flows of :func:`client_flows`) or the native phase's shim
+    (``native``: :func:`native_flows`). Its service holds the flows'
+    server rules and is warmed by a no-rule probe before the port binds,
+    as the standalone server warms its own; a :class:`ServiceTally`
+    counts its OK verdicts. It prints ``{"port": N}``, then answers one JSON line
     for each command line on its standard input: ``zero`` (the kernel
     counts to 0), ``report`` (the tally, the counts and the service's
     host ms), ``halfopen`` (its replies turn to garbage, the half-open
@@ -3601,7 +3637,7 @@ def client_token_server(device):
         F.FlowRule(resource=r.resource, count=r.count, cluster_mode=True,
                    cluster_config={"flowId": r.cluster_config["flowId"],
                                    "thresholdType": 1})
-        for r in client_flows()])
+        for r in (native_flows() if flows == "native" else client_flows())])
     svc.request_tokens([(None, 0, False)])
     tally = ServiceTally(svc)
     server = ClusterTokenServer(svc, host="127.0.0.1", port=0).start()
@@ -3648,12 +3684,12 @@ class TokenServerProcess:
     answer to each command, within a deadline. The process starts at
     once; :meth:`ready` waits for its port."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, flows="client"):
         import queue
 
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
-             "--client-token-server", str(dev)],
+             "--client-token-server", str(dev), flows],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
             cwd=str(Path(__file__).resolve().parent))
         self._lines = queue.Queue()
@@ -6169,11 +6205,25 @@ def llm_wire(dev):
 
 
 class KeptReplay(ReplayEngine):
-    """A ``ReplayEngine`` that keeps its engine for the step counts."""
+    """A ``ReplayEngine`` that keeps its engine and counts its steps: the
+    batch API it drives is not timed by the engine's step timer (as in
+    the reference), so each ``check_batch`` / ``complete_batch`` call's
+    host wall is taken here, by kind."""
 
     def _build_engine(self, clock):
-        self.eng = super()._build_engine(clock)
-        return self.eng
+        self.eng = eng = super()._build_engine(clock)
+        self.step_ms = {"entry": [], "exit": []}
+        for kind, name in (("entry", "check_batch"),
+                           ("exit", "complete_batch")):
+            fn, walls = getattr(eng, name), self.step_ms[kind]
+
+            def timed(*args, _fn=fn, _walls=walls, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                _walls.append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(eng, name, timed)
+        return eng
 
 
 def sim_replay(dev):
@@ -6184,7 +6234,6 @@ def sim_replay(dev):
     trace = build_scenario("flash_crowd", seconds=SIM_SECONDS, seed=SIM_SEED)
     rep = KeptReplay(trace, capacity=CAPACITY, device=dev)
     r = rep.run(warmup=True)
-    steps = rep.eng.step_timer.snapshot()
     return {"verdict_sha256": r.verdict_sha256, "series": r.series,
             "offered": r.offered, "passed": r.passed,
             "blocked": r.blocked, "rt_hist": list(r.rt_hist),
@@ -6192,9 +6241,9 @@ def sim_replay(dev):
                     "replay_wall_s": r.replay_wall_s,
                     "total_wall_s": r.total_wall_s,
                     "trace_s_per_wall_s": r.seconds / r.replay_wall_s,
-                    "steps": {k: v["dispatches"] for k, v in steps.items()},
-                    "step_p50_ms": {k: v.get("stepP50Ms")
-                                    for k, v in steps.items()}}}
+                    "steps": {k: len(v) for k, v in rep.step_ms.items()},
+                    "step_p50_ms": {k: pct(v, 50) if v else None
+                                    for k, v in rep.step_ms.items()}}}
 
 
 def llm_phase(dev):
@@ -7815,14 +7864,15 @@ def ops_masked(text: str):
     return out
 
 
-def ops_http(port, path, body=None):
+def ops_http(port, path, body=None, headers=None):
     """(status, body, content type, ms) of one request over loopback."""
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/{path}",
-        data=body.encode() if body is not None else None)
+        data=body.encode() if body is not None else None,
+        headers=headers or {})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=60) as r:
@@ -7925,6 +7975,47 @@ def ops_read_back(port):
     return out
 
 
+def script_steps(eng, dev, epoch_ms):
+    """The entries of ``OPS_SCRIPT_STEPS`` on ``eng`` over the script's
+    23 names (20 ruled, a gateway route, two unruled), on the port's
+    clock from ``epoch_ms``, each passed entry exited 100 ms later;
+    returns each step's verdicts."""
+    reg = eng.registry
+    ent = reg.entrance_row(CTX)
+    names = [f"s{i}" for i in range(20)] + ["route-a", "u0", "u1"]
+    rows = [(reg.cluster_row(n), reg.default_row(CTX, n, ent))
+            for n in names]
+    origin_a = reg.origin_id("appA")
+    rng = np.random.default_rng(18)
+    verdicts = []
+    for offset, per in OPS_SCRIPT_STEPS:
+        now = epoch_ms + offset
+        time_util.freeze_time(now)
+        buf = make_entry_batch_np(per)
+        pick = rng.integers(0, len(names), size=per)
+        buf["cluster_row"][:] = [rows[i][0] for i in pick]
+        buf["dn_row"][:] = [rows[i][1] for i in pick]
+        buf["count"][:] = 1
+        buf["origin_id"][:] = np.where(rng.random(per) < 0.3, origin_a, -3)
+        buf["param_hash"][:, 0] = rng.integers(1, 4, size=per)
+        buf["param_present"][:, 0] = True
+        reason = eng.harvest_decisions(eng.check_batch(
+            to_device(buf, dev), now_ms=now))[0]
+        eng.traces.drain()
+        ok = np.asarray(reason) == 0
+        verdicts.append(np.asarray(reason).tolist())
+        ebuf = make_exit_batch_np(per)
+        for f in ("cluster_row", "dn_row", "origin_row", "entry_in",
+                  "count", "param_hash", "param_present"):
+            ebuf[f][:] = buf[f]
+        ebuf["cluster_row"][~ok] = -1
+        ebuf["success"][:] = ok
+        ebuf["rt_ms"][:] = rng.integers(1, 200, size=per)
+        ebuf["error"][:] = rng.random(per) < 0.2
+        eng.complete_batch(to_device(ebuf, dev), now_ms=now + 100)
+    return verdicts
+
+
 def ops_script(dev, epoch_ms):
     """The card = CPU script on a fresh engine (``OPS_PARITY_CAPACITY``
     rows) with its own ``CommandCenter``, on the port's clock frozen at
@@ -7946,43 +8037,45 @@ def ops_script(dev, epoch_ms):
         path = ("gateway/updateRules" if family == "gateway"
                 else f"setRules?type={family}")
         pushed[family] = ops_http(port, path, json.dumps(rules))[:2]
-    reg = eng.registry
-    ent = reg.entrance_row(CTX)
-    names = [f"s{i}" for i in range(20)] + ["route-a", "u0", "u1"]
-    rows = [(reg.cluster_row(n), reg.default_row(CTX, n, ent))
-            for n in names]
-    origin_a = reg.origin_id("appA")
-    rng = np.random.default_rng(18)
-    for offset, per in OPS_SCRIPT_STEPS:
-        now = epoch_ms + offset
-        time_util.freeze_time(now)
-        buf = make_entry_batch_np(per)
-        pick = rng.integers(0, len(names), size=per)
-        buf["cluster_row"][:] = [rows[i][0] for i in pick]
-        buf["dn_row"][:] = [rows[i][1] for i in pick]
-        buf["count"][:] = 1
-        buf["origin_id"][:] = np.where(rng.random(per) < 0.3, origin_a, -3)
-        buf["param_hash"][:, 0] = rng.integers(1, 4, size=per)
-        buf["param_present"][:, 0] = True
-        reason = eng.harvest_decisions(eng.check_batch(
-            to_device(buf, dev), now_ms=now))[0]
-        eng.traces.drain()
-        ok = np.asarray(reason) == 0
-        ebuf = make_exit_batch_np(per)
-        for f in ("cluster_row", "dn_row", "origin_row", "entry_in",
-                  "count", "param_hash", "param_present"):
-            ebuf[f][:] = buf[f]
-        ebuf["cluster_row"][~ok] = -1
-        ebuf["success"][:] = ok
-        ebuf["rt_ms"][:] = rng.integers(1, 200, size=per)
-        ebuf["error"][:] = rng.random(per) < 0.2
-        eng.complete_batch(to_device(ebuf, dev), now_ms=now + 100)
+    script_steps(eng, dev, epoch_ms)
     time_util.freeze_time(epoch_ms + 3000)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     out = ops_read_back(port)
     out["pushed"] = pushed
     return out, eng, center
+
+
+def merge_counts(counts):
+    """The sum of :func:`read_cluster_counts` results (a token server
+    process's, read back from JSON, included), shapes as strings."""
+    total = {"prefix": 0, "prefix_by_shape": {}, "acquire": 0,
+             "acquire_by_width": {}}
+    for c in counts:
+        total["prefix"] += c["prefix"]
+        total["acquire"] += c["acquire"]
+        for key, src in (("prefix_by_shape", c["prefix_by_shape"]),
+                         ("acquire_by_width", c["acquire_by_width"])):
+            for shape, k in src.items():
+                shape = ("K={},N={},M={}".format(*shape)
+                         if isinstance(shape, tuple) else str(shape))
+                total[key][shape] = total[key].get(shape, 0) + k
+    return total
+
+
+def threads_left(before, timeout_s=5.0, ignore=()):
+    """Names of the threads started since ``before`` that are still alive
+    after up to ``timeout_s`` of waiting."""
+    alive = []
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t not in before and t.is_alive()
+                 and t.name not in ignore]
+        if not alive:
+            break
+        time.sleep(0.05)
+    return alive
 
 
 def ops_phase(dev):
@@ -8251,14 +8344,7 @@ def ops_phase(dev):
                 failed.append(f"port {port} still accepts after shutdown")
             except OSError:
                 pass
-        alive = []
-        deadline = time.perf_counter() + 5
-        while time.perf_counter() < deadline:
-            alive = [t.name for t in threading.enumerate()
-                     if t not in before and t.is_alive()]
-            if not alive:
-                break
-            time.sleep(0.05)
+        alive = threads_left(before)
         if alive:
             failed.append(f"threads alive after the phase: {alive}")
         out["threads_left"] = len(alive)
@@ -8281,6 +8367,694 @@ def ops_phase(dev):
     return {"prefix": prefix_total, "prefix_by_shape": out["prefix_by_shape"]}
 
 
+
+DASH_PHASE_LIMIT_S = 60.0
+DASH_DIR = Path(__file__).resolve().parent / "smoke_logs" / "dashboard"
+DASH_USER, DASH_PASSWORD = "smoke", "smoke-pass"   # auth on
+DASH_HEARTBEAT_TOKEN = "smoke-heartbeat-token"
+DASH_FETCH_SECONDS = 2          # sealed width-8192 seconds, one fetch each
+DASH_TOP_QUERIES = 20
+DASH_SCRAPES = 5
+DASH_CLUSTER_FLOW = 8800        # /cluster/assign's GLOBAL flow, 3 a second
+DASH_CLUSTER_COUNT = 3
+DASH_CLUSTER_ACQUIRES = 5
+
+
+def dash_login(port, user, password):
+    """(status, session token or None) of a ``POST /auth/login``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST", "/auth/login",
+                     f"username={user}&password={password}")
+        r = conn.getresponse()
+        r.read()
+        cookie = (r.getheader("Set-Cookie") or "").split(";")[0]
+        return r.status, cookie.split("=", 1)[1] if "=" in cookie else None
+    finally:
+        conn.close()
+
+
+def dash_script(dev, epoch_ms, log_dir):
+    """The card = CPU script of the dashboard phase: a fresh engine
+    (``OPS_PARITY_CAPACITY`` rows) with its own ``CommandCenter``, managed
+    by a fresh ``DashboardServer`` (auth off) it registered with by one
+    heartbeat, on the port's clock frozen at ``epoch_ms``: every family
+    and a gateway route pushed through the dashboard, the entries of
+    ``OPS_SCRIPT_STEPS``, the seconds sealed into the metric log at
+    ``log_dir`` and fetched into the dashboard's repository, then the
+    dashboard's read-back. Returns what is compared."""
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.dashboard import DashboardServer
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.metrics.writer import MetricWriter
+    from sentinel_tpu_torch.transport.command_center import CommandCenter
+    from sentinel_tpu_torch.transport.heartbeat import HeartbeatSender
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    time_util.freeze_time(epoch_ms)
+    config.set(LOG_DIR, log_dir)
+    eng = SentinelEngine(capacity=OPS_PARITY_CAPACITY, device=dev)
+    center = CommandCenter(engine=eng, port=0).start()
+    dash = DashboardServer(port=0, heartbeat_token="").start(fetch=False)
+    port = dash.bound_port
+
+    def data(path, body=None):
+        status, text, _, _ = ops_http(port, path, body)
+        return status, json.loads(text)["data"]
+
+    try:
+        out = {"beat": HeartbeatSender(
+            dashboards=[f"127.0.0.1:{port}"],
+            api_port=center.bound_port).send_once()}
+        app = config.app_name()
+        pushed = {}
+        for family, rules in ops_script_rules().items():
+            path = (f"gateway/rules?app={app}" if family == "gateway"
+                    else f"v1/rules?app={app}&type={family}")
+            status, got = data(path, json.dumps(rules))
+            pushed[family] = (status, sorted(got.values()))
+        out["pushed"] = pushed
+        out["verdicts"] = script_steps(eng, dev, epoch_ms)
+        time_util.freeze_time(epoch_ms + 3000)
+        writer = MetricWriter(app=app, base_dir=log_dir)
+        out["sealed"] = MetricTimerListener(eng, writer).tick(epoch_ms + 3000)
+        writer.close()
+        out["fetched"] = dash.fetcher.fetch_once(now_ms=epoch_ms + 4000)
+        span = f"startTime={epoch_ms - 60_000}&endTime={epoch_ms + 4000}"
+        reads = {}
+        for path in ([f"v1/rules?app={app}&type={t}" for t in
+                      ("flow", "degrade", "system", "authority",
+                       "paramFlow")]
+                     + [f"gateway/rules?app={app}",
+                        f"metric/queryTopResourceMetric.json?app={app}"
+                        f"&{span}",
+                        f"metric/queryByAppAndResource.json?app={app}"
+                        f"&identity=s0&{span}",
+                        "resource/machineResource.json?ip=127.0.0.1"
+                        f"&port={center.bound_port}",
+                        f"telemetry/summary.json?app={app}"]):
+            status, got = data(path)
+            reads[path.split("?")[0]] = (status, ops_untimed(got))
+        status, got = data(f"app/machines.json?app={app}")
+        reads["app/machines.json"] = (status, [
+            {k: v for k, v in m.items() if k not in ("port", "lastHeartbeat")}
+            for m in got])
+        out["reads"] = reads
+        return out
+    finally:
+        dash.stop()
+        center.stop()
+        eng.close()
+
+
+def dashboard_phase(dev):
+    """The dashboard on the card's engines: the headline engine as the
+    default engine under ``st.init_ops_plane(port=0)`` (heartbeat every
+    200 ms with a token) is discovered by an in-process
+    ``DashboardServer`` with auth on, which fetches its sealed seconds,
+    pushes the 1,000 flow rules through ``/v1/rules`` (each enforced at
+    the next width-8192 step), answers the top-resource query and
+    ``/metrics``, refuses a request without a session, and assigns the
+    engine as a token server that then grants; then a frozen-clock
+    script card = CPU through a dashboard over each. Prints one
+    ``{"dashboard": ...}`` line whatever fails (a failed check raises
+    after it, naming the check); returns the card's launches."""
+    import shutil
+    import socket
+    import tempfile
+    import urllib.parse
+
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus as TS
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.core.config import (DASHBOARD_SERVER,
+                                                HEARTBEAT_CLIENT_IP,
+                                                HEARTBEAT_INTERVAL_MS,
+                                                HEARTBEAT_TOKEN)
+    from sentinel_tpu_torch.dashboard import AuthService, DashboardServer
+    from sentinel_tpu_torch.native import NativeTokenClient
+    from sentinel_tpu_torch.telemetry.exporter import render_dashboard_metrics
+    from sentinel_tpu_torch.telemetry.openmetrics import (
+        OPENMETRICS_CONTENT_TYPE, parse_families)
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = memory_mark()
+    before = set(threading.enumerate())
+    DASH_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    parts, out, failed = {}, {}, []
+    counts = {}
+
+    def check(ok, name):
+        if not ok:
+            failed.append(name)
+
+    log_dir = tempfile.mkdtemp(prefix="metric-log-", dir=DASH_DIR)
+    keys = (LOG_DIR, DASHBOARD_SERVER, HEARTBEAT_INTERVAL_MS,
+            HEARTBEAT_TOKEN, HEARTBEAT_CLIENT_IP)
+    saved = {k: config._config.get(k) for k in keys}
+    dash = DashboardServer(port=0, auth=AuthService(DASH_USER, DASH_PASSWORD),
+                           heartbeat_token=DASH_HEARTBEAT_TOKEN)
+    dash.start(fetch=False)
+    dport = dash.bound_port
+    config.set(LOG_DIR, log_dir)
+    config.set(DASHBOARD_SERVER, f"127.0.0.1:{dport}")
+    config.set(HEARTBEAT_INTERVAL_MS, str(OPS_HEARTBEAT_MS))
+    config.set(HEARTBEAT_TOKEN, DASH_HEARTBEAT_TOKEN)
+    config.set(HEARTBEAT_CLIENT_IP, "127.0.0.1")
+    session = {}
+
+    def http(path, body=None):
+        return ops_http(dport, path, body, headers=session)
+
+    def data(path, body=None):
+        status, text, _, ms = http(path, body)
+        check(status == 200, f"{path.split('?')[0]}: status {status} "
+                             f"{text[:120]}")
+        return json.loads(text)["data"] if status == 200 else None, ms
+
+    script_engines, port, eng = [], None, None
+    try:
+        # -- setup: the headline engine, discovered by the dashboard -------
+        t1 = time.perf_counter()
+        status, token = dash_login(dport, DASH_USER, DASH_PASSWORD)
+        check(status == 200 and token, f"login: {status}")
+        session["Authorization"] = f"Bearer {token}"
+        status, text, _, _ = ops_http(dport, "app/names.json")
+        out["no_session_status"] = status
+        check(status == 401, f"a request without a session: {status}")
+        status, _ = dash_login(dport, DASH_USER, "wrong")
+        check(status == 401, f"a wrong password: {status}")
+        ctx_mod.replace_context(None)
+        ctx_mod.bump_generation()
+        # The port's clock frozen a minute behind the wall clock: the
+        # dashboard's /metrics reads the last 120 wall seconds of its
+        # repository, which the frozen seconds fetched then fall in.
+        time_util.freeze_time((int(time.time()) - 60) * 1000)
+        eng = st.reset(capacity=CAPACITY, device=dev)
+        reg = eng.registry
+        ent = reg.entrance_row(CTX)
+        cluster = np.array([reg.cluster_row(f"res{i}")
+                            for i in range(N_RESOURCES)], np.int32)
+        dn = np.array([reg.default_row(CTX, f"res{i}", ent)
+                       for i in range(N_RESOURCES)], np.int32)
+        origin_a = reg.origin_id("appA")
+        load_rules(eng, tight=False)
+        tight_rows = np.array([int(r[3:]) for r in DS_TIGHT])
+        docs = ops_documents()
+        row_name = {int(r): f"res{i}" for i, r in enumerate(cluster)}
+        step = [0]
+
+        def run_step():
+            time_util.advance_time(1000)
+            batch = ds_batch(step[0], cluster, dn, origin_a, tight_rows)
+            step[0] += 1
+            ts = time.perf_counter()
+            reason = np.asarray(eng.harvest_decisions(eng.check_batch(
+                to_device(batch, dev),
+                now_ms=time_util.current_time_millis()))[0])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            return batch, reason, (time.perf_counter() - ts) * 1e3
+
+        run_step()  # every resource active, rules compiled
+        parts["setup_s"] = time.perf_counter() - t1
+
+        zero_cluster_counts()
+        t1 = time.perf_counter()
+        td = time.perf_counter()
+        plane = st.init_ops_plane(port=0)
+        center = plane["command_center"]
+        port = center.bound_port
+        app, machine = None, None
+        deadline = time.perf_counter() + 10.0
+        while machine is None and time.perf_counter() < deadline:
+            for a in dash.apps.app_names():
+                for m in dash.apps.healthy_machines(a):
+                    if m.port == port:
+                        app, machine = a, m
+            if machine is None:
+                time.sleep(0.005)
+        discovered_ms = (time.perf_counter() - td) * 1e3
+        check(machine is not None, "discovery: the engine never registered")
+        listed, _ = data(f"app/machines.json?app={app}")
+        check(listed and listed[0]["port"] == port and listed[0]["healthy"],
+              f"discovery: machines {listed}")
+        parts["discovery_s"] = time.perf_counter() - t1
+
+        # -- the metric fetch: one sealed width-8192 second a fetch --------
+        t1 = time.perf_counter()
+        fetches = []
+        # The setup's second falls out of the first fetch's window (a
+        # fetch reads at most 6,000 lines: about one second's resources).
+        time_util.advance_time(6000)
+        for _ in range(DASH_FETCH_SECONDS):
+            batch, reason, _ = run_step()
+            second = time_util.current_time_millis()
+            ok = reason == 0
+            rows, k = np.unique(batch["cluster_row"][ok], return_counts=True)
+            want = {row_name[int(r)]: int(n) for r, n in zip(rows, k)}
+            time_util.advance_time(2000)  # sealed and past the fetch lag
+            plane["metric_timer"].tick()
+            deadline = time.perf_counter() + 5.0
+            while time.perf_counter() < deadline:
+                _, body, _, _ = ops_http(port, f"metric?startTime={second}"
+                                               f"&endTime={second}"
+                                               f"&identity={DS_TIGHT[0]}")
+                if body.strip():
+                    break
+                time.sleep(0.02)
+            tf = time.perf_counter()
+            saved_n = dash.fetcher.fetch_once(
+                now_ms=time_util.current_time_millis())
+            fetch_ms = (time.perf_counter() - tf) * 1e3
+            got = {}
+            for res in dash.repository.resources_of(app):
+                for e in dash.repository.query(app, res, second, second):
+                    got[res] = e["passQps"]
+            got = {r: v for r, v in got.items() if r in want or v}
+            check(got == want, f"fetch: second {second}: {len(got)} "
+                               f"resources saved, {len(want)} admitted")
+            fetches.append({"fetch_ms": fetch_ms, "nodes_saved": saved_n,
+                            "resources": len(want),
+                            "admitted": int(ok.sum())})
+        parts["fetch_s"] = time.perf_counter() - t1
+
+        # -- five pushes through /v1/rules, each enforced at the next step -
+        t1 = time.perf_counter()
+        pushes = []
+        for k, doc in enumerate(docs):
+            tp = time.perf_counter()
+            got, post_ms = data(f"v1/rules?app={app}&type=flow", doc)
+            check(got == {machine.key: True}, f"push {k}: {got}")
+            batch, reason, step_ms = run_step()
+            e2e = (time.perf_counter() - tp) * 1e3
+            for i, row in enumerate(tight_rows[:OPS_PUSHES]):
+                hit = batch["cluster_row"] == cluster[row]
+                n_ok = int((reason[hit] == 0).sum())
+                want = DS_TIGHT_COUNT if i == k else int(hit.sum())
+                check(n_ok == want, f"push {k}: {DS_TIGHT[i]} admitted "
+                                    f"{n_ok}, not {want}")
+            pushes.append({"post_ms": post_ms, "step_ms": step_ms,
+                           "push_to_enforce_ms": e2e})
+        shown, _ = data(f"v1/rules?app={app}&type=flow")
+        check(shown is not None and len(shown) == N_RESOURCES // 10
+              and shown[0]["count"] == 1e9 and any(
+                  r["resource"] == DS_TIGHT[OPS_PUSHES - 1]
+                  and r["count"] == DS_TIGHT_COUNT for r in shown),
+              "push: the read-back is not the last document")
+        parts["pushes_s"] = time.perf_counter() - t1
+
+        # -- the top-resource query and /metrics ---------------------------
+        t1 = time.perf_counter()
+        now = time_util.current_time_millis()
+        top_ms = []
+        for _ in range(DASH_TOP_QUERIES):
+            top, ms = data(f"metric/queryTopResourceMetric.json?app={app}"
+                           f"&startTime={now - 60_000}&endTime={now}")
+            top_ms.append(ms)
+        ranked = list(top["resource"]) if top else []
+        check(len(ranked) == 30, f"top: {len(ranked)} resources")
+        volume = {r: sum(p["passQps"] + p["blockQps"] for p in pts)
+                  for r, pts in (top or {"resource": {}})["resource"]
+                  .items()}
+        check(all(volume[a] >= volume[b] for a, b in
+                  zip(ranked, ranked[1:])), "top: not ranked by volume")
+        scrape_ms, page = [], ""
+        for _ in range(DASH_SCRAPES):
+            status, page, ctype, ms = ops_http(dport, "metrics")
+            scrape_ms.append(ms)
+            check(status == 200 and ctype == OPENMETRICS_CONTENT_TYPE,
+                  f"/metrics: {status} {ctype}")
+        tr = time.perf_counter()
+        render_dashboard_metrics(dash)
+        render_ms = (time.perf_counter() - tr) * 1e3
+        fams = parse_families(page)
+        latest = {lab["resource"]: v for _, lab, v in fams.get(
+            "sentinel_tpu_dashboard_resource_pass_qps", ())
+            if lab["app"] == app}
+        want = {}
+        for res in dash.repository.resources_of(app):
+            series = dash.repository.query(app, res, 0, 2**62)
+            if series:
+                want[res] = float(series[-1]["passQps"])
+        check(latest == want and len(latest) > 0,
+              f"/metrics: {len(latest)} resources, repository {len(want)}")
+        machines = {lab["app"]: v for _, lab, v in fams.get(
+            "sentinel_tpu_dashboard_machines", ())}
+        check(machines.get(app) == 1.0, f"/metrics: machines {machines}")
+        parts["queries_s"] = time.perf_counter() - t1
+
+        # -- /cluster/assign, then acquires from the token server ---------
+        t1 = time.perf_counter()
+        assigned, assign_ms = data(f"cluster/assign?app={app}&ip=127.0.0.1"
+                                   f"&port={port}&tokenPort=0", "")
+        token_port = (assigned or {}).get("tokenPort") or 0
+        check(token_port > 0, f"assign: {assigned}")
+        rules = [{"resource": "dashCluster", "count": DASH_CLUSTER_COUNT,
+                  "clusterMode": True,
+                  "clusterConfig": {"flowId": DASH_CLUSTER_FLOW,
+                                    "thresholdType": 1}}]
+        status, body, _, _ = ops_http(
+            port, "cluster/server/modifyFlowRules?namespace=default",
+            "data=" + urllib.parse.quote(json.dumps(rules)))
+        check((status, body) == (200, "success"), f"server rules: {body}")
+        states, _ = data(f"cluster/state.json?app={app}")
+        check(bool(states) and states[0]["mode"] == 1,
+              f"cluster state: {states}")
+        acquired = []
+        if token_port:
+            with NativeTokenClient("127.0.0.1", token_port, "default",
+                                   timeout_ms=60_000) as client:
+                for _ in range(DASH_CLUSTER_ACQUIRES):
+                    ta = time.perf_counter()
+                    r = client.request_token(DASH_CLUSTER_FLOW, 1)
+                    acquired.append((int(r.status),
+                                     (time.perf_counter() - ta) * 1e3))
+        statuses = [a for a, _ in acquired]
+        check(statuses == [TS.OK] * DASH_CLUSTER_COUNT + [TS.BLOCKED] * (
+            DASH_CLUSTER_ACQUIRES - DASH_CLUSTER_COUNT),
+            f"acquires: {statuses}")
+        status, body, _, _ = ops_http(port, "setClusterMode?mode=-1", "")
+        check(body == "success", f"cluster mode off: {body}")
+        parts["cluster_s"] = time.perf_counter() - t1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts["timed"] = read_cluster_counts()
+        e2e = sorted(p["push_to_enforce_ms"] for p in pushes)
+        out["timed"] = {
+            "capacity": CAPACITY, "resources": N_RESOURCES,
+            "discovered_healthy_ms": discovered_ms,
+            "heartbeat_interval_ms": OPS_HEARTBEAT_MS,
+            "fetches": fetches,
+            "pushes": pushes,
+            "push_to_enforce_ms_p50": e2e[len(e2e) // 2],
+            "push_to_enforce_ms_max": e2e[-1],
+            "document_bytes": len(docs[0]),
+            "top_query": ops_quantiles(top_ms),
+            "metrics": dict(ops_quantiles(scrape_ms), bytes=len(page),
+                            render_ms=render_ms, resources=len(latest)),
+            "assign_ms": assign_ms,
+            "acquires": acquired}
+
+        st.shutdown_ops_plane()
+        eng.cluster.stop()
+
+        # -- card = CPU through a dashboard over each ---------------------
+        epoch = (time_util.current_time_millis() // 1000 + 100) * 1000
+        zero_cluster_counts()
+        t1 = time.perf_counter()
+        card = dash_script(dev, epoch, tempfile.mkdtemp(dir=log_dir))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts["script"] = read_cluster_counts()
+        parts["script_card_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host = dash_script(cpu, epoch, tempfile.mkdtemp(dir=log_dir))
+        parts["script_cpu_s"] = time.perf_counter() - t1
+        for key in card:
+            check(card[key] == host[key], f"card = CPU: {key} differs")
+        check(card["beat"] and card["fetched"] > 0 and card["sealed"] > 0,
+              f"script: beat {card['beat']}, sealed {card['sealed']}, "
+              f"fetched {card['fetched']}")
+        check(all(st_ == 200 and ok == [True] for st_, ok
+                  in card["pushed"].values()),
+              f"script pushes {card['pushed']}")
+        blocked = sum(r != 0 for v in card["verdicts"] for r in v)
+        check(blocked > 0, "script: nothing blocked")
+        out["script"] = {"capacity": OPS_PARITY_CAPACITY,
+                         "entries": sum(w for _, w in OPS_SCRIPT_STEPS),
+                         "blocked": blocked, "fetched": card["fetched"],
+                         "reads": sorted(card["reads"]),
+                         "card_equals_cpu": not any(
+                             f.startswith("card = CPU") for f in failed)}
+    finally:
+        time_util.unfreeze_time()
+        st.shutdown_ops_plane()
+        if eng is not None:
+            eng.cluster.stop()
+        dash.stop()
+        ctx_mod.replace_context(None)
+        default = st._default_engine
+        if default is not None:
+            default.close()
+            if not default._closed:
+                failed.append("the default engine is not closed")
+        for k, v in saved.items():
+            if v is None:
+                config._config.pop(k, None)
+            else:
+                config.set(k, v)
+        shutil.rmtree(log_dir, ignore_errors=True)
+        for p in (port, dport):
+            if p is None:
+                continue
+            try:
+                socket.create_connection(("127.0.0.1", p), timeout=2).close()
+                failed.append(f"port {p} still accepts after shutdown")
+            except OSError:
+                pass
+        alive = threads_left(before)
+        if alive:
+            failed.append(f"threads alive after the phase: {alive}")
+        total = out["launches"] = merge_counts(counts.values())
+        out["threads_left"] = len(alive)
+        out["parts_s"] = parts
+        out["memory_bytes"] = memory_report(mem0)
+        out["card"] = smi_line()
+        out["failed_checks"] = failed
+        out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"dashboard": out}), flush=True)
+    if failed:
+        raise AssertionError(f"dashboard: {failed[0]} ({len(failed)} "
+                             "failed)")
+    if dev.type == "cuda" and (total["prefix"] <= 0 or total["acquire"] <= 0):
+        raise AssertionError(f"dashboard: the path launched prefix "
+                             f"{total['prefix']}, acquire "
+                             f"{total['acquire']} times")
+    if out["phase_s"] > DASH_PHASE_LIMIT_S:
+        raise AssertionError(f"dashboard phase took {out['phase_s']:.1f} s, "
+                             f"over {DASH_PHASE_LIMIT_S} s")
+    return total
+
+
+
+NATIVE_PHASE_LIMIT_S = 45.0
+NATIVE_FLOWS = 64               # bench.py:840: GLOBAL flows at 1e9
+NATIVE_FLOW0 = 5000
+NATIVE_BATCH = 512              # a request_tokens_batch call
+NATIVE_WARM = 3
+NATIVE_ITERS = 20
+NATIVE_SINGLES = 1000           # request_token calls for p50 / p99
+NATIVE_CLOCK_TOL_MS = 50
+NATIVE_SCRIPT_CAPACITY = 1024
+
+
+def native_flows():
+    """bench.py:840's 64 GLOBAL flows (flowId 5000..5063) at 1e9."""
+    return [F.FlowRule(resource=f"lp{i}", count=1e9, cluster_mode=True,
+                       cluster_config={"flowId": NATIVE_FLOW0 + i,
+                                       "thresholdType": 1})
+            for i in range(NATIVE_FLOWS)]
+
+
+def native_script(dev, epoch_ms):
+    """The shim's frozen-clock script against a port ``ClusterTokenServer``
+    whose engine and token service are on ``dev``: flow, param and batched
+    acquires (GLOBAL flows 4242 at 3 a second and 7100 at 2 a value),
+    then ``demos/remote_bridge_demo.py``'s remote entries (a flow rule of
+    3 on ``checkout``, a param rule of 2 on ``search``) with their exits.
+    Returns what the shim saw and the engine's PASS / BLOCK totals."""
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.core import context as ctx_mod
+    from sentinel_tpu_torch.native import NativeTokenClient
+
+    ctx_mod.replace_context(None)
+    ctx_mod.bump_generation()
+    time_util.freeze_time(epoch_ms)
+    eng = SentinelEngine(capacity=NATIVE_SCRIPT_CAPACITY, device=dev)
+    eng.flow_rules.load_rules([F.FlowRule(resource="checkout", count=3)])
+    eng.param_rules.load_rules([P.ParamFlowRule("search", param_idx=0,
+                                                count=2)])
+    server = ClusterTokenServer(host="127.0.0.1", port=0, engine=eng)
+    server.service.rules.load_rules("default", [
+        F.FlowRule(resource=f"shim{fid}", count=count, cluster_mode=True,
+                   cluster_config={"flowId": fid, "thresholdType": 1})
+        for fid, count in ((4242, 3), (7100, 2))])
+    server.start()
+
+    def fields(r):
+        return [int(r.status), r.remaining, r.wait_ms]
+
+    out = {}
+    try:
+        with NativeTokenClient("127.0.0.1", server.bound_port,
+                               timeout_ms=120_000) as c:
+            out["tokens"] = [fields(c.request_token(4242)) for _ in range(5)]
+            out["params"] = [int(c.request_param_token(7100, 1, [v]).status)
+                             for v in ("hot", "hot", "hot", 42, "42", True,
+                                       1.5)]
+            out["batch"] = [fields(r) for r in c.request_tokens_batch(
+                [(4242, 1, False), (999, 1, False), (7100, 1, True)])]
+            checkout = [c.remote_entry("checkout", origin="web-app")
+                        for _ in range(5)]
+            search = [c.remote_entry("search", params=[q])
+                      for q in ("tpu", "tpu", "tpu", "tpu", "gpu")]
+            exits = [c.remote_exit(e) for s_, e, _ in checkout + search
+                     if s_ == 0]
+            out["consumed_exit"] = c.remote_exit(
+                next(e for s_, e, _ in checkout if s_ == 0))
+        out["checkout"] = [[s_, r] for s_, _, r in checkout]
+        out["search"] = [[s_, r] for s_, _, r in search]
+        out["exits"] = exits
+        out["entry_ids"] = sorted(e for s_, e, _ in checkout + search
+                                  if s_ == 0)
+        eng._flush_committer()
+        totals = eng.telemetry_counts()["totals"]
+        out["totals"] = {
+            res: [int(totals[int(C.MetricEvent.PASS), row]),
+                  int(totals[int(C.MetricEvent.BLOCK), row])]
+            for res, row in sorted(eng.registry.resources().items())
+            if res in ("checkout", "search")}
+        return out
+    finally:
+        server.stop()
+        eng.close()
+
+
+def native_phase(dev, shim_build_s):
+    """The C++ shim's ``NativeTokenClient`` on the card's token servers:
+    bench.py:840's loopback (64 GLOBAL flows at 1e9, 512-request batches
+    through one handle) and single ``request_token`` latencies against a
+    port ``ClusterTokenServer`` on the card in a process of its own, the
+    cached-tick clock against the wall clock, and the frozen-clock
+    script (acquires, then the remote-entry bridge of
+    ``demos/remote_bridge_demo.py``) card = CPU. Prints one
+    ``{"native": ...}`` line whatever fails (a failed check raises after
+    it, naming the check); returns the card's launches."""
+    from sentinel_tpu_torch.cluster.constants import TokenResultStatus as TS
+    from sentinel_tpu_torch.native import NativeTokenClient, native_now_ms
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = set(threading.enumerate())
+    cpu = torch.device("cpu")
+    parts, out, failed, counts = {}, {"shim_build_s": shim_build_s}, [], {}
+
+    def check(ok, name):
+        if not ok:
+            failed.append(name)
+
+    server = TokenServerProcess(dev, "native")
+    try:
+        # -- card = CPU on the script, in this process (untimed) ----------
+        t1 = time.perf_counter()
+        zero_cluster_counts()
+        card = native_script(dev, NOW0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts["script"] = read_cluster_counts()
+        parts["script_card_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host = native_script(cpu, NOW0)
+        parts["script_cpu_s"] = time.perf_counter() - t1
+        for key in card:
+            check(card[key] == host[key], f"card = CPU: {key} differs")
+        tokens = [s_ for s_, _, _ in card["tokens"]]
+        check(tokens == [TS.OK] * 3 + [TS.BLOCKED] * 2,
+              f"script tokens {tokens}")
+        check(card["checkout"] == [[TS.OK, 0]] * 3 + [[TS.BLOCKED, 1]] * 2,
+              f"checkout: {card['checkout']}")
+        check(any(s_ == TS.BLOCKED and r == 5 for s_, r in card["search"]),
+              f"search: no PARAM_FLOW block in {card['search']}")
+        check(all(x == TS.OK for x in card["exits"]),
+              f"exits {card['exits']}")
+        check(card["consumed_exit"] == TS.BAD_REQUEST,
+              f"a consumed exit: {card['consumed_exit']}")
+        check(card["totals"].get("checkout") == [3, 2],
+              f"checkout totals {card['totals']}")
+        out["script"] = {"tokens": tokens, "checkout": card["checkout"],
+                         "search": card["search"], "totals": card["totals"],
+                         "card_equals_cpu": not any(
+                             f.startswith("card = CPU") for f in failed)}
+
+        # -- the clock -----------------------------------------------------
+        skew = []
+        for _ in range(20):
+            skew.append(abs(native_now_ms() - time.time() * 1000))
+            time.sleep(0.005)
+        out["clock_skew_ms_max"] = max(skew)
+        check(max(skew) <= NATIVE_CLOCK_TOL_MS,
+              f"native_now_ms {max(skew):.1f} ms off the wall clock")
+
+        # -- timed: the loopback and single acquires ----------------------
+        t1 = time.perf_counter()
+        server.ready()
+        parts["server_ready_s"] = time.perf_counter() - t1
+        server.cmd("zero")
+        t1 = time.perf_counter()
+        reqs = [(NATIVE_FLOW0 + i % NATIVE_FLOWS, 1, False)
+                for i in range(NATIVE_BATCH)]
+        with NativeTokenClient("127.0.0.1", server.port,
+                               timeout_ms=30_000) as client:
+            for _ in range(NATIVE_WARM):
+                warm = client.request_tokens_batch(reqs)
+            tb = time.perf_counter()
+            results = []
+            for _ in range(NATIVE_ITERS):
+                results += client.request_tokens_batch(reqs)
+            dt = time.perf_counter() - tb
+            singles = []
+            for i in range(NATIVE_SINGLES):
+                ts = time.perf_counter()
+                r = client.request_token(NATIVE_FLOW0 + i % NATIVE_FLOWS)
+                singles.append((time.perf_counter() - ts) * 1e3)
+                check(r.status == TS.OK, f"request_token: {r.status}")
+        bad = [r.status for r in warm + results if r.status != TS.OK]
+        check(not bad, f"loopback: {len(bad)} not OK ({bad[:4]})")
+        report = server.stop()
+        counts["server"] = report["counts"]
+        granted = sum(report["ok"].values())
+        want = (NATIVE_WARM + NATIVE_ITERS) * NATIVE_BATCH + NATIVE_SINGLES
+        check(granted == want, f"server OK verdicts {granted}, not {want}")
+        singles.sort()
+        out["timed"] = {
+            "flows": NATIVE_FLOWS, "batch": NATIVE_BATCH,
+            "warm": NATIVE_WARM, "iters": NATIVE_ITERS,
+            "acquires_per_s": NATIVE_ITERS * NATIVE_BATCH / dt,
+            "request_token_ms": {"n": len(singles),
+                                 "p50": pct(singles, 50),
+                                 "p99": pct(singles, 99),
+                                 "max": singles[-1]},
+            "server_host_ms": report["host_ms"]}
+        parts["timed_s"] = time.perf_counter() - t1
+    finally:
+        server.kill()
+        time_util.unfreeze_time()
+        alive = threads_left(before, ignore=("smoke-token-server-out",))
+        if alive:
+            failed.append(f"threads alive after the phase: {alive}")
+        total = out["launches"] = merge_counts(counts.values())
+        out["parts_s"] = parts
+        out["card"] = smi_line()
+        out["failed_checks"] = failed
+        out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"native": out}), flush=True)
+    if failed:
+        raise AssertionError(f"native: {failed[0]} ({len(failed)} failed)")
+    if dev.type == "cuda" and (total["prefix"] <= 0 or total["acquire"] <= 0):
+        raise AssertionError(f"native: the path launched prefix "
+                             f"{total['prefix']}, acquire "
+                             f"{total['acquire']} times")
+    if out["phase_s"] > NATIVE_PHASE_LIMIT_S:
+        raise AssertionError(f"native phase took {out['phase_s']:.1f} s, "
+                             f"over {NATIVE_PHASE_LIMIT_S} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8295,18 +9069,28 @@ def main() -> int:
           flush=True)
     print(card, flush=True)
 
-    # Both kernels' libraries, one nvcc for each source, started together.
+    # Both kernels' libraries, one nvcc for each source, and the client
+    # shim (the host C++ compiler), started together.
     from concurrent.futures import ThreadPoolExecutor
 
+    from sentinel_tpu_torch import native
     from sentinel_tpu_torch.ops import cluster_acquire
 
+    def timed_build(build):
+        tb = time.perf_counter()
+        return build(), time.perf_counter() - tb
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(m.build) for m in (prefix_cuda,
-                                                 cluster_acquire)]
-        built = [b.result() for b in builds]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(timed_build, m.build) for m in (prefix_cuda,
+                                                              cluster_acquire)]
+        shim_build = pool.submit(timed_build, native.build_shim)
+        built = [b.result()[0] for b in builds]
+        shim_path, shim_build_s = shim_build.result()
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "libraries": [p.name for p, _ in built]}), flush=True)
+                      "libraries": [p.name for p, _ in built]
+                      + [shim_path.name],
+                      "shim_build_s": shim_build_s}), flush=True)
     for _, log in built:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -8330,6 +9114,8 @@ def main() -> int:
     ds_launches = datasource_phase(dev)
     edge_launches = edge_phase(dev)
     ops_launches = ops_phase(dev)
+    dash_launches = dashboard_phase(dev)
+    native_launches = native_phase(dev, shim_build_s)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -8367,6 +9153,10 @@ def main() -> int:
         "edge_path_launches_by_shape": edge_launches["prefix_by_shape"],
         "ops_path_launches": ops_launches["prefix"],
         "ops_path_launches_by_shape": ops_launches["prefix_by_shape"],
+        "dashboard_path_launches": dash_launches["prefix"],
+        "dashboard_path_launches_by_shape": dash_launches["prefix_by_shape"],
+        "native_path_launches": native_launches["prefix"],
+        "native_path_launches_by_shape": native_launches["prefix_by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[
@@ -8378,6 +9168,12 @@ def main() -> int:
                 "acquire_by_width"],
             edge_path_launches=edge_launches["acquire"],
             edge_path_launches_by_width=edge_launches[
+                "acquire_by_width"],
+            dashboard_path_launches=dash_launches["acquire"],
+            dashboard_path_launches_by_width=dash_launches[
+                "acquire_by_width"],
+            native_path_launches=native_launches["acquire"],
+            native_path_launches_by_width=native_launches[
                 "acquire_by_width"])]}),
         flush=True)
     print(card, flush=True)
@@ -8388,5 +9184,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--client-token-server"]:
-        sys.exit(client_token_server(sys.argv[2]))
+        sys.exit(client_token_server(*sys.argv[2:4]))
     sys.exit(main())

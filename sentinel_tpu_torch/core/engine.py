@@ -988,8 +988,11 @@ class SentinelEngine:
             raise TypeError(f"expected {cls.__name__} or a numpy staging dict")
         return batch
 
-    def _run_entry_batch_locked(self, batch, now_ms: Optional[int] = None
-                                ) -> Decisions:
+    def _run_entry_batch_locked(self, batch, now_ms: Optional[int] = None,
+                                timed: bool = True) -> Decisions:
+        """One entry dispatch under the engine lock. ``timed=False`` (the
+        batch API) dispatches without the step timer, as the reference's
+        ``check_batch`` does."""
         host = batch if isinstance(batch, dict) else None
         with self._on_stream():
             batch = self._as_batch(batch, EntryBatch)
@@ -997,8 +1000,8 @@ class SentinelEngine:
             now = now_ms if now_ms is not None else self.now_ms()
             self._refresh_signals(now)
             try:
-                self._state, dec = timed_call(
-                    self.step_timer, "entry", batch.size, self._sync,
+                self._state, dec = self._dispatch(
+                    timed, "entry", batch.size,
                     self._entry_step, self._state, self._rules, batch, now,
                     spec1=self._spec1,
                     occupy_timeout_ms=self._occupy_timeout_ms,
@@ -1021,15 +1024,16 @@ class SentinelEngine:
         with self._lock:
             return self._run_entry_batch_locked(batch)
 
-    def _run_exit_batch(self, batch, now_ms: Optional[int] = None) -> None:
+    def _run_exit_batch(self, batch, now_ms: Optional[int] = None,
+                        timed: bool = True) -> None:
         with self._on_stream():
             batch = self._as_batch(batch, ExitBatch)
         with self._lock, self._on_stream():
             self._ensure_compiled()
             now = now_ms if now_ms is not None else self.now_ms()
             try:
-                self._state = timed_call(
-                    self.step_timer, "exit", batch.size, self._sync,
+                self._state = self._dispatch(
+                    timed, "exit", batch.size,
                     self._exit_step, self._state, self._rules, batch, now,
                     spec1=self._spec1, shadow_rules=self._shadow_rules)
             except Exception as ex:  # noqa: BLE001
@@ -1043,17 +1047,24 @@ class SentinelEngine:
         None on the CPU, where a step has finished when it returns."""
         return self._stream.synchronize if self._stream is not None else None
 
+    def _dispatch(self, timed: bool, kind: str, n: int, fn, *args, **kw):
+        """``fn(*args, **kw)``, through the step timer when ``timed``."""
+        if not timed:
+            return fn(*args, **kw)
+        return timed_call(self.step_timer, kind, n, self._sync, fn, *args,
+                          **kw)
+
     # -- batch API -----------------------------------------------------------
 
     def check_batch(self, batch, now_ms: Optional[int] = None) -> Decisions:
         """One admission step over a batch (``EntryBatch`` of tensors on
         this engine's device, or a ``make_entry_batch_np`` dict)."""
         with self._lock:
-            return self._run_entry_batch_locked(batch, now_ms)
+            return self._run_entry_batch_locked(batch, now_ms, timed=False)
 
     def complete_batch(self, batch, now_ms: Optional[int] = None) -> None:
         """One completion step (``ExitBatch`` or a numpy staging dict)."""
-        self._run_exit_batch(batch, now_ms)
+        self._run_exit_batch(batch, now_ms, timed=False)
 
     def stage_decisions(self, dec) -> _StagedVerdicts:
         """Start a step's verdicts on their way to the host without

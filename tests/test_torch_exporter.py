@@ -6,9 +6,8 @@ clocks frozen at the same epoch, the lease fast path off so every entry
 and exit is one width-1 step in call order, the adaptive knobs of
 ``tests/test_adaptive.py`` set on both configs before they are built)
 are driven alike by each case, in file order, through ``entry`` and
-``exit`` (the reference's own cases use ``check_batch``, whose dispatches
-the port's step timer counts and the reference's does not: ROADMAP C20),
-and their full
+``exit`` (one case through ``check_batch`` and ``complete_batch``, which
+neither package's step timer counts), and their full
 ``render_engine_metrics`` pages must be byte-equal, except the values of
 the named timing families below (host wall times of steps, enqueues,
 pipeline waits, folds and wire RTTs), whose names, types and label sets
@@ -392,6 +391,57 @@ def test_timing_families_are_present_and_masked_only_by_value(case):
         assert f"# TYPE {fam} " in ptext, fam
     assert any(line.startswith("sentinel_tpu_step_ms{")
                for line in ptext.splitlines())
+
+
+def batch_lanes(P, eng, resource, n):
+    """A width-``n`` staging pair for ``resource`` in context ``ctx``:
+    the entry batch as this package's ``check_batch`` takes it, and the
+    numpy entry columns."""
+    buf = P.batch.make_entry_batch_np(n)
+    reg = eng.registry
+    cr, dn, orow, oid = reg.resolve_entry(resource, "ctx", "",
+                                          reg.entrance_row("ctx"),
+                                          int(P.C.EntryType.OUT))
+    buf["cluster_row"][:] = cr
+    buf["dn_row"][:] = dn
+    buf["origin_row"][:] = orow
+    buf["origin_id"][:] = oid
+    buf["context_id"][:] = reg.context_id("ctx")
+    buf["count"][:] = 1
+    return (P.batch.EntryBatch(**buf) if P.name == "jax" else buf), buf
+
+
+def test_batch_api_pages_are_byte_equal(case):
+    """Both engines driven through ``check_batch`` and ``complete_batch``
+    (two seconds of width-8 batches against a count-3 rule, the passed
+    lanes completed 7 ms later) render equal pages: neither package's
+    step timer counts the batch API's dispatches."""
+    import numpy as np
+
+    pkgs, engines = case
+    for P in pkgs:
+        eng = engines[P.name]
+        eng.flow_rules.load_rules([P.flow.FlowRule(resource="bX", count=3)])
+        for _ in range(2):
+            now = P.tu.current_time_millis()
+            batch, buf = batch_lanes(P, eng, "bX", 8)
+            reason = np.asarray(eng.check_batch(batch, now_ms=now).reason)
+            eng.traces.drain()
+            ok = reason == 0
+            ebuf = P.batch.make_exit_batch_np(8)
+            for f in ("cluster_row", "dn_row", "origin_row", "count"):
+                ebuf[f][:] = buf[f]
+            ebuf["cluster_row"][~ok] = -1
+            ebuf["dn_row"][~ok] = -1
+            ebuf["success"][:] = ok
+            ebuf["rt_ms"][:] = 7
+            eng.complete_batch(P.batch.ExitBatch(**ebuf) if P.name == "jax"
+                               else ebuf, now_ms=now + 7)
+            P.tu.advance_time(1000)
+    jtext, ptext = render_both(pkgs, engines)
+    assert_pages_equal(jtext, ptext)
+    assert 'sentinel_tpu_pass_total{resource="bX"} 6' in ptext
+    assert 'sentinel_tpu_block_total{resource="bX"} 10' in ptext
 
 
 # -- the dashboard's page ---------------------------------------------------------

@@ -33,7 +33,10 @@ rule datasources: a file push into a card engine enforcing at width 8192
 as on the CPU, and the standalone token server acquiring on the card as
 on the CPU; and the framework adapters and the Envoy RLS service: a
 gateway / WSGI / ASGI script on a card default engine as on the CPU, and
-the RLS service's answers, direct and batched, on the card as on the CPU.
+the RLS service's answers, direct and batched, on the card as on the CPU;
+and the native token client: the C++ shim's script (acquires and remote
+entries) against a token server on a card engine as against one on the
+CPU.
 
 Whether a card exists is decided inside the fixture, never at import, so
 every pytest worker collects the same tests; without a card they skip.
@@ -1632,3 +1635,30 @@ def test_rls_service_on_cuda_equals_cpu(cuda, monkeypatch, batched):
     host, _ = cs.rls_script(torch.device("cpu"), batched, n=200)
     assert card == host
     assert any(code == 2 for code, _ in card)
+
+
+# -- the native token client ---------------------------------------------------
+
+
+def test_shim_against_a_card_server_equals_cpu(cuda):
+    """The smoke's frozen-clock shim script (flow, param and batched
+    acquires, then the remote-entry bridge with its exits) against a
+    ``ClusterTokenServer`` whose engine and service are on the card sees
+    what it sees against one on the CPU, through the acquire kernel."""
+    import chip_smoke as cs
+    from sentinel_tpu_torch.native import load_shim, shim_build_error
+    from sentinel_tpu_torch.ops import cluster_acquire as CA
+    from sentinel_tpu_torch.utils import time_util
+
+    assert load_shim() is not None, shim_build_error()
+    try:
+        CA.launches = 0
+        card = cs.native_script(cuda, cs.NOW0)
+        torch.cuda.synchronize()
+        assert CA.launches > 0
+        host = cs.native_script(torch.device("cpu"), cs.NOW0)
+    finally:
+        time_util.unfreeze_time()
+    assert card == host
+    assert card["checkout"] == [[0, 0]] * 3 + [[1, 1]] * 2
+    assert any(r == 5 for s, r in card["search"] if s == 1)

@@ -19,7 +19,8 @@ from sentinel_tpu.metrics.profiling import StepTimer as JStepTimer
 import sentinel_tpu_torch as pst
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core import context as pctx
-from sentinel_tpu_torch.core.batch import make_entry_batch_np
+from sentinel_tpu_torch.core.batch import (make_entry_batch_np,
+                                          make_exit_batch_np)
 from sentinel_tpu_torch.core.config import DEFAULT_PROFILE_SYNC_EVERY
 from sentinel_tpu_torch.metrics.profiling import StepTimer, timed_call
 from sentinel_tpu_torch.utils import time_util
@@ -152,8 +153,9 @@ def _dispatches(eng, kind):
 
 
 def test_engine_times_every_dispatch_path():
-    """The committer's flushes, the width-1 device path, the pipeline and
-    the batch API each land in ``step_timer``."""
+    """The committer's flushes, the width-1 device path and the pipeline
+    each land in ``step_timer``; the batch API does not (as the
+    reference's ``check_batch`` / ``complete_batch``)."""
     time_util.freeze_time(1_700_000_000_000)
     pctx.replace_context(None)
     try:
@@ -183,10 +185,11 @@ def test_engine_times_every_dispatch_path():
         assert moved() == (2, 2)
         assert eng.pipeline_stats()["harvestedCycles"] == 2
         eng.check_batch(make_entry_batch_np(8))
-        assert moved() == (1, 0)
+        eng.complete_batch(make_exit_batch_np(8))
+        assert moved() == (0, 0)
         snap = eng.step_timer.snapshot()
         assert snap["entry"]["stepSamples"] >= 1
-        assert snap["entry"]["entries"] == 1 + 1 + 1 + 1 + 8
+        assert snap["entry"]["entries"] == 1 + 1 + 1 + 1
         eng.close()
     finally:
         pctx.replace_context(None)
@@ -220,3 +223,58 @@ def test_reference_caveat_reset_without_a_default_engine_keeps_contexts():
         pctx.replace_context(None)
         pctx.bump_generation()
         pst._default_engine = saved
+
+
+
+def test_batch_api_leaves_the_step_timer_as_the_reference():
+    """``check_batch`` and ``complete_batch`` dispatch untimed in both
+    packages: after the same batches, with one timed width-1 entry among
+    them (the lease fast path off), both engines' ``step_timer``
+    snapshots hold the same kinds, dispatches and entries."""
+    from sentinel_tpu.core import context as jctx
+    from sentinel_tpu.core.batch import EntryBatch as JEntryBatch
+    from sentinel_tpu.core.batch import ExitBatch as JExitBatch
+    from sentinel_tpu.core.config import config as jconfig
+    from sentinel_tpu.core.engine import SentinelEngine as JEngine
+    from sentinel_tpu.utils import time_util as jtu
+
+    from sentinel_tpu_torch.core.config import config as pconfig
+
+    lease = "csp.sentinel.lease.enabled"
+
+    def run(make, cfg, ctx, tu, entry_cls, exit_cls):
+        saved = cfg._config.get(lease)
+        cfg.set(lease, "false")
+        tu.freeze_time(1_700_000_000_000)
+        ctx.replace_context(None)
+        ctx.bump_generation()
+        eng = make()
+        try:
+            snaps = [eng.step_timer.snapshot()]
+            for k in range(3):
+                now = tu.current_time_millis()
+                eng.check_batch(entry_cls(make_entry_batch_np(8)), now_ms=now)
+                eng.complete_batch(exit_cls(make_exit_batch_np(8)),
+                                   now_ms=now)
+                snaps.append(eng.step_timer.snapshot())
+                if k == 1:
+                    eng.entry("timed").exit()
+                    snaps.append(eng.step_timer.snapshot())
+            return [{kind: (row["dispatches"], row["entries"])
+                     for kind, row in snap.items()} for snap in snaps]
+        finally:
+            eng.close()
+            ctx.replace_context(None)
+            tu.unfreeze_time()
+            if saved is None:
+                cfg._config.pop(lease, None)
+            else:
+                cfg.set(lease, saved)
+
+    jax_out = run(lambda: JEngine(capacity=64), jconfig, jctx, jtu,
+                  lambda b: JEntryBatch(**b), lambda b: JExitBatch(**b))
+    port_out = run(lambda: pst.SentinelEngine(capacity=64, device="cpu"),
+                   pconfig, pctx, time_util, lambda b: b, lambda b: b)
+    assert port_out == jax_out
+    assert port_out[0] == {} and port_out[1] == {}
+    assert port_out[-1] == {"entry": (1, 1), "exit": (1, 1)}

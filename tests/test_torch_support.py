@@ -865,6 +865,8 @@ class OpsPkg:
         "ts": "cluster.token_service", "resilience": "resilience",
         "lab": "simulator.lab", "chaos": "chaos",
         "adaptive_ctl": "adaptive.controller", "llm": "llm",
+        "dash": "dashboard", "metric_node": "metrics.metric_node",
+        "ds": "datasource", "redis": "datasource.redis",
     }
 
     def __init__(self, root: str):
