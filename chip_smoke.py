@@ -410,9 +410,30 @@ Phases (any failure raises and exits non-zero; none is caught):
    engine. Acquire launches by width and prefix launches. The phase must
    end within 45 s. Prints one ``{"native": ...}`` line, also when a
    check fails.
-21. The smoke's wall time, the kernels line (both kernels, with the pod,
-   control, HA, LLM, simulator, datasource, edge, ops, dashboard and
-   native paths' launches), the card line, and the final
+21. The reference suite. (i) The JAX package's own main-path test files
+   (``tests/test_torch_ref_main.py``: ``test_flow``, ``test_degrade``,
+   ``test_param_flow``, ``test_authority_system``, ``test_occupy``,
+   ``test_warmup_oracle``, ``test_flow_batch_semantics``, ``test_lease``)
+   loaded against the port by ``tests/test_torch_refsuite.py``, with the
+   engine on the card, in a child ``python3 chip_smoke.py
+   --reference-suite OUT`` that runs them under pytest (``--noconftest``:
+   ``tests/conftest.py`` imports JAX; ``-m 'not slow'``, the accounting
+   test deselected); its log goes to ``smoke_logs/reference/``. No case
+   may fail or error, the strict xfails (the reference's C3) must fail,
+   and the prefix kernel must have launched; prints the counts, seconds
+   and launches by shape. (ii) The within-batch invariants of
+   ``tests/test_flow_batch_semantics.py`` on one numpy ``EntryBatch`` at
+   2048 and 8192 lanes over 1,000 resources (count-0 origin rules ahead
+   of a shared QPS rule and a shared rate limiter, THREAD-grade lanes
+   asking up to 5 tokens, pre-passed and pre-blocked lanes, open
+   breakers): decisions and state on the card bit-equal to the CPU's,
+   the serial reference's invariants held, and the per-resource admitted
+   totals equal under three permutations of the batch. The phase must
+   end within 180 s. Prints one ``{"reference": ...}`` line, also when a
+   check fails.
+22. The smoke's wall time, the kernels line (both kernels, with the pod,
+   control, HA, LLM, simulator, datasource, edge, ops, dashboard, native
+   and reference paths' launches), the card line, and the final
    ``{"ok": true, ...}``.
 
 Every engine above carries the 128-second flight ring by default: the
@@ -446,7 +467,8 @@ from sentinel_tpu_torch import convert
 from sentinel_tpu_torch.cluster import codec as ccodec
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import (
-    H2D, make_entry_batch_np, make_exit_batch_np, to_device)
+    H2D, EntryBatch, ExitBatch, make_entry_batch_np, make_exit_batch_np,
+    to_device)
 from sentinel_tpu_torch.core.checkpoint import _load_npz, _state_arrays
 from sentinel_tpu_torch.core.config import LOG_DIR, config
 from sentinel_tpu_torch.core.engine import SentinelEngine
@@ -9055,6 +9077,399 @@ def native_phase(dev, shim_build_s):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The reference phase: the JAX package's main-path test files on the card
+# (tests/test_torch_ref_main.py through tests/test_torch_refsuite.py), and
+# the within-batch invariants of tests/test_flow_batch_semantics.py at the
+# main path's widths, card = CPU on a numpy batch.
+# ---------------------------------------------------------------------------
+
+REF_GROUP = "tests/test_torch_ref_main.py"
+REF_PHASE_LIMIT_S = 180.0
+REF_CHILD_TIMEOUT_S = 150.0
+REF_DIR = Path(__file__).resolve().parent / "smoke_logs" / "reference"
+INV_RESOURCES = 1_000
+INV_WIDTHS = (2048, 8192)
+INV_PERMUTATIONS = 3
+INV_CAPACITY = 4096
+INV_SEED = 41
+INV_T0 = NOW0 + 5_000
+
+
+def reference_suite(out_path: str) -> int:
+    """``chip_smoke.py --reference-suite OUT``: the main-path group of the
+    reference suite under pytest in this process, with the engine on the
+    device ``SENTINEL_REFSUITE_DEVICE`` names (``--noconftest``: the
+    repo's conftest imports JAX). Writes the outcome counts, the failed
+    node ids, the seconds and the prefix launches by shape to ``OUT``."""
+    import types
+
+    import pytest
+
+    # ``tests`` is the repository's directory (a namespace package): an
+    # installed distribution's top-level ``tests`` package must not
+    # shadow it.
+    tests_pkg = types.ModuleType("tests")
+    tests_pkg.__path__ = [str(Path(__file__).resolve().parent / "tests")]
+    sys.modules["tests"] = tests_pkg
+    prefix_cuda.launches = 0
+    prefix_cuda.tile_launches = 0
+    prefix_cuda.launches_by_shape.clear()
+    counts = {"passed": 0, "failed": 0, "error": 0, "skipped": 0,
+              "xfailed": 0, "xpassed": 0}
+    failed = []
+
+    class Tally:
+        def pytest_runtest_logreport(self, report):
+            xfail = hasattr(report, "wasxfail")
+            if report.when == "call":
+                key = ("xfailed" if report.skipped else "xpassed") if xfail \
+                    else report.outcome
+            elif report.failed:
+                key = "error"
+            elif report.skipped:
+                key = "xfailed" if xfail else "skipped"
+            else:
+                return
+            counts[key] += 1
+            if key in ("failed", "error", "xpassed"):
+                failed.append(f"{report.nodeid} ({report.when})")
+
+    t0 = time.perf_counter()
+    rc = pytest.main(["-q", "--noconftest", "-p", "no:cacheprovider",
+                      "-p", "no:randomly", "-p", "no:xdist", "-m", "not slow",
+                      "-k", "not test_accounting", REF_GROUP],
+                     plugins=[Tally()])
+    seconds = time.perf_counter() - t0
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps({
+        "rc": int(rc), "counts": counts, "failed": failed,
+        "seconds": seconds, "launches": prefix_cuda.launches,
+        "tile_launches": prefix_cuda.tile_launches,
+        "by_shape": {f"K={k},N={n},M={m}": c for (k, n, m), c
+                     in sorted(prefix_cuda.launches_by_shape.items())}}))
+    return 0
+
+
+def reference_child(dev) -> dict:
+    """Runs :func:`reference_suite` in a process of its own (the reference
+    cases rebuild the default engine and set process-wide config); its
+    pytest output goes under ``smoke_logs/reference/``."""
+    REF_DIR.mkdir(parents=True, exist_ok=True)
+    out = REF_DIR / "summary.json"
+    log = REF_DIR / "pytest.log"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, SENTINEL_REFSUITE_DEVICE=dev.type)
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--reference-suite", str(out)],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=fh, stderr=subprocess.STDOUT)
+        try:
+            proc.wait(timeout=REF_CHILD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not out.exists():
+        tail = log.read_text()[-3000:]
+        raise AssertionError(f"reference suite: no summary (rc "
+                             f"{proc.returncode}); log tail:\n{tail}")
+    got = json.loads(out.read_text())
+    got["child_rc"] = proc.returncode
+    return got
+
+
+def host_array(x) -> np.ndarray:
+    """A copy on the host of a tensor on any device, or of a JAX array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return np.array(x)
+
+
+def invariant_rules(pkg, n: int):
+    """The invariants' rules in package ``pkg`` (the port, or in the
+    tier-1 test the JAX package): resource ``inv<i>`` of kind ``i % 5``
+    carries a count-0 rule for origin appA ahead of a shared QPS rule (0),
+    the same ahead of a shared rate limiter (1), a THREAD-grade rule (2),
+    an exception-count breaker (3), or a rule that never binds (4)."""
+    flow, degrade = [], []
+    for i in range(n):
+        r, kind = f"inv{i}", i % 5
+        if kind in (0, 1):
+            flow.append(pkg.FlowRule(resource=r, count=0, limit_app="appA"))
+        if kind == 0:
+            flow.append(pkg.FlowRule(resource=r, count=3 + i % 7))
+        elif kind == 1:
+            flow.append(pkg.FlowRule(
+                resource=r, count=10, max_queueing_time_ms=200,
+                control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER))
+        elif kind == 2:
+            flow.append(pkg.FlowRule(resource=r, count=4,
+                                     grade=C.FLOW_GRADE_THREAD))
+        elif kind == 3:
+            flow.append(pkg.FlowRule(resource=r, count=1_000))
+            degrade.append(pkg.DegradeRule(
+                resource=r, count=1, time_window=10, min_request_amount=1,
+                grade=C.DEGRADE_GRADE_EXCEPTION_COUNT))
+        else:
+            flow.append(pkg.FlowRule(resource=r, count=1_000_000))
+    return flow, degrade
+
+
+def invariant_plan(width: int, n: int, seed: int) -> np.ndarray:
+    """One lane a row: (resource, origin appA?, count, pre_passed,
+    pre_blocked). Zipf(1.2) over the resources, so hot ones take many
+    lanes of one batch; THREAD-grade lanes ask 1-5 tokens; pre-passed
+    and pre-blocked lanes only on the rule that never binds."""
+    rng = np.random.default_rng(seed)
+    res = (rng.zipf(1.2, width) - 1) % n
+    kind = res % 5
+    app_a = (kind <= 1) & (rng.random(width) < 0.4)
+    count = np.where(kind == 2, rng.integers(1, 6, width), 1)
+    u = rng.random(width)
+    pre_passed = (kind == 4) & (u < 0.1)
+    pre_blocked = (kind == 4) & (u >= 0.1) & (u < 0.2)
+    return np.stack([res, app_a, count, pre_passed, pre_blocked],
+                    axis=1).astype(np.int64)
+
+
+def invariant_buf(reg, plan, width: int):
+    """The plan's lanes as a numpy staging dict on ``reg``'s rows (the
+    form a reference test hands ``check_batch``), padded to ``width``."""
+    buf = make_entry_batch_np(width)
+    for j, (i, app_a, count, pre_p, pre_b) in enumerate(plan.tolist()):
+        name = f"inv{i}"
+        buf["cluster_row"][j] = reg.cluster_row(name)
+        buf["dn_row"][j] = -1
+        buf["count"][j] = count
+        if i % 5 <= 1:
+            app = "appA" if app_a else "appB"
+            buf["origin_row"][j] = reg.origin_row(name, app)
+            buf["origin_id"][j] = reg.origin_id(app)
+            buf["origin_named"][j] = bool(app_a)
+        buf["pre_passed"][j] = bool(pre_p)
+        buf["pre_blocked"][j] = bool(pre_b)
+    return buf
+
+
+def invariant_run(pkg, eng, entry_cls, exit_cls, width: int, n: int,
+                  seed: int, order=None):
+    """Load the rules, open every breaker (one lane each, exited with
+    errors at ``INV_T0``), then one admission batch of the plan (in
+    ``order`` when given) 100 ms later: its decisions as numpy, and the
+    plan in batch order."""
+    flow, degrade = invariant_rules(pkg, n)
+    eng.flow_rules.load_rules(flow)
+    eng.degrade_rules.load_rules(degrade)
+    reg = eng.registry
+    for i in range(n):  # intern every row in one order on every engine
+        reg.cluster_row(f"inv{i}")
+        if i % 5 <= 1:
+            reg.origin_row(f"inv{i}", "appA")
+            reg.origin_row(f"inv{i}", "appB")
+    breakers = np.arange(3, n, 5)[:width]
+    # Two tokens a lane: two errors trip an exception count of 1.
+    opening = np.stack([breakers, np.zeros_like(breakers),
+                        np.full_like(breakers, 2), np.zeros_like(breakers),
+                        np.zeros_like(breakers)], axis=1)
+    buf = invariant_buf(reg, opening, width)
+    dec = eng.check_batch(entry_cls(**buf), now_ms=INV_T0)
+    xbuf = make_exit_batch_np(width)
+    ok = host_array(dec.reason)[:len(breakers)] == 0
+    m = int(ok.sum())
+    for f in ("cluster_row", "dn_row", "origin_row", "count"):
+        xbuf[f][:m] = buf[f][:len(breakers)][ok]
+    xbuf["rt_ms"][:m] = 5
+    xbuf["error"][:m] = True
+    eng.complete_batch(exit_cls(**xbuf), now_ms=INV_T0 + 5)
+    plan = invariant_plan(width, n, seed)
+    if order is not None:
+        plan = plan[order]
+    dec = eng.check_batch(entry_cls(**invariant_buf(reg, plan, width)),
+                          now_ms=INV_T0 + 100)
+    got = {f: host_array(getattr(dec, f))
+           for f in ("reason", "wait_us", "rule_slot")}
+    return got, plan
+
+
+def invariant_checks(got, plan) -> list:
+    """What a serial reference admits, whatever the batch order: the
+    failed checks by name."""
+    reason, wait = got["reason"], got["wait_us"]
+    kind = plan[:, 0] % 5
+    app_a, pre_p, pre_b = plan[:, 1] == 1, plan[:, 3] == 1, plan[:, 4] == 1
+    bad = []
+    if not (reason[(kind <= 1) & app_a] == C.BlockReason.FLOW).all():
+        bad.append("a count-0 origin rule let an appA lane through")
+    if not (reason[kind == 3] == C.BlockReason.DEGRADE).all():
+        bad.append("an open breaker let a lane through")
+    if not (reason[pre_p] == C.BlockReason.PASS).all():
+        bad.append("a pre-passed lane was blocked")
+    if not (reason[pre_b] != C.BlockReason.PASS).all():
+        bad.append("a pre-blocked lane passed")
+    if not (reason[(kind == 4) & ~pre_b] == C.BlockReason.PASS).all():
+        bad.append("the rule that never binds blocked a lane")
+    res = plan[:, 0]
+    for i in np.unique(res[kind == 0]):
+        lanes = (res == i) & ~app_a
+        want = min(3 + i % 7, int(lanes.sum()))
+        if int((reason[lanes] == C.BlockReason.PASS).sum()) != want:
+            bad.append(f"inv{i}: blocked appA lanes moved the shared quota")
+            break
+    for i in np.unique(res[kind == 1]):
+        lanes = (res == i) & ~app_a
+        passed = lanes & (reason == C.BlockReason.PASS)
+        want = min(3, int(lanes.sum()))  # 0, 100, 200 ms under a 200 ms cap
+        if int(passed.sum()) != want or \
+                sorted(wait[passed].tolist()) != [0, 100_000, 200_000][:want]:
+            bad.append(f"inv{i}: the rate limiter's pacing took blocked "
+                       "lanes into account")
+            break
+    for i in np.unique(res[kind == 2]):
+        lanes = res == i
+        want = min(4, int(lanes.sum()))  # concurrency moves 1 an entry
+        if int((reason[lanes] == C.BlockReason.PASS).sum()) != want:
+            bad.append(f"inv{i}: THREAD grade counted tokens")
+            break
+    return bad
+
+
+def admitted_by_resource(got, plan, n: int) -> np.ndarray:
+    passed = got["reason"] == C.BlockReason.PASS
+    return np.bincount(plan[passed, 0], minlength=n)
+
+
+def states_bit_equal(x, y, path="") -> list:
+    """Paths where two ``state_to_numpy`` trees differ in any bit."""
+    if set(x) != set(y):
+        return [f"{path}: fields {sorted(set(x) ^ set(y))}"]
+    out = []
+    for k in x:
+        if isinstance(x[k], dict):
+            out += states_bit_equal(x[k], y[k], f"{path}.{k}")
+        elif x[k].dtype != y[k].dtype or x[k].shape != y[k].shape or \
+                x[k].tobytes() != y[k].tobytes():
+            out.append(f"{path}.{k}")
+    return out
+
+
+def invariant_engine(dev):
+    from sentinel_tpu_torch.core import context as ctx
+
+    ctx.replace_context(None)
+    ctx.bump_generation()
+    return SentinelEngine(INV_CAPACITY, device=dev, clock=Clock(INV_T0))
+
+
+def reference_invariants(dev) -> dict:
+    """Card = CPU, bit for bit, on decisions and state at each width, and
+    per-resource admitted totals equal under three permutations."""
+    cpu = torch.device("cpu")
+    out, failed = {}, []
+    for width in INV_WIDTHS:
+        t1 = time.perf_counter()
+        runs = {}
+        for d in (dev, cpu):
+            eng = invariant_engine(d)
+            try:
+                got, plan = invariant_run(st, eng, EntryBatch, ExitBatch,
+                                          width, INV_RESOURCES, INV_SEED)
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                runs[d.type] = (got, plan, convert.state_to_numpy(eng.state))
+            finally:
+                eng.close()
+        card, host = runs[dev.type], runs["cpu"]
+        for f in card[0]:
+            if not np.array_equal(card[0][f], host[0][f]):
+                failed.append(f"width {width}: decisions.{f} card != cpu")
+        diff = states_bit_equal(card[2], host[2])
+        if diff:
+            failed.append(f"width {width}: state differs at {diff[:4]}")
+        bad = invariant_checks(card[0], card[1])
+        failed += [f"width {width}: {b}" for b in bad]
+        totals = admitted_by_resource(card[0], card[1], INV_RESOURCES)
+        rng = np.random.default_rng(width)
+        for p in range(INV_PERMUTATIONS):
+            eng = invariant_engine(dev)
+            try:
+                got, plan = invariant_run(
+                    st, eng, EntryBatch, ExitBatch, width, INV_RESOURCES,
+                    INV_SEED, order=rng.permutation(width))
+            finally:
+                eng.close()
+            if not np.array_equal(
+                    admitted_by_resource(got, plan, INV_RESOURCES), totals):
+                failed.append(f"width {width}: permutation {p} moved a "
+                              "resource's admitted total")
+            failed += [f"width {width} permutation {p}: {b}"
+                       for b in invariant_checks(got, plan)]
+        reasons = card[0]["reason"]
+        out[str(width)] = {
+            "lanes_by_reason": {
+                (C.BlockReason(int(r)).name if int(r) >= 0 else str(int(r))):
+                int(c) for r, c in zip(*np.unique(reasons,
+                                                  return_counts=True))},
+            "paced_lanes": int((card[0]["wait_us"] > 0).sum()),
+            "admitted": int(totals.sum()),
+            "resources_hit": int((np.bincount(card[1][:, 0],
+                                              minlength=INV_RESOURCES)
+                                  > 0).sum()),
+            "seconds": time.perf_counter() - t1}
+    return {"widths": out, "failed": failed}
+
+
+def reference_phase(dev):
+    """(i) The main-path files of the JAX package's own suite with the
+    engine on the card (every step through the Hopper prefix kernel): no
+    case may fail, and the prefix kernel must have launched; (ii) the
+    within-batch invariants at 2048 and 8192 lanes. Prints one
+    ``{"reference": ...}`` line; returns the launches."""
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    try:
+        suite = reference_child(dev)
+        out["suite"] = suite
+        c = suite["counts"]
+        if suite["rc"] != 0 or c["failed"] or c["error"] or c["xpassed"]:
+            failed.append(f"reference suite on {dev.type}: rc "
+                          f"{suite['rc']}, {suite['failed'][:5]}")
+        if c["passed"] <= 0:
+            failed.append("reference suite: no case passed")
+        if dev.type == "cuda" and suite["launches"] <= 0:
+            failed.append("reference suite: the prefix kernel never launched")
+        prefix_cuda.launches = 0
+        prefix_cuda.tile_launches = 0
+        prefix_cuda.launches_by_shape.clear()
+        inv = reference_invariants(dev)
+        out["invariants"] = inv["widths"]
+        failed += inv["failed"]
+        out["invariant_launches"] = prefix_cuda.launches
+        out["invariant_by_shape"] = {
+            f"K={k},N={n},M={m}": v for (k, n, m), v
+            in sorted(prefix_cuda.launches_by_shape.items())}
+        if dev.type == "cuda" and prefix_cuda.launches <= 0:
+            failed.append("invariants: the prefix kernel never launched")
+    finally:
+        out["card"] = smi_line()
+        out["failed_checks"] = failed
+        out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"reference": out}), flush=True)
+    if failed:
+        raise AssertionError(f"reference: {failed[0]} ({len(failed)} "
+                             "failed)")
+    if out["phase_s"] > REF_PHASE_LIMIT_S:
+        raise AssertionError(f"reference phase took {out['phase_s']:.1f} "
+                             f"s, over {REF_PHASE_LIMIT_S} s")
+    return {"prefix": suite["launches"] + out["invariant_launches"],
+            "suite_by_shape": suite["by_shape"],
+            "invariant_by_shape": out["invariant_by_shape"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9116,6 +9531,7 @@ def main() -> int:
     ops_launches = ops_phase(dev)
     dash_launches = dashboard_phase(dev)
     native_launches = native_phase(dev, shim_build_s)
+    ref_launches = reference_phase(dev)
 
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}),
           flush=True)
@@ -9157,6 +9573,10 @@ def main() -> int:
         "dashboard_path_launches_by_shape": dash_launches["prefix_by_shape"],
         "native_path_launches": native_launches["prefix"],
         "native_path_launches_by_shape": native_launches["prefix_by_shape"],
+        "reference_path_launches": ref_launches["prefix"],
+        "reference_suite_launches_by_shape": ref_launches["suite_by_shape"],
+        "reference_invariant_launches_by_shape":
+            ref_launches["invariant_by_shape"],
     }, dict(acquire_kernel_entry(cluster),
             control_path_launches=control_launches["acquire"],
             control_path_launches_by_width=control_launches[
@@ -9185,4 +9605,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--client-token-server"]:
         sys.exit(client_token_server(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--reference-suite"]:
+        sys.exit(reference_suite(sys.argv[2]))
     sys.exit(main())

@@ -283,3 +283,21 @@ def to_device(batch_np, device):
     if device.type == "cuda":
         H2D.copies += len(cls._fields)
     return cls(**{f: _to_tensor(batch_np[f], device) for f in cls._fields})
+
+
+def batch_to(batch, device):
+    """An ``EntryBatch`` / ``ExitBatch`` whose columns are tensors on
+    ``device``, as the reference's jitted steps take a batch of numpy
+    arrays: a tensor elsewhere is copied there, a numpy array or another
+    array-like is converted as ``to_device`` converts a staging dict."""
+    device = torch.device(device)
+    cols = {}
+    for f in batch._fields:
+        col = getattr(batch, f)
+        if not isinstance(col, torch.Tensor):
+            col = _to_tensor(col, "cpu")
+        moved = col.to(device)
+        if moved is not col and device.type == "cuda":
+            H2D.copies += 1
+        cols[f] = moved
+    return type(batch)(**cols)

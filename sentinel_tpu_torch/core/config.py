@@ -3,9 +3,10 @@ the keys this package reads).
 
 Reference: ``core:config/SentinelConfig.java``. Environment variables
 (the literal dotted key or its ``CSP_SENTINEL_*`` upper-snake form)
-override values set with :meth:`SentinelConfig.set`, which override the
-defaults. Keys keep the reference's dotted names. The JAX package's
-properties-file layer is not ported: no key this package reads needs it.
+override values set with :meth:`SentinelConfig.set`, which override a
+properties file named by ``$CSP_SENTINEL_CONFIG_FILE`` (default
+``./sentinel.properties``, read once, at the first read or write), which
+overrides the defaults. Keys keep the reference's dotted names.
 """
 
 from __future__ import annotations
@@ -16,6 +17,11 @@ from typing import Dict, Optional
 
 # Keys read by this package.
 LOG_DIR = "csp.sentinel.log.dir"
+CHARSET = "csp.sentinel.charset"
+COLD_FACTOR = "csp.sentinel.flow.cold.factor"
+STATISTIC_MAX_RT = "csp.sentinel.statistic.max.rt"
+# The environment variable naming the properties file.
+CONFIG_FILE_ENV = "CSP_SENTINEL_CONFIG_FILE"
 # The metric log (metrics/writer.py): the file name's app and the roll and
 # trim limits (reference: SentinelConfig's metric file keys).
 APP_NAME = "project.name"
@@ -239,6 +245,9 @@ LLM_DEFAULT_ESTIMATE_TOKENS = "csp.sentinel.llm.default.estimate.tokens"
 
 DEFAULT_LEASE_ENABLED = "true"
 DEFAULT_APP_NAME = "sentinel-tpu-app"
+DEFAULT_CHARSET = "utf-8"
+DEFAULT_COLD_FACTOR = 3
+DEFAULT_STATISTIC_MAX_RT = 4900
 DEFAULT_SINGLE_METRIC_FILE_SIZE = 50 * 1024 * 1024
 DEFAULT_TOTAL_METRIC_FILE_COUNT = 6
 DEFAULT_PROFILE_SYNC_EVERY = 64
@@ -347,15 +356,63 @@ def _env_key(key: str) -> str:
     return key.upper().replace(".", "_").replace("-", "_")
 
 
+def _parse_properties(text: str) -> Dict[str, str]:
+    """``key=value`` / ``key: value`` lines; ``#`` and ``!`` comments."""
+    out: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith(("#", "!")):
+            continue
+        for sep in ("=", ":"):
+            if sep in line:
+                k, _, v = line.partition(sep)
+                out[k.strip()] = v.strip()
+                break
+    return out
+
+
 class SentinelConfig:
-    """Process-wide key/value config: environment, then ``set``, then
-    defaults."""
+    """Process-wide key/value config: environment, then ``set``, then the
+    properties file, then defaults."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._config: Dict[str, str] = {LEASE_ENABLED: DEFAULT_LEASE_ENABLED}
+        self._loaded = False
+
+    def _ensure_loaded(self):
+        if self._loaded:
+            return
+        with self._lock:
+            if self._loaded:
+                return
+            self._loaded = True
+            defaults = {
+                CHARSET: DEFAULT_CHARSET,
+                SINGLE_METRIC_FILE_SIZE: str(DEFAULT_SINGLE_METRIC_FILE_SIZE),
+                TOTAL_METRIC_FILE_COUNT: str(DEFAULT_TOTAL_METRIC_FILE_COUNT),
+                COLD_FACTOR: str(DEFAULT_COLD_FACTOR),
+                STATISTIC_MAX_RT: str(DEFAULT_STATISTIC_MAX_RT),
+                API_PORT: str(DEFAULT_API_PORT),
+                HEARTBEAT_INTERVAL_MS: str(DEFAULT_HEARTBEAT_INTERVAL_MS),
+            }
+            for k, v in defaults.items():
+                self._config.setdefault(k, v)
+            path = os.environ.get(CONFIG_FILE_ENV, "sentinel.properties")
+            try:
+                with open(path, "r", encoding="utf-8") as f:
+                    self._config.update(_parse_properties(f.read()))
+            except OSError:
+                pass
+            # Env overrides: literal dotted key or CSP_SENTINEL_* form.
+            for key in list(self._config) + [APP_NAME, DASHBOARD_SERVER,
+                                             LOG_DIR]:
+                for env in (key, _env_key(key)):
+                    if env in os.environ:
+                        self._config[key] = os.environ[env]
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        self._ensure_loaded()
         with self._lock:
             for env in (key, _env_key(key)):
                 if env in os.environ:
@@ -363,6 +420,7 @@ class SentinelConfig:
             return self._config.get(key, default)
 
     def set(self, key: str, value: str) -> None:
+        self._ensure_loaded()
         with self._lock:
             self._config[key] = str(value)
 
@@ -395,6 +453,12 @@ class SentinelConfig:
 
     def app_type(self) -> int:
         return self.get_int(APP_TYPE, 0)
+
+    def charset(self) -> str:
+        return self.get(CHARSET) or DEFAULT_CHARSET
+
+    def statistic_max_rt(self) -> int:
+        return self.get_int(STATISTIC_MAX_RT, DEFAULT_STATISTIC_MAX_RT)
 
     def api_port(self) -> int:
         return self.get_int(API_PORT, DEFAULT_API_PORT)
@@ -867,6 +931,7 @@ class SentinelConfig:
     def reset_for_tests(self) -> None:
         with self._lock:
             self._config = {LEASE_ENABLED: DEFAULT_LEASE_ENABLED}
+            self._loaded = False
 
 
 config = SentinelConfig()

@@ -121,7 +121,8 @@ from sentinel_tpu_torch.core import context as ctx_mod
 from sentinel_tpu_torch.core import spi as spi_mod
 from sentinel_tpu_torch.core.batch import (
     BATCH_WIDTHS, MAX_PARAMS, Decisions, EntryBatch, ExitBatch,
-    make_entry_batch_np, make_exit_batch_np, stage_row, to_device)
+    batch_to, make_entry_batch_np, make_exit_batch_np, stage_row,
+    to_device)
 from sentinel_tpu_torch.core.config import (
     DEFAULT_PROFILE_SYNC_EVERY, DEFAULT_RESILIENCE_ENTRY_BUDGET_MS,
     DEFAULT_TELEMETRY_TIMESERIES_HISTORY,
@@ -156,6 +157,8 @@ from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
 from sentinel_tpu_torch.utils import time_util
 from sentinel_tpu_torch.utils.device import resolve_device, to_host
 from sentinel_tpu_torch.utils.param_hash import hash_param
+
+_hash_param = hash_param  # the reference engine's name for it
 
 # Per-family slot-count floors at construction (the JAX engine's values).
 INITIAL_SLOT_FLOOR = {"flow": 1, "degrade": 0, "authority": 0, "param": 0}
@@ -986,7 +989,10 @@ class SentinelEngine:
             return to_device(batch, self.device)
         if not isinstance(batch, cls):
             raise TypeError(f"expected {cls.__name__} or a numpy staging dict")
-        return batch
+        # Columns of numpy (the reference's own tests build batches so),
+        # other array-likes or tensors on another device move here first:
+        # a step that raised on them would restart the engine cold.
+        return batch_to(batch, self.device)
 
     def _run_entry_batch_locked(self, batch, now_ms: Optional[int] = None,
                                 timed: bool = True) -> Decisions:

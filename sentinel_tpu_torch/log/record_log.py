@@ -62,6 +62,12 @@ class RecordLog:
             except OSError:
                 pass
 
+    def info(self, msg: str, *args) -> None:
+        if args:
+            msg = msg % args
+        ts = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
+        self.write_line(f"{ts} INFO {msg}")
+
     def warn(self, msg: str, *args) -> None:
         if args:
             msg = msg % args

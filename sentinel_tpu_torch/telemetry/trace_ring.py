@@ -84,11 +84,11 @@ class DecisionTraceBuffer:
     @staticmethod
     def _snap(col, pending: list):
         """A copy of one column the later steps and a recycled staging
-        buffer cannot change: numpy and CPU tensors are copied now; a
-        CUDA tensor is copied into pinned memory without blocking, and
-        ``pending`` notes that an event must order the worker's read."""
-        if isinstance(col, np.ndarray):
-            return col.copy()
+        buffer cannot change: numpy arrays (or any other array-like) and
+        CPU tensors are copied now; a CUDA tensor is copied into pinned
+        memory without blocking, and ``pending`` notes that an event must order the worker's read."""
+        if not isinstance(col, torch.Tensor):
+            return np.array(col)
         if col.device.type == "cuda":
             host = torch.empty(col.shape, dtype=col.dtype, pin_memory=True)
             host.copy_(col, non_blocking=True)

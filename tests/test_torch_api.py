@@ -634,3 +634,89 @@ def _fuzz(pair, seed, ops=300):
 ])
 def test_differential_fuzz(pair, seed):
     _fuzz(pair, seed)
+
+
+def test_numpy_batches_keep_the_statistics(pair):
+    """C22: the reference's ``check_batch`` / ``complete_batch`` take an
+    ``EntryBatch`` / ``ExitBatch`` of numpy arrays (its jit converts
+    them), as its own tests build them. The port's passed such a batch on
+    unconverted: the step raised, the engine restarted cold and the
+    statistics admitted before it were gone. Now both give the same
+    ``Decisions`` and state, and the earlier passes survive."""
+    from sentinel_tpu.core.batch import EntryBatch as JEntryBatch
+    from sentinel_tpu.core.batch import ExitBatch as JExitBatch
+    from sentinel_tpu_torch.core.batch import EntryBatch as PEntryBatch
+    from sentinel_tpu_torch.core.batch import ExitBatch as PExitBatch
+    from sentinel_tpu_torch.core.batch import (make_entry_batch_np,
+                                               make_exit_batch_np)
+
+    pair.rules(flow=[dict(resource="nb", count=5)])
+    assert [pair.entry("nb") for _ in range(3)] == ["pass"] * 3
+    for s in pair.sides:
+        s.eng._flush_committer()
+    before = pair.p.eng.node_snapshot()["nb"]["passQps"]
+    assert before == pair.j.eng.node_snapshot()["nb"]["passQps"] == 3.0
+
+    row = pair.p.eng.registry.cluster_row("nb")
+    assert row == pair.j.eng.registry.cluster_row("nb")
+    buf = make_entry_batch_np(8)
+    buf["cluster_row"][:4] = row
+    buf["count"][:4] = 1
+    dj = pair.j.eng.check_batch(JEntryBatch(**buf))
+    dp = pair.p.eng.check_batch(PEntryBatch(**buf))
+    for f in ("reason", "wait_us", "rule_slot"):
+        np.testing.assert_array_equal(np.asarray(getattr(dp, f)),
+                                      np.asarray(getattr(dj, f)), f)
+    passed = int((np.asarray(dp.reason)[:4] == 0).sum())
+    assert passed == 2  # the rule's 5, less the three leased passes
+
+    xbuf = make_exit_batch_np(8)
+    xbuf["cluster_row"][:passed] = row
+    xbuf["count"][:passed] = 1
+    xbuf["rt_ms"][:passed] = 7
+    xbuf["success"][:passed] = True
+    pair.j.eng.complete_batch(JExitBatch(**xbuf))
+    pair.p.eng.complete_batch(PExitBatch(**xbuf))
+    assert pair.p.eng.node_snapshot()["nb"]["passQps"] == before + passed
+    pair.check(seal=False)
+
+
+def test_trace_snapshot_copies_a_column_that_is_not_a_tensor():
+    """C22's trace-ring half: a batch column that is a numpy array or
+    another array-like is copied as an array, not read as a tensor."""
+    from sentinel_tpu_torch.telemetry.trace_ring import DecisionTraceBuffer
+
+    col = np.arange(4, dtype=np.int32)
+    got = DecisionTraceBuffer._snap(col, [])
+    col[0] = 9
+    assert got.tolist() == [0, 1, 2, 3]
+    assert DecisionTraceBuffer._snap([1, 2], []).tolist() == [1, 2]
+
+
+def test_package_reexports_match_the_reference():
+    """C24: the reference's ``metrics`` and ``telemetry`` packages
+    re-export their modules' names, and its engine names the param hash
+    ``_hash_param``; the reference's own tests import them so
+    (``tests/test_observability.py``, ``test_flow_batch_semantics.py``).
+    The port's packages exported nothing."""
+    import sentinel_tpu.metrics as jmetrics
+    import sentinel_tpu.telemetry as jtelemetry
+    from sentinel_tpu.core.engine import _hash_param as jhash
+
+    import sentinel_tpu_torch.metrics as pmetrics
+    import sentinel_tpu_torch.telemetry as ptelemetry
+    from sentinel_tpu_torch.core.engine import _hash_param as phash
+
+    assert pmetrics.__all__ == jmetrics.__all__
+    for name in jmetrics.__all__:
+        assert getattr(pmetrics, name).__name__ == \
+            getattr(jmetrics, name).__name__
+    public = [n for n in vars(jtelemetry) if not n.startswith("_")
+              and not isinstance(getattr(jtelemetry, n), type(jtelemetry))]
+    assert public and all(hasattr(ptelemetry, n) for n in public)
+    for n in ("ATTR_REASON_NAMES", "NUM_RT_BUCKETS", "RT_BUCKET_EDGES_MS",
+              "OPENMETRICS_CONTENT_TYPE"):
+        assert np.array_equal(np.asarray(getattr(ptelemetry, n)),
+                              np.asarray(getattr(jtelemetry, n))), n
+    for v in ("user-42", 1, 1.0, "1", True, b"1", None):
+        assert phash(v) == jhash(v)

@@ -580,8 +580,11 @@ def test_failed_promotion_retries_until_port_frees(tmp_path):
                    seats["A"].map is None,
                    seats["A"].transition_pending()]
             blocker.close()
+            # Both packages flip the mode before they set ``map`` (ROADMAP
+            # C21): wait for the two, not for the mode alone.
             assert _wait(lambda: seats["A"].state.mode
-                         == P.state.CLUSTER_SERVER, 10.0)
+                         == P.state.CLUSTER_SERVER
+                         and seats["A"].map is not None, 10.0)
             out += [seats["A"].map.epoch,
                     seats["A"].state.token_server.epoch,
                     seats["A"].transition_pending()]

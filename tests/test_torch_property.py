@@ -434,3 +434,89 @@ def test_property_push_racing_the_committer_does_not_deadlock():
     finally:
         eng.close()
         ptu.unfreeze_time()
+
+
+# ---------------------------------------------------------------------------
+# the properties-file layer (ROADMAP C23)
+# ---------------------------------------------------------------------------
+
+FILE_KEYS = (INTERVAL, SAMPLES, OCCUPY, "project.name",
+             "csp.sentinel.charset", "csp.sentinel.statistic.max.rt",
+             "csp.sentinel.flow.cold.factor", "csp.sentinel.api.port",
+             "csp.sentinel.metric.file.single.size",
+             "csp.sentinel.heartbeat.interval.ms", "no.such.key")
+
+
+def test_properties_file_seeds_both_packages(monkeypatch, tmp_path):
+    """C23: the file named by ``CSP_SENTINEL_CONFIG_FILE`` sits between
+    ``set`` and the defaults on both packages: the same ``config.get``
+    values, accessors and seeded ``_spec1``; an environment variable still
+    overrides the file."""
+    path = tmp_path / "sentinel.properties"
+    path.write_text("# a comment\n! another\n\n"
+                    f"{INTERVAL}=2000\n"
+                    f"{SAMPLES}: 4\n"
+                    "project.name = from-file\n"
+                    "csp.sentinel.charset=GBK\n"
+                    "csp.sentinel.statistic.max.rt=3000\n")
+    monkeypatch.setenv("CSP_SENTINEL_CONFIG_FILE", str(path))
+    try:
+        for cfg in (jconfig, pconfig):
+            cfg.reset_for_tests()
+        got = [pconfig.get(k) for k in FILE_KEYS]
+        assert got == [jconfig.get(k) for k in FILE_KEYS]
+        assert got[:2] == ["2000", "4"] and got[3] == "from-file"
+        assert pconfig.charset() == jconfig.charset() == "GBK"
+        assert pconfig.statistic_max_rt() == jconfig.statistic_max_rt() \
+            == 3000
+        assert pconfig.app_name() == jconfig.app_name() == "from-file"
+        twin = Twin(monkeypatch, {})
+        try:
+            assert twin.geometry()[:2] == (2000, 4)
+        finally:
+            twin.close()
+
+        # The environment overrides the file, on both.
+        monkeypatch.setenv("CSP_SENTINEL_STATISTIC_SAMPLE_COUNT", "5")
+        for cfg in (jconfig, pconfig):
+            cfg.reset_for_tests()
+        assert pconfig.get(SAMPLES) == jconfig.get(SAMPLES) == "5"
+        twin = Twin(monkeypatch, {})
+        try:
+            assert twin.geometry()[:2] == (2000, 5)
+        finally:
+            twin.close()
+    finally:
+        monkeypatch.delenv("CSP_SENTINEL_CONFIG_FILE")
+        monkeypatch.delenv("CSP_SENTINEL_STATISTIC_SAMPLE_COUNT",
+                           raising=False)
+        for cfg in (jconfig, pconfig):
+            cfg.reset_for_tests()
+
+
+def test_config_defaults_and_record_log_info_match_the_reference(
+        monkeypatch, tmp_path):
+    """The accessors the port lacked (``charset``, ``statistic_max_rt``)
+    read the reference's defaults with no file, and ``RecordLog.info``
+    writes the reference's line."""
+    monkeypatch.setenv("CSP_SENTINEL_CONFIG_FILE", str(tmp_path / "absent"))
+    try:
+        for cfg in (jconfig, pconfig):
+            cfg.reset_for_tests()
+        assert [pconfig.get(k) for k in FILE_KEYS] == \
+            [jconfig.get(k) for k in FILE_KEYS]
+        assert pconfig.charset() == jconfig.charset() == "utf-8"
+        assert pconfig.statistic_max_rt() == jconfig.statistic_max_rt() \
+            == 4900
+    finally:
+        monkeypatch.delenv("CSP_SENTINEL_CONFIG_FILE")
+        for cfg in (jconfig, pconfig):
+            cfg.reset_for_tests()
+    lines = {"jax": [], "port": []}
+    for name, log in (("jax", jlog), ("port", plog)):
+        monkeypatch.setattr(log, "write_line",
+                            lambda line, _n=name: lines[_n].append(line))
+        log.info("loaded %s rules from %s", 3, "file")
+    assert [ln.split(" ", 2)[2] for ln in lines["port"]] == \
+        [ln.split(" ", 2)[2] for ln in lines["jax"]] == \
+        ["INFO loaded 3 rules from file"]
