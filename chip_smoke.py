@@ -1187,7 +1187,10 @@ class TimedLock:
         self._inner.acquire()
         if depth == 0:
             role = self.ROLES.get(threading.current_thread().name, "caller")
-            local.key = f"{role}:{sys._getframe(1).f_code.co_name}"
+            taker = sys._getframe(1)
+            while taker.f_code.co_name == "__enter__":  # the engine's take
+                taker = taker.f_back
+            local.key = f"{role}:{taker.f_code.co_name}"
             local.t_req, local.t_acq = t0, time.perf_counter()
         local.depth = depth + 1
         return self

@@ -139,6 +139,7 @@ from sentinel_tpu_torch.core.registry import (
 from sentinel_tpu_torch.llm import rules as LR
 from sentinel_tpu_torch.llm.streams import StreamLedger
 from sentinel_tpu_torch.log.record_log import log_block, record_log
+from sentinel_tpu_torch.metrics import profiling as _prof
 from sentinel_tpu_torch.metrics.profiling import StepTimer, timed_call
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
@@ -182,6 +183,33 @@ class _StagedVerdicts:
         self.reason = reason
         self.wait_us = wait_us
         self.event = event
+
+
+_RLock = type(threading.RLock())
+
+
+class _LockTake:
+    """``with`` the engine lock as it stands (``engine._lock``, which a
+    measuring caller may wrap). While the span recorder is on, a take of
+    the plain lock tries without blocking first, and only a take that has
+    to wait reads the clock: a ``name`` span."""
+
+    __slots__ = ("_engine", "_name")
+
+    def __init__(self, engine, name: str):
+        self._engine = engine
+        self._name = name
+
+    def __enter__(self) -> None:
+        lock = self._engine._lock
+        if _prof.recorder is None or type(lock) is not _RLock:
+            lock.__enter__()
+        elif not lock.acquire(blocking=False):
+            with _prof.span(self._name):
+                lock.acquire()
+
+    def __exit__(self, *exc) -> bool:
+        return self._engine._lock.__exit__(*exc)
 
 
 class _FastPathState:
@@ -323,6 +351,10 @@ class SentinelEngine:
         self._closed = False
         self._lock = threading.RLock()
         self._config_lock = threading.RLock()
+        self._step_seq = 0  # device steps dispatched, under the lock
+        # The lock's takes on the batch path and by the seal.
+        self._batch_lock = _LockTake(self, "lock_wait")
+        self._seal_lock = _LockTake(self, "seal.lock_wait")
         self._state: Optional[S.SentinelState] = None
         self._rules: Optional[S.RulePack] = None
         self._named_origins: Dict[str, set] = {}
@@ -986,7 +1018,8 @@ class SentinelEngine:
 
     def _as_batch(self, batch, cls):
         if isinstance(batch, dict):
-            return to_device(batch, self.device)
+            with _prof.span("to_device"):
+                return to_device(batch, self.device)
         if not isinstance(batch, cls):
             raise TypeError(f"expected {cls.__name__} or a numpy staging dict")
         # Columns of numpy (the reference's own tests build batches so),
@@ -1022,8 +1055,11 @@ class SentinelEngine:
             # Sampled decision traces: a snapshot and a hand-off only; the
             # pump reads it off this thread. The host staging columns are
             # read when the batch came as one.
-            self.traces.submit(host if host is not None else batch, dec, now)
-            self._observe_population(host, batch)
+            with _prof.span("telemetry.traces_submit"):
+                self.traces.submit(host if host is not None else batch, dec,
+                                   now)
+            with _prof.span("telemetry.population"):
+                self._observe_population(host, batch)
         return dec
 
     def _run_entry_batch(self, batch) -> Decisions:
@@ -1034,7 +1070,7 @@ class SentinelEngine:
                         timed: bool = True) -> None:
         with self._on_stream():
             batch = self._as_batch(batch, ExitBatch)
-        with self._lock, self._on_stream():
+        with self._batch_lock, self._on_stream():
             self._ensure_compiled()
             now = now_ms if now_ms is not None else self.now_ms()
             try:
@@ -1054,23 +1090,30 @@ class SentinelEngine:
         return self._stream.synchronize if self._stream is not None else None
 
     def _dispatch(self, timed: bool, kind: str, n: int, fn, *args, **kw):
-        """``fn(*args, **kw)``, through the step timer when ``timed``."""
-        if not timed:
+        """``fn(*args, **kw)``, step number ``_step_seq``, through the step
+        timer when ``timed``; while the span recorder is on, the same two
+        clock reads make its ``step.<kind>`` span."""
+        self._step_seq += 1
+        rec = _prof.recorder
+        if rec is not None:
+            rec.step(self._step_seq)
+        elif not timed:
             return fn(*args, **kw)
-        return timed_call(self.step_timer, kind, n, self._sync, fn, *args,
-                          **kw)
+        return timed_call(self.step_timer if timed else None, kind, n,
+                          self._sync, fn, *args, **kw)
 
     # -- batch API -----------------------------------------------------------
 
     def check_batch(self, batch, now_ms: Optional[int] = None) -> Decisions:
         """One admission step over a batch (``EntryBatch`` of tensors on
         this engine's device, or a ``make_entry_batch_np`` dict)."""
-        with self._lock:
+        with _prof.span("check_batch"), self._batch_lock:
             return self._run_entry_batch_locked(batch, now_ms, timed=False)
 
     def complete_batch(self, batch, now_ms: Optional[int] = None) -> None:
         """One completion step (``ExitBatch`` or a numpy staging dict)."""
-        self._run_exit_batch(batch, now_ms, timed=False)
+        with _prof.span("complete_batch"):
+            self._run_exit_batch(batch, now_ms, timed=False)
 
     def stage_decisions(self, dec) -> _StagedVerdicts:
         """Start a step's verdicts on their way to the host without
@@ -1099,16 +1142,17 @@ class SentinelEngine:
         behind it. A failure here (a step that died after dispatch) drops
         the state cold, as a dispatch-time failure does, and raises
         ``DeviceDispatchError``."""
-        try:
-            staged = self.stage_decisions(dec)
-            if staged.event is not None:
-                staged.event.synchronize()
-            return staged.reason.numpy(), staged.wait_us.numpy()
-        except Exception as ex:  # noqa: BLE001 — device or runtime death
-            with self._lock:
-                self._state = None
-            raise DeviceDispatchError(
-                f"harvest failed: {ex!r:.200}") from ex
+        with _prof.span("harvest"):
+            try:
+                staged = self.stage_decisions(dec)
+                if staged.event is not None:
+                    staged.event.synchronize()
+                return staged.reason.numpy(), staged.wait_us.numpy()
+            except Exception as ex:  # noqa: BLE001 — device or runtime death
+                with self._lock:
+                    self._state = None
+                raise DeviceDispatchError(
+                    f"harvest failed: {ex!r:.200}") from ex
 
     def warmup(self, widths: Optional[Sequence[int]] = None) -> None:
         """Run one no-op entry and exit step (all rows -1, nothing
@@ -1830,14 +1874,21 @@ class SentinelEngine:
         """Aggregate sealed (fully elapsed) seconds from the minute window
         (reference: ``MetricTimerListener``). Returns ``MetricNode``s for
         seconds not sealed by a previous call; all-idle resource-seconds
-        are skipped."""
-        from sentinel_tpu_torch.metrics.metric_node import MetricNode
+        are skipped.
 
-        now = now_ms if now_ms is not None else self.now_ms()
-        now_sec = now // 1000
-        self._flush_committer()  # leased commits land before sealing
-        with self._lock, self._on_stream():
+        The clock is read under the engine lock (the reference reads it
+        before the committer's flush): a step of a later second that ran
+        in between would otherwise be folded under the older stamp.
+        While the span recorder is on, the seal is the spans
+        ``seal.flush_committer``, ``seal.lock_wait`` (only when the lock
+        is held), ``seal.read`` (the fold, the gather and the copy under
+        the lock) and ``seal.nodes``."""
+        with _prof.span("seal.flush_committer"):
+            self._flush_committer()  # leased commits land before sealing
+        with self._seal_lock, _prof.span("seal.read"), self._on_stream():
             self._ensure_compiled()
+            now = now_ms if now_ms is not None else self.now_ms()
+            now_sec = now // 1000
             first = max(self._sealed_sec + 1, now_sec - C.MINUTE_BUCKETS + 1)
             seconds = list(range(first, now_sec))
             if not seconds:
@@ -1851,6 +1902,14 @@ class SentinelEngine:
             slices = w60.counts[idx].permute(2, 0, 1).cpu().numpy()
             threads = self._state.cur_threads.cpu().numpy()
             metas = self._device_metas()
+        with _prof.span("seal.nodes"):
+            return self._seal_nodes(seconds, slices, threads, metas)
+
+    @staticmethod
+    def _seal_nodes(seconds, slices, threads, metas) -> List:
+        """The sealed seconds' ``MetricNode``s, active cluster rows only."""
+        from sentinel_tpu_torch.metrics.metric_node import MetricNode
+
         ev = [C.MetricEvent.PASS, C.MetricEvent.BLOCK,
               C.MetricEvent.SUCCESS, C.MetricEvent.EXCEPTION]
         active_rows, active_k = np.nonzero(slices[:, :, ev].any(axis=2))
@@ -2061,10 +2120,22 @@ class SentinelEngine:
         table's rebalance, the adaptive loop's tick and the stream
         ledger's eviction. The ring read gathers ONLY the slots newer than
         the last spilled stamp, in one gather and one device-to-host copy
-        under the engine lock; the hooks are host work outside it."""
-        now = now_ms if now_ms is not None else self.now_ms()
-        fresh = []
+        under the engine lock; the hooks are host work outside it. The
+        clock is read under the lock, as :meth:`seal_metrics` reads it.
+        While the span recorder is on, the fold is a ``spill`` span of two
+        children, ``spill.read`` and ``spill.hooks``."""
+        with _prof.span("spill"):
+            with _prof.span("spill.read"):
+                now, fresh, cols = self._spill_read(now_ms)
+            with _prof.span("spill.hooks"):
+                self._spill_hooks(now, fresh, cols)
+
+    def _spill_read(self, now_ms: Optional[int]):
+        """(now, the fresh ``(stamp, slot)``s, their host columns ``(ev,
+        attr, hist, slot)`` or None): the fold's read under the lock."""
+        fresh, cols = [], None
         with self._lock, self._on_stream():
+            now = now_ms if now_ms is not None else self.now_ms()
             self._ensure_compiled()
             state = self._state
             if state is not None and state.flight is not None:
@@ -2086,10 +2157,16 @@ class SentinelEngine:
                     host = torch.cat([p.reshape(k, -1) for p in parts],
                                      dim=1).cpu().numpy()
                     cut = np.cumsum([0] + [p[0].numel() for p in parts])
-                    ev, attr, hist, slot = (
+                    cols = tuple(
                         host[:, cut[j]:cut[j + 1]].reshape(
                             (k,) + tuple(parts[j].shape[1:]))
                         for j in range(4))
+        return now, fresh, cols
+
+    def _spill_hooks(self, now: int, fresh, cols) -> None:
+        """The fold's host work outside the lock, in the reference's
+        order."""
+        ev, attr, hist, slot = cols if cols is not None else (None,) * 4
         metas = self._device_metas()
         slots_tbl = self.slots
         for j, (stamp, _i) in enumerate(fresh):

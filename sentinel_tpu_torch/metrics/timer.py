@@ -12,6 +12,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from sentinel_tpu_torch.metrics import profiling as _prof
 from sentinel_tpu_torch.metrics.writer import MetricWriter
 
 
@@ -36,17 +37,20 @@ class MetricTimerListener:
     def tick(self, now_ms: Optional[int] = None) -> int:
         """One aggregation pass (exposed for deterministic tests).
 
-        Returns the number of lines written.
+        Returns the number of lines written. While the span recorder is
+        on, the writing is a ``seal.write`` span beside the engine's
+        ``seal.*`` spans.
         """
         nodes = self.engine.seal_metrics(now_ms)
-        by_second = {}
-        for n in nodes:
-            by_second.setdefault(n.timestamp, []).append(n)
-        written = 0
-        for second in sorted(by_second):
-            batch = by_second[second]
-            self.writer.write(second, batch)
-            written += len(batch)
+        with _prof.span("seal.write"):
+            by_second = {}
+            for n in nodes:
+                by_second.setdefault(n.timestamp, []).append(n)
+            written = 0
+            for second in sorted(by_second):
+                batch = by_second[second]
+                self.writer.write(second, batch)
+                written += len(batch)
         return written
 
     def start(self) -> "MetricTimerListener":

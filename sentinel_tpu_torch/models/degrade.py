@@ -233,7 +233,7 @@ def feed_degrade(
         has_rule = (rule_id >= 0) & valid
         # JAX gates this on a lax.cond; with no breaker-ruled completion
         # every write below is dropped, so skipping it changes nothing.
-        if not host_bool(has_rule.any()):
+        if not host_bool(has_rule.any(), "sync.degrade.exit_rules"):
             continue
         rid = torch.where(has_rule, rule_id, -1)
         thr = gather(rt.threshold, rule_id, 0.0)

@@ -506,7 +506,8 @@ def _eval_flow_slots(
         cost = g(rt.cost_us, 0)
         is_rl = (behavior == C.CONTROL_BEHAVIOR_RATE_LIMITER) | (
             behavior == C.CONTROL_BEHAVIOR_WARM_UP_RATE_LIMITER)
-        any_rl = host_bool((applicable & is_rl).any())
+        any_rl = host_bool((applicable & is_rl).any(),
+                           "sync.flow.rate_limiter")
         if any_rl:
             rl_prefix = segmented_prefix_dense(
                 torch.where(applicable & is_rl, rule_id, -1),
@@ -536,7 +537,8 @@ def _eval_flow_slots(
         occ_cand = (slot_blocked & (~blocked) & batch.prioritized
                     & (grade == C.FLOW_GRADE_QPS)
                     & (behavior == C.CONTROL_BEHAVIOR_DEFAULT))
-        if occupied_next is not None and host_bool(occ_cand.any()):
+        if occupied_next is not None and host_bool(occ_cand.any(),
+                                                   "sync.flow.occupy"):
             occ_prefix, _ = segmented_prefix_dense(
                 torch.where(occ_cand, sel_row, -1),
                 torch.where(occ_cand & survivors, batch.count, 0)

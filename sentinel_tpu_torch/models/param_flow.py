@@ -331,7 +331,7 @@ def roll_sketch_windows(rt: ParamRuleTensors, ps: ParamFlowState,
     win_start = now - now % dur
     elapsed = torch.clamp((win_start - ps.cms_start) // dur, 0, 30)
     rolled = (elapsed > 0) & (rt.resource_row >= 0)
-    if lazy and not host_bool(rolled.any()):
+    if lazy and not host_bool(rolled.any(), "sync.param.roll"):
         return ps
     factor = torch.exp2(-elapsed.to(torch.float32))
     ps.cms.masked_fill_(rolled[:, None, None], 0.0)
@@ -460,7 +460,7 @@ def _eval_param(
             set_at(ps.key, (srule, slot), pv_hash, claim & r_ok)
             need_stamp = dflt & (~fresh) & (windows >= 1)
             stamp = need_stamp | promoted | (claim_other & fresh)
-            if host_bool(stamp.any()):
+            if host_bool(stamp.any(), "sync.param.stamp"):
                 set_at(ps.filled_ms, (srule, slot), int(now_ms),
                        stamp & r_ok)
             touch = dflt & ((~fresh) | promoted)
@@ -486,7 +486,8 @@ def _eval_param(
                    cms_on[:, None].expand(n, CMS_DEPTH))
             # Throttle-mode head advance: head' = latest + consumed · cost,
             # evicted slots first dropping their stale head.
-            if host_bool((applicable & is_rl).any()):
+            if host_bool((applicable & is_rl).any(),
+                         "sync.param.rate_limiter"):
                 set_at(ps.passed_us, (srule, slot), 0,
                        applicable & is_rl & fresh & r_ok)
                 consumed_after, _ = segmented_prefix_dense(
@@ -498,7 +499,8 @@ def _eval_param(
                 max_at(ps.passed_us, (srule, slot), new_head,
                        admitted & is_rl & r_ok)
             # Thread gauge: reset evicted buckets, then increment admits.
-            if host_bool((applicable & is_thread).any()):
+            if host_bool((applicable & is_thread).any(),
+                         "sync.param.thread"):
                 set_at(ps.threads, (srule, slot), 0,
                        applicable & fresh & is_thread & r_ok)
                 add_at(ps.threads, (srule, slot), 1,
@@ -530,7 +532,7 @@ def feed_param_exit(
                               slot, 0)
         dec = (valid & has_rule & pv_present
                & (grade == C.PARAM_FLOW_GRADE_THREAD) & (stored_key == pv_hash))
-        if not host_bool(dec.any()):
+        if not host_bool(dec.any(), "sync.param.exit_thread"):
             continue
         add_at(ps.threads, (rule_id, slot), -1,
                dec & in_range(rule_id, ps.key.shape[0]))

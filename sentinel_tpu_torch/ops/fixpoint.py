@@ -13,12 +13,15 @@ can only UNDER-admit (the safe direction).
 
 JAX runs this as ``lax.cond`` + ``lax.while_loop`` on the device; here it
 is a host loop, each predicate one counted sync (``utils/device.py``).
+While the span recorder is on, each ``blocked_for`` evaluation is a
+``fixpoint.sweep`` span and one ``fixpoint.sweeps`` count.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sentinel_tpu_torch.metrics import profiling as _prof
 from sentinel_tpu_torch.utils.device import host_bool
 
 
@@ -37,20 +40,26 @@ def survivor_fixpoint(candidate: torch.Tensor, blocked_for,
         return candidate
     two_pass = _counts_uniform(
         candidate if relevant is None else candidate & relevant, counts)
-    if host_bool(two_pass):
-        return candidate & (~blocked_for(candidate))
+    if host_bool(two_pass, "sync.fixpoint.uniform"):
+        return candidate & (~_sweep(blocked_for, candidate))
     s = candidate
     last_even = candidate  # S0 is itself a valid even iterate
     k = 0
     done = False
     while not done and k < cap:
-        s_next = candidate & (~blocked_for(s))
-        done = host_bool(torch.equal(s_next, s))
+        s_next = candidate & (~_sweep(blocked_for, s))
+        done = host_bool(torch.equal(s_next, s), "sync.fixpoint.converged")
         if k % 2 == 1:  # this computed S_{k+1}, even when k is odd
             last_even = s_next
         s = s_next
         k += 1
     return s if done else last_even
+
+
+def _sweep(blocked_for, survivors: torch.Tensor) -> torch.Tensor:
+    _prof.count("fixpoint.sweeps")
+    with _prof.span("fixpoint.sweep"):
+        return blocked_for(survivors)
 
 
 def _counts_uniform(candidate: torch.Tensor, counts: torch.Tensor

@@ -53,6 +53,7 @@ import torch
 from sentinel_tpu_torch.core import constants as C
 from sentinel_tpu_torch.core.batch import Decisions, EntryBatch, ExitBatch
 from sentinel_tpu_torch.core.registry import ENTRY_ROW
+from sentinel_tpu_torch.metrics import profiling as _prof
 from sentinel_tpu_torch.models import authority as A
 from sentinel_tpu_torch.models import degrade as D
 from sentinel_tpu_torch.models import flow as F
@@ -276,6 +277,7 @@ def _roll_second(w60: W.Window, sec: SecondAccum, telemetry: TelemetryState,
     now = int(now_ms)
     sec_start = now - now % SPEC_60S.bucket_ms
     SYNCS.count += 1
+    _prof.count("sync.step.roll_second")
     stamp = int(sec.stamp)
     if stamp >= 0 and stamp != sec_start:
         t = telemetry
@@ -534,7 +536,8 @@ def entry_step(
     decided = blocked | pre_ok
 
     # --- rule slots: authority → system → param-flow → flow → degrade ----
-    av = A.check_authority(rules.authority, batch, valid & (~decided))
+    with _prof.span("slot.authority"):
+        av = A.check_authority(rules.authority, batch, valid & (~decided))
     hit = valid & (~decided) & av.blocked
     reason = torch.where(hit, int(C.BlockReason.AUTHORITY), reason)
     rule_slot = torch.where(hit, av.slot, rule_slot)
@@ -542,9 +545,10 @@ def entry_step(
     decided = decided | blocked
 
     cand = valid & (~decided)
-    sys_blocked = Y.check_system(rules.system, state.sys_signals, w1, w60,
-                                 sec.counts, state.cur_threads, batch, cand,
-                                 now_ms, spec1=spec1)
+    with _prof.span("slot.system"):
+        sys_blocked = Y.check_system(rules.system, state.sys_signals, w1,
+                                     w60, sec.counts, state.cur_threads,
+                                     batch, cand, now_ms, spec1=spec1)
     reason = torch.where(cand & sys_blocked, int(C.BlockReason.SYSTEM), reason)
     # System rules are one global set, not per-resource slots: slot 0.
     rule_slot = torch.where(cand & sys_blocked, 0, rule_slot)
@@ -552,8 +556,9 @@ def entry_step(
     decided = decided | blocked
 
     cand = valid & (~decided)
-    pv = P.check_param_flow(rules.param, state.param, batch, now_ms, cand,
-                            extra_cms=extra_cms)
+    with _prof.span("slot.param"):
+        pv = P.check_param_flow(rules.param, state.param, batch, now_ms,
+                                cand, extra_cms=extra_cms)
     reason = torch.where(cand & pv.blocked, int(C.BlockReason.PARAM_FLOW),
                          reason)
     rule_slot = torch.where(cand & pv.blocked, pv.slot, rule_slot)
@@ -571,12 +576,14 @@ def entry_step(
         blocked = blocked | custom_blocked
         decided = decided | blocked
 
-    fv = F.check_flow(rules.flow, state.flow, w1, state.cur_threads, batch,
-                      now_ms, decided, occupied_next=occupied_next,
-                      spec=spec1, occupy_timeout_ms=occupy_timeout_ms,
-                      extra_pass=extra_pass, extra_next=extra_next,
-                      extra_pass_global=extra_pass_global,
-                      extra_next_global=extra_next_global)
+    with _prof.span("slot.flow"):
+        fv = F.check_flow(rules.flow, state.flow, w1, state.cur_threads,
+                          batch, now_ms, decided,
+                          occupied_next=occupied_next, spec=spec1,
+                          occupy_timeout_ms=occupy_timeout_ms,
+                          extra_pass=extra_pass, extra_next=extra_next,
+                          extra_pass_global=extra_pass_global,
+                          extra_next_global=extra_next_global)
     hit = valid & (~decided) & fv.blocked
     reason = torch.where(hit, int(C.BlockReason.FLOW), reason)
     rule_slot = torch.where(hit, fv.slot, rule_slot)
@@ -585,8 +592,9 @@ def entry_step(
 
     # Occupy grants leave the chain before the degrade slot.
     granted = valid & (~decided) & fv.occupied
-    dv = D.check_degrade(rules.degrade, state.degrade, batch, now_ms,
-                         valid & (~decided) & (~granted))
+    with _prof.span("slot.degrade"):
+        dv = D.check_degrade(rules.degrade, state.degrade, batch, now_ms,
+                             valid & (~decided) & (~granted))
     hit = valid & (~decided) & dv.blocked
     reason = torch.where(hit, int(C.BlockReason.DEGRADE), reason)
     rule_slot = torch.where(hit, dv.slot, rule_slot)

@@ -33,6 +33,7 @@ from sentinel_tpu_torch.core.config import (
     TELEMETRY_TRACE_CAPACITY,
     TELEMETRY_TRACE_SAMPLE_EVERY,
 )
+from sentinel_tpu_torch.metrics import profiling as _prof
 from sentinel_tpu_torch.telemetry.attribution import encode_reason_code
 
 # The batch and verdict columns the worker reads.
@@ -180,9 +181,22 @@ class DecisionTraceBuffer:
             pass
 
     def _process(self, cols: Dict, event, now_ms: int) -> None:
-        if event is not None:
-            event.synchronize()
-        reasons = _host(cols["reason"])
+        """One submitted batch. While the span recorder is on, it is one
+        ``pump.items`` count and a ``pump.process`` span with two kinds of
+        child: ``pump.wait``, the wait for the batch's copies to the host
+        (with the interpreter lock released), and ``pump.row_stats``, the
+        engine's read of the blocked rows' window (the engine lock, a few
+        device operations and their copy). The rest is the pump's own
+        Python."""
+        _prof.count("pump.items")
+        with _prof.span("pump.process"):
+            self._sample(cols, event, now_ms)
+
+    def _sample(self, cols: Dict, event, now_ms: int) -> None:
+        with _prof.span("pump.wait"):
+            if event is not None:
+                event.synchronize()
+            reasons = _host(cols["reason"])
         blocked_idx = np.nonzero(reasons > 0)[0]
         if blocked_idx.size == 0:
             return
@@ -229,7 +243,8 @@ class DecisionTraceBuffer:
         """Instant-window view of the blocked rows at trace time: one
         read per sampled batch, amortized by the sampling cadence."""
         try:
-            totals, threads = self.engine.row_stats()
+            with _prof.span("pump.row_stats"):
+                totals, threads = self.engine.row_stats()
         except Exception:  # noqa: BLE001 — a trace without its window
             return {}
         out: Dict[int, Dict] = {}

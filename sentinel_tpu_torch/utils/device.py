@@ -8,7 +8,9 @@ Callers (the tests, the parity phase of ``chip_smoke.py``) pass
 ``host_bool`` is the port's ``lax.cond`` / ``lax.while_loop`` predicate:
 a Python branch on a device bool, which costs one device->host sync on
 CUDA. Every such branch goes through it so ``SYNCS.count`` can report
-the syncs per step.
+the syncs per step. Each call site names its counter,
+``sync.<module>.<what>``, which counts it too while the span recorder
+(``metrics/profiling.py``) is on.
 
 ``to_host`` brings a set of tensors to host numpy in one device-to-host
 copy (the checkpoint's snapshot, the telemetry reader).
@@ -20,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from sentinel_tpu_torch.metrics import profiling as _prof
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,9 +47,11 @@ class _SyncCounter:
 SYNCS = _SyncCounter()
 
 
-def host_bool(t) -> bool:
-    """Read a 0-d device bool on the host (one sync on CUDA), counted."""
+def host_bool(t, site: str) -> bool:
+    """Read a 0-d device bool on the host (one sync on CUDA), counted;
+    ``site`` is its counter's name, ``sync.<module>.<what>``."""
     SYNCS.count += 1
+    _prof.count(site)
     return bool(t)
 
 

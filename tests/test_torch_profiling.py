@@ -278,3 +278,465 @@ def test_batch_api_leaves_the_step_timer_as_the_reference():
     assert port_out == jax_out
     assert port_out[0] == {} and port_out[1] == {}
     assert port_out[-1] == {"entry": (1, 1), "exit": (1, 1)}
+
+
+# -- the span and counter recorder (port only) --------------------------------
+
+from sentinel_tpu_torch.metrics import profiling as prof  # noqa: E402
+from sentinel_tpu_torch.metrics.timer import MetricTimerListener  # noqa: E402
+from sentinel_tpu_torch.metrics.writer import MetricWriter  # noqa: E402
+from sentinel_tpu_torch.utils.device import SYNCS  # noqa: E402
+
+T0_MS = 1_700_000_000_000
+MESH_RESOURCES = 8
+MESH_WIDTH = 64
+
+
+class _Clock:
+    def __init__(self, now_ms: int):
+        self.now = now_ms
+
+    def __call__(self) -> int:
+        return self.now
+
+
+@pytest.fixture
+def mesh():
+    """An engine with a flow rule (QPS 3) and a hot-parameter rule (count
+    2) on each of 8 resources and a system rule that never binds, so
+    every rule slot and each of the three fixpoints runs; the recorder is
+    stopped afterwards whatever the test did."""
+    from sentinel_tpu_torch.core.engine import SentinelEngine
+    from sentinel_tpu_torch.models import flow as F
+    from sentinel_tpu_torch.models import param_flow as P
+    from sentinel_tpu_torch.models import system as Y
+
+    clock = _Clock(T0_MS)
+    eng = SentinelEngine(capacity=256, device="cpu", clock=clock)
+    names = [f"r{i}" for i in range(MESH_RESOURCES)]
+    eng.flow_rules.load_rules([F.FlowRule(resource=n, count=3)
+                               for n in names])
+    eng.param_rules.load_rules([P.ParamFlowRule(n, param_idx=0, count=2)
+                                for n in names])
+    eng.system_rules.load_rules([Y.SystemRule(qps=1e12)])
+    rows = np.array([eng.registry.cluster_row(n, entry_type=int(
+        C.EntryType.IN)) for n in names], np.int32)
+    eng.warmup(widths=[MESH_WIDTH])
+    try:
+        yield eng, clock, rows
+    finally:
+        prof.stop()
+        eng.close()
+
+
+def _round(eng, rows, counts=1):
+    """One ``check_batch`` / ``harvest_decisions`` / ``complete_batch``
+    round over every resource; returns the lanes that passed."""
+    lane = np.arange(MESH_WIDTH)
+    b = make_entry_batch_np(MESH_WIDTH)
+    b["cluster_row"][:] = rows[lane % MESH_RESOURCES]
+    b["count"][:] = counts
+    b["entry_in"][:] = True
+    b["param_present"][:, 0] = True
+    b["param_hash"][:, 0] = lane
+    reason, _ = eng.harvest_decisions(eng.check_batch(b))
+    x = make_exit_batch_np(MESH_WIDTH)
+    x["cluster_row"][:] = np.where(reason == 0, b["cluster_row"], -1)
+    x["count"][:] = b["count"]
+    x["entry_in"][:] = True
+    x["param_present"][:, 0] = True
+    eng.complete_batch(x)
+    return int((reason == 0).sum())
+
+
+def _mine(snap):
+    """The calling thread's part of a snapshot."""
+    import threading
+
+    tid = threading.get_native_id()
+    return next(t for t in snap["threads"] if t["tid"] == tid)
+
+
+def test_recorder_off_records_nothing_reads_no_clock_allocates_nothing(
+        mesh, monkeypatch):
+    import tracemalloc
+
+    eng, _, rows = mesh
+    rec = prof.start()
+    _round(eng, rows)
+    prof.stop()
+    before = rec.snapshot()
+    clock_reads = []
+
+    class _Time:
+        @staticmethod
+        def time_ns():
+            clock_reads.append(1)
+            return 0
+
+    monkeypatch.setattr(prof, "time", _Time)
+    tracemalloc.start()
+    try:
+        _round(eng, rows)
+        allocated = tracemalloc.take_snapshot().filter_traces(
+            [tracemalloc.Filter(True, prof.__file__)]).traces
+    finally:
+        tracemalloc.stop()
+    assert prof.recorder is None
+    assert rec.snapshot() == before
+    assert clock_reads == [] and len(allocated) == 0
+
+
+def test_one_round_gives_the_span_tree(mesh):
+    eng, _, rows = mesh
+    prof.start()
+    _round(eng, rows)
+    prof.stop()
+    spans = _mine(prof.snapshot())["spans"]
+    by_id = {s["id"]: s for s in spans}
+    names = {s["id"]: s["name"] for s in spans}
+    roots = [s["name"] for s in spans if s["parent"] is None]
+    assert roots == ["check_batch", "harvest", "complete_batch"]
+    children = {}
+    for s in spans:
+        if s["parent"] is not None:
+            children.setdefault(names[s["parent"]], []).append(s["name"])
+            parent = by_id[s["parent"]]
+            assert parent["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= parent["end_ns"]
+    assert children["check_batch"] == [
+        "to_device", "step.entry", "telemetry.traces_submit",
+        "telemetry.population"]
+    assert children["step.entry"] == ["slot.authority", "slot.system",
+                                      "slot.param", "slot.flow",
+                                      "slot.degrade"]
+    for slot in ("slot.system", "slot.param", "slot.flow"):
+        assert children[slot] == ["fixpoint.sweep"]
+    assert children["complete_batch"] == ["to_device", "step.exit"]
+    # One step number for an entry step's spans and its harvest, the next
+    # for the exit step's.
+    step = {s["name"]: s["step"] for s in spans}
+    entry = step["check_batch"]
+    assert entry is not None and step["complete_batch"] == entry + 1
+    assert {s["step"] for s in spans if s["name"] != "complete_batch"
+            and not (s["parent"] is not None
+                     and names[s["parent"]] == "complete_batch")} == {entry}
+    assert step["step.exit"] == entry + 1
+
+
+def test_syncs_by_site_sum_to_the_sync_count(mesh):
+    eng, _, rows = mesh
+    prof.start()
+    before = SYNCS.count
+    _round(eng, rows)
+    delta = SYNCS.count - before
+    counters = _mine(prof.snapshot())["counters"]
+    prof.stop()
+    sites = {k: v for k, v in counters.items() if k.startswith("sync.")}
+    assert sum(sites.values()) == delta > 0
+    assert sites["sync.step.roll_second"] == 2  # the entry and exit steps
+    assert sites["sync.fixpoint.uniform"] == 3
+
+
+@pytest.mark.parametrize("counts,least,most", [
+    (1, 3, 3),     # uniform counts: one sweep a fixpoint
+    (np.arange(MESH_WIDTH) % 3 + 1, 4, 3 * 12),  # mixed: re-sweeps
+])
+def test_fixpoint_sweeps_counted(mesh, counts, least, most):
+    eng, _, rows = mesh
+    prof.start()
+    _round(eng, rows, counts)
+    mine = _mine(prof.snapshot())
+    prof.stop()
+    sweeps = mine["counters"]["fixpoint.sweeps"]
+    assert least <= sweeps <= most
+    assert sweeps == sum(s["name"] == "fixpoint.sweep" for s in mine["spans"])
+    assert mine["counters"].get("sync.fixpoint.converged", 0) == (
+        0 if least == most else sweeps)
+
+
+def test_timed_step_and_its_span_share_one_timing():
+    """``timed_call`` reads the clock once before and once after the step:
+    the same two reads make the ``step.<kind>`` span and the step timer's
+    enqueue wall; ``timer=None`` (the batch API) records the span alone."""
+    timer = StepTimer(ring=8, sync_every=1)
+    rec = prof.start()
+    try:
+        assert timed_call(timer, "entry", 8, None, lambda x: x, 7) == 7
+        assert timed_call(None, "exit", 8, None, lambda: None) is None
+    finally:
+        prof.stop()
+    spans = {s["name"]: s for s in _mine(rec.snapshot())["spans"]}
+    assert set(spans) == {"step.entry", "step.exit"}
+    wall_ms = (spans["step.entry"]["end_ns"]
+               - spans["step.entry"]["start_ns"]) / 1e6
+    assert timer.snapshot()["entry"]["enqueueP50Ms"] == round(wall_ms, 3)
+    assert "exit" not in timer.snapshot()
+
+
+def test_step_timer_keeps_the_monotonic_clock(monkeypatch):
+    """The wall clock may step (NTP): the step timer reads the monotonic
+    clock, and the span takes only its start from the wall clock."""
+    import time as _time
+
+    class _SteppingWall:
+        perf_counter_ns = staticmethod(_time.perf_counter_ns)
+        steps = []
+
+        @staticmethod
+        def time_ns():
+            _SteppingWall.steps.append(3600 * 10 ** 9)
+            return _time.time_ns() + sum(_SteppingWall.steps)
+
+    monkeypatch.setattr(prof, "time", _SteppingWall)
+    timer = StepTimer(ring=8, sync_every=1)
+    rec = prof.start()
+    try:
+        timed_call(timer, "entry", 8, None, lambda: None)
+    finally:
+        prof.stop()
+    span = _mine(rec.snapshot())["spans"][0]
+    wall_ms = (span["end_ns"] - span["start_ns"]) / 1e6
+    snap = timer.snapshot()["entry"]
+    assert len(_SteppingWall.steps) == 2  # the recorder's start, the span's
+    assert 0 <= wall_ms < 1000 and snap["enqueueP50Ms"] == round(wall_ms, 3)
+    assert snap["stepP50Ms"] < 1000
+
+
+def test_spans_past_a_threads_capacity_are_counted_as_dropped(monkeypatch):
+    monkeypatch.setattr(prof, "SPAN_CAPACITY", 2)
+    rec = prof.start()
+    try:
+        for name in ("a", "b", "c"):
+            rec.close(rec.open(name))
+    finally:
+        prof.stop()
+    mine = _mine(rec.snapshot())
+    assert [s["name"] for s in mine["spans"]] == ["a", "b"]
+    assert mine["dropped"] == 1
+
+
+def test_seal_spans_lie_inside_the_tick_and_do_not_overlap(mesh, tmp_path):
+    import time
+
+    eng, clock, rows = mesh
+    _round(eng, rows)
+    clock.now += 2000
+    timer = MetricTimerListener(eng, writer=MetricWriter(
+        base_dir=str(tmp_path)))
+    prof.start()
+    t0 = time.time_ns()
+    written = timer.tick()
+    t1 = time.time_ns()
+    prof.stop()
+    timer.stop()
+    assert written > 0
+    seal = sorted((s for s in _mine(prof.snapshot())["spans"]
+                   if s["name"].startswith("seal.")),
+                  key=lambda s: s["start_ns"])
+    assert [s["name"] for s in seal] == [
+        "seal.flush_committer", "seal.read", "seal.nodes", "seal.write"]
+    assert t0 <= seal[0]["start_ns"] and seal[-1]["end_ns"] <= t1
+    for a, b in zip(seal, seal[1:]):
+        assert a["start_ns"] <= a["end_ns"] <= b["start_ns"]
+
+
+def test_span_clock_is_the_profilers(mesh):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        for _ in range(3):
+            with torch.profiler.record_function("probe"):
+                rec = prof.start()
+                span = rec.open("probe")
+                rec.close(span)
+                prof.stop()
+    kineto = p.profiler.kineto_results
+    if not hasattr(kineto, "trace_start_ns"):
+        pytest.skip("this torch's profiler does not give its clock's origin")
+    starts = [kineto.trace_start_ns() + e.time_range.start * 1000
+              for e in p.events() if e.name == "probe"]
+    mine = [s["start_ns"] for t in prof.snapshot()["threads"]
+            for s in t["spans"] if s["name"] == "probe"]
+    assert len(starts) == 3 and len(mine) == 1  # the last recorder's
+    assert abs(starts[-1] - mine[0]) < 5e6
+
+
+def test_operator_trace_carries_every_threads_spans(mesh, tmp_path):
+    import json
+    import threading
+
+    eng, _, rows = mesh
+
+    def beside():
+        rec = prof.recorder
+        rec.close(rec.open("beside"))
+
+    with prof.trace(str(tmp_path)):
+        _round(eng, rows)
+        t = threading.Thread(target=beside)
+        t.start()
+        t.join(timeout=10)
+    assert prof.recorder is None
+    with open(tmp_path / "trace.json", encoding="utf-8") as f:
+        doc = json.load(f)
+    ours = [e for e in doc["traceEvents"] if e.get("cat") == "sentinel"]
+    names = {e["name"] for e in ours}
+    assert {"check_batch", "step.entry", "complete_batch",
+            "beside"} <= names
+    assert len({e["tid"] for e in ours}) >= 2
+    # On the trace's clock: each check_batch span starts where the
+    # profiler's own events of the same call do.
+    cpu = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+           and e.get("cat") != "sentinel"]
+    first = min(e["ts"] for e in cpu)
+    last = max(e["ts"] + e.get("dur", 0) for e in cpu)
+    cb = next(e for e in ours if e["name"] == "check_batch")
+    assert first - 5e3 <= cb["ts"] <= last
+
+
+def test_stale_seal_between_steps_keeps_every_pass(mesh):
+    """C26: a step of a later second that runs between the seal's start and
+    its hold on the engine lock (here, inside the committer's flush) is
+    not folded under the older second: the flight ring plus the staged
+    second still hold every PASS the engine counted."""
+    eng, clock, rows = mesh
+    assert eng.state.flight is not None
+    for _ in range(3):
+        _round(eng, rows)
+        clock.now += 400
+    flush = eng._flush_committer
+
+    def step_of_a_later_second():
+        flush()
+        clock.now += 1000
+        _round(eng, rows)
+
+    eng._flush_committer = step_of_a_later_second
+    eng.seal_metrics()
+    eng._flush_committer = flush
+    for _ in range(4):
+        _round(eng, rows)
+        clock.now += 300
+    state = eng.state
+    p = int(C.MetricEvent.PASS)
+    stamps = state.flight.stamps.numpy()
+    ring = int(state.flight.events.numpy()[stamps >= 0][:, p].sum())
+    staged = int(state.sec.counts.numpy()[p].sum())
+    total = int(eng.telemetry_counts()["totals"][p].sum())
+    assert total > 0 and ring + staged == total
+
+
+def test_operator_trace_carries_every_threads_counters(mesh, tmp_path):
+    import json
+    import threading
+
+    eng, _, rows = mesh
+    with prof.trace(str(tmp_path)):
+        _round(eng, rows)
+    with open(tmp_path / "trace.json", encoding="utf-8") as f:
+        doc = json.load(f)
+    mine = sorted((e for e in doc["traceEvents"] if e.get("ph") == "C"
+                   and e.get("cat") == "sentinel"
+                   and e["tid"] == threading.get_native_id()),
+                  key=lambda e: e["ts"])
+    assert len(mine) == 2 and mine[0]["name"] == mine[1]["name"]
+    assert set(mine[0]["args"].values()) == {0}
+    assert mine[1]["args"]["fixpoint.sweeps"] == 3
+    assert mine[1]["args"]["sync.step.roll_second"] == 2
+
+
+def test_trace_pump_splits_its_waits_from_its_python(mesh):
+    eng, _, rows = mesh
+    eng.traces.drain()  # the warm-up's batch, before recording
+    prof.start()
+    for _ in range(3):
+        _round(eng, rows)
+    eng.traces.drain()
+    prof.stop()
+    snap = prof.snapshot()
+    spans = [s for t in snap["threads"] for s in t["spans"]
+             if s["name"].startswith("pump.")]
+    items = sum(t["counters"].get("pump.items", 0) for t in snap["threads"])
+    process = {(s["id"], s["start_ns"]): s for s in spans
+               if s["name"] == "pump.process"}
+    assert items == len(process) == 3
+    by_parent = {}
+    for t in snap["threads"]:
+        ids = {s["id"]: s for s in t["spans"]}
+        for s in t["spans"]:
+            if s["name"] in ("pump.wait", "pump.row_stats"):
+                parent = ids[s["parent"]]
+                assert parent["name"] == "pump.process"
+                assert parent["start_ns"] <= s["start_ns"] \
+                    <= s["end_ns"] <= parent["end_ns"]
+                by_parent.setdefault((t["tid"], parent["id"]), []).append(
+                    s["name"])
+    assert sum(v.count("pump.wait") for v in by_parent.values()) == 3
+    # Three rounds block more than 64 entries: one trace is sampled, and
+    # its window read is the pump's engine read.
+    assert eng.traces.snapshot(limit=0)["recorded"] >= 1
+    assert sum(v.count("pump.row_stats") for v in by_parent.values()) >= 1
+
+
+def test_lock_take_that_waits_is_a_span(mesh):
+    import threading
+
+    eng, _, rows = mesh
+    held, free = threading.Event(), threading.Event()
+
+    def holder():
+        with eng._lock:
+            held.set()
+            free.wait(10)
+
+    t = threading.Thread(target=holder)
+    t.start()
+    held.wait(10)
+    timer = threading.Timer(0.05, free.set)
+    timer.start()
+    prof.start()
+    try:
+        _round(eng, rows)
+    finally:
+        prof.stop()
+        free.set()
+        t.join(10)
+    spans = _mine(prof.snapshot())["spans"]
+    names = {s["id"]: s["name"] for s in spans}
+    waits = [s for s in spans if s["name"] == "lock_wait"]
+    # check_batch's take waited out the hold; the exit's found it free.
+    assert [names[s["parent"]] for s in waits] == ["check_batch"]
+    assert waits[0]["end_ns"] - waits[0]["start_ns"] >= 20e6
+
+
+def test_lock_take_goes_through_a_wrapped_lock(mesh):
+    """A caller may wrap the engine lock in a ``with``-only measuring
+    lock: the engine's takes go through it, recorder on or off."""
+    eng, _, rows = mesh
+
+    class _WithOnly:
+        def __init__(self, inner):
+            self.inner, self.takes = inner, 0
+
+        def __enter__(self):
+            self.inner.acquire()
+            self.takes += 1
+
+        def __exit__(self, *exc):
+            self.inner.release()
+
+    inner = eng._lock
+    eng._lock = wrapped = _WithOnly(inner)
+    try:
+        _round(eng, rows)
+        off = wrapped.takes
+        prof.start()
+        _round(eng, rows)
+        prof.stop()
+    finally:
+        eng._lock = inner
+    assert off >= 2 and wrapped.takes == 2 * off
+    assert not any(s["name"] == "lock_wait"
+                   for s in _mine(prof.snapshot())["spans"])
